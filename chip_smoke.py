@@ -11,7 +11,8 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      ``ref.minmax_prune_batched_ref`` on the same inputs, exact equality of
      every verdict, over Q x Kb x C x P grids with drop sentinels inside P
      and in the capacity tail, (-inf, +inf) no-op slots, bounds equal to a
-     stat and denormal bounds and stats;
+     stat and denormal bounds and stats, and conjunctions of up to 8192
+     ranges (longer than the kernel's shared-memory tile);
   3. the main path at full size: ``PruningService.run_batch`` over the
      production-like events table (2**24 rows in 1,048,576
      micro-partitions, 6 columns) and a 600-row users dimension table, one
@@ -168,6 +169,25 @@ def phase_kernel_vs_plain(seed: int, dev, sizes=(1, 31, 4097, 1 << 20)
                     max_p = max(max_p, P)
                     cases += 1
             del planes
+    # conjunctions longer than the kernel's 2048-slot shared tile: a
+    # block stages its slots in chunks
+    for Q, Kb, P in ((3, 3000, 4097), (2, 8192, 4097), (33, 2049, 31)):
+        C = 6
+        mins, maxs, demote = random_planes(rng, C, P, plane_capacity(P))
+        cids, lo, hi = random_constraints(rng, Q, Kb, C, mins, maxs, P)
+        # keep the long conjunctions satisfiable: mostly no-op slots
+        keep = rng.random((Q, Kb)) < 0.02
+        lo[~keep], hi[~keep] = -np.inf, np.inf
+        args = [torch.from_numpy(a).to(dev)
+                for a in (cids, lo, hi, mins, maxs, demote)]
+        got = minmax_prune_batched(*args, num_partitions=P)
+        sync(dev)
+        want = minmax_prune_batched_ref(*args, num_partitions=P)
+        err = int((got.int() - want.int()).abs().max().item())
+        if err or got.shape != want.shape:
+            raise SystemExit(f"kernel != plain version at Q={Q} Kb={Kb} "
+                             f"C={C} P={P}: max abs err {err}")
+        cases += 1
     return dict(cases=cases, max_abs_err=max_err, max_p=max_p)
 
 

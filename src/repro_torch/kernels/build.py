@@ -4,8 +4,7 @@ Each source compiles with ``nvcc`` into a shared library with a plain C
 entry point, loaded with ``ctypes``; no PyTorch headers are involved, so a
 build takes seconds.  Libraries land in ``build/repro_torch/`` at the root
 of the checkout, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads from disk.  ``load_all`` starts
-one ``nvcc`` per missing library, all at once, and waits for them.
+source rebuilds and an unchanged one loads from disk.
 
 Flags: ``sm_90a`` for Hopper, ``-O3``, and no ``--use_fast_math`` /
 ``-ftz=true`` — the pruning kernels compare IEEE f32 values, denormals
@@ -21,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -30,6 +29,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel failed to build, was handed inputs it does not take,
+    or failed to launch.  Never a degradation: the serving layer lets it
+    through instead of demoting the work to a host rung."""
 
 
 def nvcc_path() -> str:
@@ -44,7 +49,7 @@ def nvcc_path() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def library_path(name: str) -> Path:
@@ -53,36 +58,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
-    """Build (in parallel) whatever is missing, then load every library."""
-    with _lock:
-        todo = [n for n in names if n not in _loaded]
-        procs = []
-        for name in todo:
-            out = library_path(name)
-            if out.exists():
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs.append((name, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        failed = []
-        for name, out, tmp, proc in procs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name}: nvcc exit {proc.returncode}\n"
-                              f"{log.decode(errors='replace')}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, out)     # atomic: a reader never sees half
-        if failed:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-        for name in todo:
-            _loaded[name] = ctypes.CDLL(str(library_path(name)))
-        return {n: _loaded[n] for n in names}
-
-
 def load(name: str) -> ctypes.CDLL:
-    return load_all([name])[name]
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    with _lock:
+        if name not in _loaded:
+            out = library_path(name)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run(
+                    [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                     str(CSRC / f"{name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise KernelError(
+                        f"{name}: nvcc exit {proc.returncode}\n"
+                        f"{proc.stdout.decode(errors='replace')}")
+                os.replace(tmp, out)     # atomic: a reader never sees half
+            _loaded[name] = ctypes.CDLL(str(out))
+        return _loaded[name]

@@ -18,8 +18,11 @@
 // store dominates.  The design follows from that:
 //   * one thread per partition p, a block over a tile of partitions, so
 //     the plane loads of a warp are 32 consecutive floats (coalesced);
-//   * a block's queries' (cid, lo, hi) tables sit in shared memory, read
-//     by every thread of the block;
+//   * a block's queries' (cid, lo, hi) slots are staged through a
+//     fixed kSlots-slot shared-memory tile, read by every thread of the
+//     block; when a block holds more slots than that (a conjunction of
+//     more than kSlots ranges) they go through the tile in chunks, so
+//     shared memory stays at 24 KB for any Kb;
 //   * query blocks are the fastest grid dimension: the blocks that share a
 //     partition tile run next to each other and re-read its plane rows
 //     from L2, not from device memory;
@@ -39,6 +42,7 @@
 namespace {
 
 constexpr int kThreads = 256;   // partitions per block
+constexpr int kSlots = 2048;    // (cid, lo, hi) slots in shared memory
 
 __global__ void minmax_prune_batched_kernel(
     const int32_t* __restrict__ cids,    // [Q, Kb]
@@ -49,11 +53,9 @@ __global__ void minmax_prune_batched_kernel(
     const float* __restrict__ demote,    // [C, Pc]
     int8_t* __restrict__ tv,             // [Q, P]
     int Q, int Kb, int P, int Pc, int block_q) {
-  extern __shared__ unsigned char smem[];
-  const int n = block_q * Kb;
-  int32_t* s_cid = reinterpret_cast<int32_t*>(smem);
-  float* s_lo = reinterpret_cast<float*>(s_cid + n);
-  float* s_hi = s_lo + n;
+  __shared__ int32_t s_cid[kSlots];
+  __shared__ float s_lo[kSlots];
+  __shared__ float s_hi[kSlots];
 
   // 1-D grid, query blocks fastest: block b covers query block
   // b % n_qblocks and partition tile b / n_qblocks
@@ -61,34 +63,46 @@ __global__ void minmax_prune_batched_kernel(
   const int q0 = (blockIdx.x % n_qblocks) * block_q;
   const int64_t tile = blockIdx.x / n_qblocks;
   const int nq = min(block_q, Q - q0);
-  for (int i = threadIdx.x; i < nq * Kb; i += blockDim.x) {
-    const int64_t g = static_cast<int64_t>(q0) * Kb + i;
-    s_cid[i] = cids[g];
-    s_lo[i] = lo[g];
-    s_hi[i] = hi[g];
-  }
-  __syncthreads();
-
+  const int64_t n = static_cast<int64_t>(nq) * Kb;   // the block's slots
   const int64_t p64 = tile * blockDim.x + threadIdx.x;
-  if (p64 >= P) return;
-  const int p = static_cast<int>(p64);
-  for (int qi = 0; qi < nq; ++qi) {
-    int v = 2;
-    for (int k = 0; k < Kb; ++k) {
-      const float l = s_lo[qi * Kb + k];
-      const float h = s_hi[qi * Kb + k];
-      if (l == -CUDART_INF_F && h == CUDART_INF_F) continue;   // padding
-      const int64_t off = static_cast<int64_t>(s_cid[qi * Kb + k]) * Pc + p;
-      const float pmin = __ldg(mins + off);
-      const float pmax = __ldg(maxs + off);
-      const float pdem = __ldg(demote + off);
-      const bool empty = pmin > pmax;
-      const bool no = (pmax < l) | (pmin > h) | empty;
-      const bool full = (pmin >= l) & (pmax <= h) & (pdem == 0.0f) & !empty;
-      const int t = no ? 0 : (full ? 2 : 1);
-      v = min(v, t);
+  // threads past P stage slots and meet every barrier, but store nothing
+  const bool active = p64 < P;
+  const int p = active ? static_cast<int>(p64) : 0;
+
+  int qi = 0;   // query of the next slot, relative to q0
+  int k = 0;    // its constraint index
+  int v = 2;    // running AND over the query's constraints
+  for (int64_t c0 = 0; c0 < n; c0 += kSlots) {
+    const int m = n - c0 < kSlots ? static_cast<int>(n - c0) : kSlots;
+    if (c0 > 0) __syncthreads();     // the previous chunk has been read
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      const int64_t g = static_cast<int64_t>(q0) * Kb + c0 + i;
+      s_cid[i] = cids[g];
+      s_lo[i] = lo[g];
+      s_hi[i] = hi[g];
     }
-    tv[static_cast<int64_t>(q0 + qi) * P + p] = static_cast<int8_t>(v);
+    __syncthreads();
+    if (!active) continue;
+    for (int i = 0; i < m; ++i) {
+      const float l = s_lo[i];
+      const float h = s_hi[i];
+      if (!(l == -CUDART_INF_F && h == CUDART_INF_F)) {   // else padding
+        const int64_t off = static_cast<int64_t>(s_cid[i]) * Pc + p;
+        const float pmin = __ldg(mins + off);
+        const float pmax = __ldg(maxs + off);
+        const float pdem = __ldg(demote + off);
+        const bool empty = pmin > pmax;
+        const bool no = (pmax < l) | (pmin > h) | empty;
+        const bool full = (pmin >= l) & (pmax <= h) & (pdem == 0.0f) & !empty;
+        v = min(v, no ? 0 : (full ? 2 : 1));
+      }
+      if (++k == Kb) {                 // the query's last constraint
+        tv[static_cast<int64_t>(q0 + qi) * P + p] = static_cast<int8_t>(v);
+        v = 2;
+        k = 0;
+        ++qi;
+      }
+    }
   }
 }
 
@@ -102,13 +116,12 @@ extern "C" int minmax_prune_batched_launch(
     const void* maxs, const void* demote, void* tv, int Q, int Kb, int P,
     int Pc, int block_q, void* stream) {
   if (Q <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
+  if (Kb <= 0 || block_q <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = static_cast<int64_t>((Q + block_q - 1) / block_q) *
                          ((P + kThreads - 1) / kThreads);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned int>(blocks));
-  const size_t smem = static_cast<size_t>(block_q) * Kb *
-                      (sizeof(int32_t) + 2 * sizeof(float));
-  minmax_prune_batched_kernel<<<grid, kThreads, smem,
+  minmax_prune_batched_kernel<<<grid, kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cids), static_cast<const float*>(lo),
       static_cast<const float*>(hi), static_cast<const float*>(mins),

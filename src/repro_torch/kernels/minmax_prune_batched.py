@@ -9,8 +9,10 @@ demote flag is 0, else 1 (PARTIAL); ``(-inf, +inf)`` slots are padding.
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/minmax_prune_batched.cu`` (built at first use, see ``build.py``);
 on a CPU tensor it runs the plain PyTorch version
-(``ref.minmax_prune_batched_ref``).  There is no fallback between the
-two: a CUDA input either launches the kernel or raises.
+(``ref.minmax_prune_batched_ref``) over column slabs, so CPU memory stays
+bounded at any P.  There is no fallback between the two: a CUDA input
+either launches the kernel or raises ``KernelError``, as does any input
+the kernel does not take.
 """
 
 from __future__ import annotations
@@ -21,13 +23,18 @@ from typing import Optional
 import torch
 
 from . import build
+from .build import KernelError
 from .ref import minmax_prune_batched_ref
 
 KERNEL = "minmax_prune_batched"
-# Queries per block: their (cid, lo, hi) tables share the block's shared
-# memory, 12 bytes a slot; at most 2048 slots keeps it at 24 KB.
+# Queries per block.  The kernel stages a block's (cid, lo, hi) slots
+# through a 2048-slot shared-memory tile (kSlots in the .cu), in chunks
+# when there are more; up to 2048 slots a block stages them all at once.
 MAX_BLOCK_SLOTS = 2048
 BLOCK_Q = 32
+# Peak elements per [Q, P_slab] intermediate of the plain version on the
+# CPU; keeps it memory-bounded for huge P.
+_REF_SLAB_ELEMS = 1 << 25
 
 _fn = None
 
@@ -50,16 +57,28 @@ def block_q(kb: int) -> int:
 
 def _check(name, t, dtype, shape, device):
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
+        raise KernelError(f"{name} must be a torch.Tensor")
     if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        raise KernelError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
+        raise KernelError(f"{name} must have shape {tuple(shape)}, "
+                          f"got {tuple(t.shape)}")
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise KernelError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise KernelError(f"{name} must be contiguous")
+
+
+def _plain_slabbed(cids, lo, hi, mins, maxs, demote, P: int) -> torch.Tensor:
+    """The plain version over [Q, slab] column slabs (bounded memory)."""
+    Q = int(lo.shape[0])
+    slab = max(1024, _REF_SLAB_ELEMS // max(Q, 1))
+    tv = torch.empty((Q, P), dtype=torch.int8)
+    for s in range(0, P, slab):
+        e = min(s + slab, P)
+        tv[:, s:e] = minmax_prune_batched_ref(
+            cids, lo, hi, mins[:, s:e], maxs[:, s:e], demote[:, s:e])
+    return tv
 
 
 def minmax_prune_batched(
@@ -73,12 +92,12 @@ def minmax_prune_batched(
 ) -> torch.Tensor:
     """Returns tv [Q, P] int8 in {0, 1, 2} on the planes' device."""
     if mins.dim() != 2 or lo.dim() != 2:
-        raise ValueError("planes must be [C, Pc] and constraints [Q, Kb]")
+        raise KernelError("planes must be [C, Pc] and constraints [Q, Kb]")
     Q, Kb = lo.shape
     C, Pc = mins.shape
     P = Pc if num_partitions is None else int(num_partitions)
     if not 0 <= P <= Pc:
-        raise ValueError(f"num_partitions {P} outside [0, {Pc}]")
+        raise KernelError(f"num_partitions {P} outside [0, {Pc}]")
     dev = mins.device
     for name, t, dtype, shape in (
             ("cids", cids, torch.int32, (Q, Kb)),
@@ -89,12 +108,11 @@ def minmax_prune_batched(
             ("demote", demote, torch.float32, (C, Pc))):
         _check(name, t, dtype, shape, dev)
     if dev.type == "cpu":
-        return minmax_prune_batched_ref(cids, lo, hi, mins, maxs, demote,
-                                        num_partitions=P)
+        return _plain_slabbed(cids, lo, hi, mins, maxs, demote, P)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise KernelError(f"unsupported device {dev}")
     if max(Q, Kb, C, Pc) >= 2 ** 31:
-        raise ValueError("dimensions must fit in int32")
+        raise KernelError("dimensions must fit in int32")
     fn = load_kernel()
     tv = torch.empty((Q, P), dtype=torch.int8, device=dev)
     if Q == 0 or P == 0:
@@ -107,7 +125,7 @@ def minmax_prune_batched(
                  mins.data_ptr(), maxs.data_ptr(), demote.data_ptr(),
                  tv.data_ptr(), Q, Kb, P, Pc, block_q(Kb), stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
+        raise KernelError(f"{KERNEL} launch failed: cudaError {err}")
     minmax_prune_batched.launches += 1
     return tv
 

@@ -12,9 +12,9 @@ power-of-two bucket, ``(-inf, +inf)`` no-op padding) and evaluated by
 .PruningService`` groups a workload by table and drives this path.
 
 Kernel modes: ``auto`` dispatches on the planes' device (CUDA tensors
-launch the kernel, CPU tensors run the plain torch version), ``cuda``
-requires CUDA planes and ``torch`` requires CPU planes; each raises on
-the other device.  The host rung (``prune_ranges_batched_host``) stays
+launch the kernel, CPU tensors run the plain torch version; the choice is
+the wrapper's), ``cuda`` requires CUDA planes and ``torch`` requires CPU
+planes; each raises on the other device.  The host rung (``prune_ranges_batched_host``) stays
 NumPy f64.
 
 All f32 downcasts go through ``core.device_stats`` (widening + demotion;
@@ -33,14 +33,10 @@ import torch
 from ..core.device_stats import (DeviceStats, cast_bounds_f32,
                                  snap_bounds_integral)
 from ..core.metadata import PartitionStats
-from . import ref
+from .build import KernelError
 from .minmax_prune_batched import minmax_prune_batched
 
 MODES = ("auto", "cuda", "torch")
-
-# Peak elements per [Q, P_slab] intermediate on the plain CPU path; keeps
-# it memory-bounded for huge P.
-_REF_SLAB_ELEMS = 1 << 25
 
 # Query-row floor of ``q_bucket``: the packed tables keep the reference's
 # power-of-two query buckets (8 rows minimum), so both packages pack
@@ -112,19 +108,6 @@ def pack_ranges(
     return cids, lo32, hi32, full_safe
 
 
-def _ref_slabbed(cids, lo, hi, mins, maxs, demote, P: int) -> np.ndarray:
-    """The plain version over [Q, slab] column slabs (bounded memory)."""
-    Q = int(lo.shape[0])
-    slab = max(1024, _REF_SLAB_ELEMS // max(Q, 1))
-    tv = np.empty((Q, P), dtype=np.int8)
-    for s in range(0, P, slab):
-        e = min(s + slab, P)
-        tv[:, s:e] = ref.minmax_prune_batched_ref(
-            cids, lo, hi, mins[:, s:e], maxs[:, s:e],
-            demote[:, s:e]).numpy()
-    return tv
-
-
 def prune_ranges_batched_device(
     range_lists: Sequence[List[Tuple[int, float, float]]],
     dstats: DeviceStats,
@@ -149,11 +132,15 @@ def prune_ranges_batched_device(
     cids_d = torch.from_numpy(np.ascontiguousarray(cids[:Q])).to(dev)
     lo_d = torch.from_numpy(np.ascontiguousarray(lo[:Q])).to(dev)
     hi_d = torch.from_numpy(np.ascontiguousarray(hi[:Q])).to(dev)
-    if dev.type == "cuda":
-        tv = minmax_prune_batched(cids_d, lo_d, hi_d, mins, maxs, demote,
-                                  num_partitions=P).cpu().numpy()
-    else:
-        tv = _ref_slabbed(cids_d, lo_d, hi_d, mins, maxs, demote, P)
+    tv_d = minmax_prune_batched(cids_d, lo_d, hi_d, mins, maxs, demote,
+                                num_partitions=P)
+    try:
+        tv = tv_d.cpu().numpy()
+    except RuntimeError as exc:
+        # the first sync after the launch: a fault the kernel raised on
+        # the card surfaces here, and must not pass for a degradation
+        raise KernelError(f"reading back minmax_prune_batched: {exc}") \
+            from exc
     if not full_safe.all():
         tv[~full_safe] = np.minimum(tv[~full_safe], 1)
     return tv

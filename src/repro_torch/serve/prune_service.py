@@ -48,6 +48,7 @@ from ..core.metadata import (NO_MATCH, PARTIAL_MATCH, ScanSet,
                              live_full_scan, mask_dead_partitions)
 from ..core.prune_filter import eval_tv, extract_ranges
 from ..kernels import ops as kops
+from ..kernels.build import KernelError
 from ..kernels.minmax_prune_batched import load_kernel
 from .resilience import (DegradationLadder, new_resilience_counters,
                          resilience_delta, resilience_snapshot)
@@ -140,9 +141,10 @@ class PruningService:
         self._validated: set = set()
         # The resilience layer: every batched launch executes through the
         # degradation ladder (device -> host kernel -> host oracle ->
-        # passthrough), so a kernel failure, a torn plane, or a deadline
+        # passthrough), so an injected fault, a torn plane, or a deadline
         # costs pruning quality, never correctness and never an exception
-        # out of run_batch.  Demotions and retries surface per batch under
+        # out of run_batch; a KernelError is let through, never demoted.
+        # Demotions and retries surface per batch under
         # ``PruningReport.counters["resilience"]``.
         self.resilience = new_resilience_counters()
         self.ladder = DegradationLadder(
@@ -349,7 +351,9 @@ class PruningService:
         passthrough reports (``errors`` counter); launch/staging/plane
         failures degrade through the ladder; an unexpected batch-level
         failure falls back to per-query execution
-        (``salvaged_batches``).
+        (``salvaged_batches``).  A ``kernels.build.KernelError`` (the
+        kernel failed to build, to take its inputs or to launch) is not
+        such a problem and raises.
         """
         for q in queries:
             check_supported(q)
@@ -382,6 +386,8 @@ class PruningService:
                 tech.run_batch(pipeline, states,
                                service=self if device else None)
             good = [pipeline.finish(s) for s in states]
+        except KernelError:
+            raise                   # a broken kernel is not salvaged
         except Exception:
             # Last-resort guard: something outside the ladder's reach
             # broke the batched drive.  Salvage per query; a query that
@@ -391,6 +397,8 @@ class PruningService:
             for _i, q in valid:
                 try:
                     good.append(pipeline.run(q))
+                except KernelError:
+                    raise
                 except Exception:
                     self.resilience["errors"] += 1
                     good.append(self._passthrough_report(pipeline, q))

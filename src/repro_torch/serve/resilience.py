@@ -33,9 +33,12 @@ Counters contract (attached per batch as ``counters["resilience"]``):
     salvaged_batches  whole-batch guard trips (per-query host salvage)
     demotions       {rung: times the ladder demoted INTO that rung}
 
-The device rung's kernel is the hand-written CUDA kernel on a GPU: a
-demotion from it is a fault to see, and ``counters["resilience"]`` is
-where a run sees it.
+The device rung's kernel is the hand-written CUDA kernel on a GPU.  A
+``KernelError`` (the kernel failed to build, was handed inputs it does not
+take, or failed to launch) is never demoted: ``execute`` re-raises it, so
+a broken kernel cannot hide behind a host rung.  Injected faults, torn
+planes and deadlines still demote, and ``counters["resilience"]`` is
+where a run sees them.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import torch
 
 from ..core.device_stats import PlaneIntegrityError  # noqa: F401  re-export
 from ..core.device_stats import to_host
+from ..kernels.build import KernelError
 
 # The ordered fallback chain.  A launch enters at the top rung and only
 # ever moves down; the bottom rung keeps every live partition as PARTIAL
@@ -231,7 +235,8 @@ class DegradationLadder:
     ladder demotes to the next rung, recording the demotion.  The caller
     makes the final rung infallible (host passthrough); if every rung
     raises anyway the last exception propagates — that is a bug in the
-    rung list, not a degradation.
+    rung list, not a degradation.  A ``KernelError`` propagates at once,
+    from any rung, without retry or demotion.
     """
 
     def __init__(self, policy: Optional[BackoffPolicy] = None,
@@ -260,6 +265,8 @@ class DegradationLadder:
             while True:
                 try:
                     result = thunk()
+                except KernelError:
+                    raise                     # a broken kernel, not a fault
                 except Exception as exc:      # noqa: BLE001 — the whole point
                     last_exc = exc
                     if attempt >= self.policy.retries or self._expired(start):

@@ -4,7 +4,7 @@ These tests need a CUDA device and the CUDA compiler; without a card
 each one skips (a skip is no pass: on a machine without a GPU the kernel
 is checked only by ``chip_smoke.py`` on the card).  Run them there with
 
-    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
 import numpy as np
@@ -13,11 +13,15 @@ import torch
 
 from repro_torch.core import device_stats as TD
 from repro_torch.core.metadata import ColumnMeta, PartitionStats
+import importlib
+
 from repro_torch.kernels import ops
+from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.minmax_prune_batched import minmax_prune_batched
 from repro_torch.kernels.ref import minmax_prune_batched_ref
 
 F32_MAX = np.float32(np.finfo(np.float32).max)
+tmpb = importlib.import_module("repro_torch.kernels.minmax_prune_batched")
 
 
 @pytest.fixture
@@ -45,6 +49,8 @@ def _inputs(rng, Q, Kb, C, P, cap):
 
 @pytest.mark.parametrize("Q,Kb,C,P", [
     (1, 1, 1, 1), (7, 2, 6, 31), (64, 4, 6, 4097), (300, 8, 33, 5000),
+    # conjunctions longer than the kernel's 2048-slot shared tile
+    (3, 3000, 6, 700), (2, 8192, 6, 4097),
 ])
 def test_kernel_equals_plain_version(cuda, Q, Kb, C, P):
     rng = np.random.default_rng(P)
@@ -91,3 +97,22 @@ def test_torch_mode_refuses_cuda_planes(cuda):
     with pytest.raises(ValueError):
         ops.prune_ranges_batched_device([[(0, 0.0, 1.0)]], dstats,
                                         mode="torch")
+
+
+def test_launch_failure_raises_out_of_run_batch(cuda, monkeypatch):
+    """A launch that returns a CUDA error raises KernelError from the
+    wrapper and out of run_batch: no host rung takes the batch over."""
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import Query, TableScanSpec
+    from repro_torch.data.generator import make_events_table
+    from repro_torch.serve.prune_service import PruningService
+    ev = make_events_table(np.random.default_rng(0), n_rows=4000,
+                           rows_per_partition=20)
+    svc = PruningService()
+    tmpb.load_kernel()
+    monkeypatch.setattr(tmpb, "_fn", lambda *_a: 1)   # cudaErrorInvalidValue
+    with pytest.raises(KernelError, match="cudaError 1"):
+        svc.run_batch([Query(scans={"e": TableScanSpec(
+            ev, E.col("ts") >= 5_000_000)})])
+    assert not any(svc.resilience["demotions"].values())
+    assert svc.resilience["salvaged_batches"] == 0

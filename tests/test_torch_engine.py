@@ -26,7 +26,10 @@ from repro_torch.core.flow import Query as TQuery
 from repro_torch.core.flow import TableScanSpec as TSpec
 from repro_torch.data.table import Table as TTable
 from repro_torch.serve.prune_service import PruningService as TService
-from repro_torch.serve.resilience import BackoffPolicy, FaultInjector
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.build import KernelError
+from repro_torch.serve.resilience import (BackoffPolicy, DegradationLadder,
+                                          FaultInjector, InjectedFault)
 
 from test_torch_host import build_pred
 
@@ -275,3 +278,64 @@ def test_service_rejects_arguments_it_cannot_honour():
         TService(device="cpu", mode="cuda")
     with pytest.raises(ValueError):
         TService(device="cpu", mode="pallas")
+
+
+def _failing_kernel(*_args, **_kw):
+    raise KernelError("minmax_prune_batched launch failed: cudaError 1")
+
+
+def test_kernel_error_raises_out_of_run_batch(tables, monkeypatch):
+    """A kernel that fails to launch is not a degradation: run_batch
+    raises instead of serving the batch from a host rung."""
+    workload = _workload(np.random.default_rng(6), n=16)
+    tq = _queries(workload, [t for _, t in tables], TE, TQuery, TSpec)
+    monkeypatch.setattr(tops, "minmax_prune_batched", _failing_kernel)
+    svc = TService(device="cpu")
+    with pytest.raises(KernelError, match="launch failed"):
+        svc.run_batch(tq)
+    assert not any(svc.resilience["demotions"].values())
+    assert svc.resilience["retries"] == 0
+    assert svc.resilience["salvaged_batches"] == 0
+    assert svc.counters.host_fallbacks == 0
+
+
+def test_kernel_error_is_not_salvaged_per_query(tables, monkeypatch):
+    """A batch drive that breaks for another reason is salvaged query by
+    query; a kernel failure met there still raises."""
+    workload = _workload(np.random.default_rng(7), n=8)
+    tq = _queries(workload, [t for _, t in tables], TE, TQuery, TSpec)
+    svc = TService(device="cpu")
+
+    def broken_batch(_queries):
+        raise RuntimeError("batch drive broke")
+
+    monkeypatch.setattr(svc, "prune_batch", broken_batch)
+    monkeypatch.setattr(tops, "minmax_prune_batched", _failing_kernel)
+    with pytest.raises(KernelError):
+        svc.run_batch(tq)
+    assert svc.resilience["salvaged_batches"] == 1
+    assert svc.resilience["errors"] == 0
+    assert not any(svc.resilience["demotions"].values())
+
+
+@pytest.mark.parametrize("exc,demoted", [
+    (KernelError("launch failed"), False),
+    (InjectedFault("launch.filter:device"), True),
+    (RuntimeError("torn plane"), True),
+])
+def test_ladder_demotes_faults_but_not_kernel_errors(exc, demoted):
+    ladder = DegradationLadder(policy=BackoffPolicy(retries=1),
+                               sleep=lambda _s: None)
+
+    def device():
+        raise exc
+
+    rungs = [("device", device), ("host_kernel", lambda: "host")]
+    if demoted:
+        assert ladder.execute(rungs) == ("host", "host_kernel")
+        assert ladder.counters["demotions"]["host_kernel"] == 1
+    else:
+        with pytest.raises(KernelError):
+            ladder.execute(rungs)
+        assert ladder.counters["demotions"]["host_kernel"] == 0
+        assert ladder.counters["retries"] == 0

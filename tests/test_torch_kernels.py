@@ -24,6 +24,7 @@ from repro_torch.core import device_stats as TD
 from repro_torch.core import metadata as TM
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.minmax_prune_batched import minmax_prune_batched
 
 torch.set_num_threads(1)
@@ -218,6 +219,19 @@ def test_wrapper_runs_plain_version_on_cpu_and_counts_no_launch():
         got, tref.minmax_prune_batched_ref(*arrays)[:, :33], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("Q,P", [(5, 3000), (64, 4096)])
+def test_wrapper_slabs_the_plain_version_over_p(monkeypatch, Q, P):
+    """On the CPU the wrapper runs the plain version in [Q, slab] column
+    slabs; the slabs join up to the one-shot answer."""
+    rng = np.random.default_rng(Q + P)
+    arrays = [torch.from_numpy(a)
+              for a in _random_kernel_inputs(rng, Q, 4, 3, P)]
+    want = tref.minmax_prune_batched_ref(*arrays, num_partitions=P - 3)
+    monkeypatch.setattr(tmpb, "_REF_SLAB_ELEMS", 1)   # 1024-column slabs
+    got = minmax_prune_batched(*arrays, num_partitions=P - 3)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "p"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     rng = np.random.default_rng(10)
@@ -232,7 +246,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         maxs = torch.cat([maxs, maxs], 1)[:, ::2]
     else:
         kw = dict(num_partitions=17)
-    with pytest.raises((TypeError, ValueError)):
+    with pytest.raises(KernelError):
         minmax_prune_batched(cids, lo, hi, mins, maxs, dem, **kw)
 
 
