@@ -1,28 +1,45 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--batches 5] [--json PATH]
+    python3 chip_smoke.py [--seed 0] [--batches 3] [--json PATH]
 
 Phases (each failure exits non-zero; nothing is caught and passed over):
 
   1. environment: torch version, the card's name and power limit, and the
-     build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
-  2. kernel vs plain version on the card: ``minmax_prune_batched`` against
-     ``ref.minmax_prune_batched_ref`` on the same inputs, exact equality of
-     every verdict, over Q x Kb x C x P grids with drop sentinels inside P
-     and in the capacity tail, (-inf, +inf) no-op slots, bounds equal to a
-     stat and denormal bounds and stats, and conjunctions of up to 8192
-     ranges (longer than the kernel's shared-memory tile);
+     build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+     ``nvcc`` per source, all started together);
+  2. each kernel vs its plain version on the card, exact equality of every
+     output, on the same inputs:
+       * ``minmax_prune_batched`` over Q x Kb x C x P grids with drop
+         sentinels inside P and in the capacity tail, (-inf, +inf) no-op
+         slots, bounds equal to a stat, denormal bounds and stats, and
+         conjunctions of up to 8192 ranges;
+       * ``join_overlap_batched`` with +inf key padding, drop and capacity
+         sentinels (+f32max, -f32max), keys on a partition's bounds and
+         key rows longer than the kernel's shared-memory tile;
+       * ``bloom_probe_batched`` with widths 0 and above the enumeration
+         limit, negative candidates and both ends of int32, and filters
+         of 1, 8, 256 and 1024 blocks;
+       * ``topk_init_batched`` with k in {1, 3, 64, 128}, queries with no
+         candidate, ties, all -inf rows and candidate lists long enough to
+         need many slabs; P up to 2**21 throughout;
   3. the main path at full size: ``PruningService.run_batch`` over the
      production-like events table (2**24 rows in 1,048,576
-     micro-partitions, 6 columns) and a 600-row users dimension table, one
-     batch of 256 queries (192 filter-only, 64 plain LIMIT) — one warm-up
-     batch, then ``--batches`` timed ones.  Every batch must be
-     bit-identical to the same service on the CPU (the plain version),
-     bit-identical to the f64 host pipeline on int/dictionary predicates,
-     keep every partition the host pipeline keeps, and run with no
-     demotion, salvage or passthrough and exactly one kernel launch per
-     table group.  Then the split of one batch's time by stage.
+     micro-partitions, 6 columns), a 600-row users dimension table and a
+     20,000-row users table that is the build side of the joins: one batch
+     of 256 queries (128 filter-only, 48 plain LIMIT, 48 top-k, 32 join of
+     which 8 also ORDER BY) — one warm-up batch, then ``--batches`` timed
+     ones.  Every batch must be bit-identical to the same service on the
+     CPU (the plain versions), bit-identical to the f64 host pipeline on
+     int/dictionary predicates (scan sets and reports; top-k values equal
+     and the device's skipped partitions a superset of the host's; Bloom
+     joins are held to the CPU run only), keep every partition the host
+     pipeline keeps, run with no demotion, salvage or passthrough, launch
+     each kernel once per table group, and fall back to the host top-k
+     init exactly for the join + ORDER BY queries.  Then the split of one
+     batch's time by stage, with each kernel timed at the main path's
+     shapes beside its plain version and, where one exists, a PyTorch
+     library call computing the same function.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -35,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,8 +63,23 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate and f32 rate
-# outside the tensor cores.
+# The port's kernels by the service's technique counter, in the order of
+# the pipeline's stages: (kernel, its stage, the TPU kernel it replaces,
+# by the JAX package's wrapper).
+KERNELS = {
+    "filter": ("minmax_prune_batched", "filter",
+               "src/repro/kernels/minmax_prune_batched.py:82"),
+    "join": ("join_overlap_batched", "join",
+             "src/repro/kernels/join_overlap.py:67"),
+    "join_bloom": ("bloom_probe_batched", "join",
+                   "src/repro/kernels/bloom_probe.py:100"),
+    "topk": ("topk_init_batched", "topk",
+             "src/repro/kernels/topk_boundary.py:140"),
+}
+
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, and the f32 rate
+# outside the tensor cores, which also stands for the 32-bit integer ALU
+# operations of the hash and the compares (the int32 rate is not above it).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -85,6 +118,45 @@ def cuda_ms(fn, reps: int) -> float:
         e1.record()
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / reps
+
+
+def host_ms(fn, dev) -> float:
+    """Host-clock time of ``fn`` between two synchronisations."""
+    sync(dev)
+    t0 = time.perf_counter()
+    fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def abs_err(got, want) -> float:
+    """Largest |got - want| (0 when equal, inf on a shape or infinity
+    mismatch)."""
+    import torch
+    if got.shape != want.shape:
+        return math.inf
+    if torch.equal(got, want):
+        return 0.0
+    g, w = got.double(), want.double()
+    d = (g - w).abs()
+    d[g == w] = 0.0
+    d[torch.isnan(d)] = math.inf
+    return float(d.max().item())
+
+
+def require_equal(name: str, got, want, where: str) -> float:
+    err = abs_err(got, want)
+    if err:
+        raise SystemExit(f"{name} kernel != plain version at {where}: "
+                         f"max abs err {err}")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -134,18 +206,14 @@ def random_constraints(rng, Q: int, Kb: int, C: int, mins, maxs, P: int):
     return cids, lo, hi
 
 
-def phase_kernel_vs_plain(seed: int, dev, sizes=(1, 31, 4097, 1 << 20)
-                          ) -> dict:
+def minmax_cases(rng, dev, sizes) -> dict:
     import torch
 
     from repro_torch.core.device_stats import plane_capacity
     from repro_torch.kernels.minmax_prune_batched import minmax_prune_batched
     from repro_torch.kernels.ref import minmax_prune_batched_ref
 
-    rng = np.random.default_rng(seed)
-    cases = 0
-    max_err = 0
-    max_p = 0
+    cases, max_p = 0, 0
     for C in (1, 6, 33):
         for P in sizes:
             cap = plane_capacity(P)
@@ -160,12 +228,8 @@ def phase_kernel_vs_plain(seed: int, dev, sizes=(1, 31, 4097, 1 << 20)
                     sync(dev)
                     want = minmax_prune_batched_ref(*cq, *planes,
                                                     num_partitions=P)
-                    err = int((got.int() - want.int()).abs().max().item())
-                    if err or got.shape != want.shape:
-                        raise SystemExit(
-                            f"kernel != plain version at Q={Q} Kb={Kb} "
-                            f"C={C} P={P}: max abs err {err}")
-                    max_err = max(max_err, err)
+                    require_equal("minmax_prune_batched", got, want,
+                                  f"Q={Q} Kb={Kb} C={C} P={P}")
                     max_p = max(max_p, P)
                     cases += 1
             del planes
@@ -183,12 +247,146 @@ def phase_kernel_vs_plain(seed: int, dev, sizes=(1, 31, 4097, 1 << 20)
         got = minmax_prune_batched(*args, num_partitions=P)
         sync(dev)
         want = minmax_prune_batched_ref(*args, num_partitions=P)
-        err = int((got.int() - want.int()).abs().max().item())
-        if err or got.shape != want.shape:
-            raise SystemExit(f"kernel != plain version at Q={Q} Kb={Kb} "
-                             f"C={C} P={P}: max abs err {err}")
+        require_equal("minmax_prune_batched", got, want,
+                      f"Q={Q} Kb={Kb} C={C} P={P}")
         cases += 1
-    return dict(cases=cases, max_abs_err=max_err, max_p=max_p)
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+
+
+def join_cases(rng, dev, sizes) -> dict:
+    import torch
+
+    from repro_torch.core.device_stats import plane_capacity
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.join_overlap import join_overlap_batched
+    from repro_torch.kernels.ref import join_overlap_batched_ref
+
+    cases, max_p = 0, 0
+    grid = [(P, Q, D) for P in sizes for Q in (1, 7, 48)
+            for D in (1, 64, 4096)] + [(4097, 3, 9000)]
+    for P, Q, max_keys in grid:
+        cap = plane_capacity(P)
+        pmin = rng.integers(-5000, 10_000, cap).astype(np.float32)
+        pmax = pmin + rng.integers(0, 100, cap).astype(np.float32)
+        drop = rng.random(cap) < 0.1
+        drop[P:] = True                         # capacity tail
+        pmin[drop], pmax[drop] = F32_MAX, -F32_MAX
+        lists = []
+        for qi in range(Q):
+            keys = rng.integers(-5000, 10_000,
+                                int(rng.integers(1, max_keys + 1)))
+            if qi % 3 == 0:                      # a partition's own bounds
+                p = int(rng.integers(0, P))
+                keys = np.append(keys, [pmin[p], pmax[p]])
+            lists.append(np.unique(keys).astype(np.float32))
+        dist = torch.from_numpy(ops.pack_distinct(lists)).to(dev)
+        plane = [torch.from_numpy(a).to(dev) for a in (pmin, pmax)]
+        got = join_overlap_batched(dist, *plane, num_partitions=P)
+        sync(dev)
+        want = join_overlap_batched_ref(dist, *plane, num_partitions=P)
+        require_equal("join_overlap_batched", got, want,
+                      f"Q={Q} Db={dist.shape[1]} P={P}")
+        max_p = max(max_p, P)
+        cases += 1
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+
+
+def bloom_cases(rng, dev, sizes, limit: int = 64) -> dict:
+    import torch
+
+    from repro_torch.core.device_stats import plane_capacity
+    from repro_torch.core.prune_join import BlockedBloom
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bloom_probe import bloom_probe_batched
+    from repro_torch.kernels.ref import bloom_probe_batched_ref
+
+    cases, max_p = 0, 0
+    for P in sizes:
+        cap = plane_capacity(P)
+        pmin = rng.integers(-3000, 3000, cap).astype(np.int32)
+        width = rng.integers(0, 40, cap).astype(np.int32)
+        width[rng.random(cap) < 0.1] = 0
+        width[rng.random(cap) < 0.05] = 2 * limit        # above the limit
+        if P >= 2:                                       # ends of int32
+            pmin[0], width[0] = np.iinfo(np.int32).min, 7
+            pmin[1], width[1] = np.iinfo(np.int32).max - 9, 10
+        width[P:] = 0
+        plane = [torch.from_numpy(pmin).to(dev), torch.from_numpy(
+            np.where(width <= limit, width, 0).astype(np.int32)).to(dev)]
+        for n_blocks in ((1,), (8,), (256,), (1024,), (1, 8, 256, 1024)):
+            for Q in (1, 33):
+                blooms = []
+                for qi in range(Q):
+                    nb = n_blocks[qi % len(n_blocks)]
+                    b = BlockedBloom(nb * 32)        # 16 bits a key: nb blocks
+                    b.add(rng.integers(-3000, 3000, nb * 32))
+                    blooms.append(b)
+                words = torch.from_numpy(ops.pack_blooms(blooms)).to(dev)
+                got = bloom_probe_batched(words, *plane, num_partitions=P)
+                sync(dev)
+                want = bloom_probe_batched_ref(words, *plane,
+                                               num_partitions=P)
+                require_equal("bloom_probe_batched", got, want,
+                              f"Q={Q} blocks={n_blocks} P={P}")
+                max_p = max(max_p, P)
+                cases += 1
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+
+
+def topk_cases(rng, dev, sizes, K: int = 64) -> dict:
+    import torch
+
+    from repro_torch.core.device_stats import plane_capacity
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import topk_init_batched_ref
+    from repro_torch.kernels.topk_boundary import topk_init_batched
+
+    cases, max_p = 0, 0
+    for P in sizes:
+        cap = plane_capacity(P)
+        # rows of small integers (ties), sorted descending on the card,
+        # each cut to its own count and -inf padded; 10% all -inf
+        vals = torch.from_numpy(rng.integers(-60, 60, (cap, K)).astype(
+            np.float32)).to(dev)
+        plane = torch.sort(vals, dim=1, descending=True).values
+        n = rng.integers(0, K + 1, cap)
+        n[rng.random(cap) < 0.1] = 0
+        n[P:] = 0
+        cut = torch.arange(K, device=dev)[None, :] >= \
+            torch.from_numpy(n).to(dev)[:, None]
+        plane[cut] = float("-inf")
+        del vals, cut
+        Q = 48 if P > 4096 else 6
+        lists = [np.zeros(0, dtype=np.int32), np.arange(P, dtype=np.int32)]
+        for _ in range(Q - 2):
+            keep = rng.random(P) < rng.choice([0.001, 0.05, 0.5])
+            lists.append(np.nonzero(keep)[0].astype(np.int32))
+        offsets, ids = (torch.from_numpy(a).to(dev)
+                        for a in ops.pack_candidates(lists))
+        for k in (1, 3, 64, 128):
+            got = topk_init_batched(plane, offsets, ids, k)
+            sync(dev)
+            want = topk_init_batched_ref(plane, offsets, ids, k)
+            require_equal("topk_init_batched", got, want,
+                          f"Q={Q} k={k} P={P} nnz={int(ids.numel())}")
+            max_p = max(max_p, P)
+            cases += 1
+        del plane
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+
+
+def phase_kernel_vs_plain(seed: int, dev) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, fn, sizes in (
+            ("minmax_prune_batched", minmax_cases, (1, 31, 4097, 1 << 20)),
+            ("join_overlap_batched", join_cases, (1, 31, 4097, 1 << 21)),
+            ("bloom_probe_batched", bloom_cases, (1, 4097, 1 << 21)),
+            ("topk_init_batched", topk_cases, (1, 4097, 1 << 21))):
+        t0 = time.perf_counter()
+        out[name] = fn(rng, dev, sizes)
+        out[name]["s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +394,8 @@ def phase_kernel_vs_plain(seed: int, dev, sizes=(1, 31, 4097, 1 << 20)
 # ---------------------------------------------------------------------------
 # The traffic is a copy of the reference benchmark's production mix
 # (benchmarks/workload.py: sample_filter_pred, small_table,
-# sample_limit_query) written against the port's own expression module.
+# sample_limit_query, sample_topk_query, sample_join_query) written against
+# the port's own modules.
 
 def sample_filter_pred(rng, E):
     u = rng.random()
@@ -220,29 +419,76 @@ def sample_filter_pred(rng, E):
     return E.col("score") >= float(rng.uniform(0.0, 0.2))
 
 
-def sample_limit_query(rng, events, users, E, Query, TableScanSpec,
-                       sample_limit_k):
+def sample_limit_query(rng, events, users, m):
+    E = m.E
     with_pred = rng.random() < (2.23 / 2.60)
     if rng.random() < 0.72:
         # dashboard-style LIMIT over the small dimension table
         pred = (E.col("age") >= int(rng.integers(20, 60))) if with_pred \
             else E.true()
-        scans = {"events": TableScanSpec(users, pred)}
+        scans = {"events": m.TableScanSpec(users, pred)}
     else:
         pred = sample_filter_pred(rng, E) if with_pred else E.true()
-        scans = {"events": TableScanSpec(events, pred)}
-    return Query(scans=scans, limit=sample_limit_k(rng),
-                 offset=int(rng.integers(0, 10)) if rng.random() < 0.1 else 0)
+        scans = {"events": m.TableScanSpec(events, pred)}
+    return m.Query(scans=scans, limit=m.sample_limit_k(rng),
+                   offset=int(rng.integers(0, 10)) if rng.random() < 0.1
+                   else 0)
+
+
+def sample_topk_query(rng, events, m, desc: bool):
+    """ORDER BY num_sightings LIMIT k, k from the Fig. 6 distribution
+    (positive, capped at 200), half of them with a predicate."""
+    k = 0
+    while k <= 0:
+        k = m.sample_limit_k(rng)
+    pred = sample_filter_pred(rng, m.E) if rng.random() < 0.5 \
+        else m.E.true()
+    return m.Query(scans={"events": m.TableScanSpec(events, pred)},
+                   limit=int(min(k, 200)),
+                   order_by=("events", "num_sightings", desc))
+
+
+def sample_join_query(rng, events, build, m, order_by: bool):
+    """events JOIN users ON user_id = id with a selective build-side
+    predicate on the correlated age; with ``order_by`` also ORDER BY
+    events.num_sightings LIMIT 10 (Fig. 7b)."""
+    E = m.E
+    age_lo = int(rng.integers(65, 85))
+    q = m.Query(
+        scans={"users": m.TableScanSpec(build, E.col("age") >= age_lo),
+               "events": m.TableScanSpec(
+                   events, sample_filter_pred(rng, E)
+                   if rng.random() < 0.5 else E.true())},
+        join=m.JoinSpec("users", "events", "id", "user_id"))
+    if order_by:
+        q.limit, q.order_by = 10, ("events", "num_sightings", True)
+    return q
+
+
+def topk_equal(a, b) -> bool:
+    if (a.topk is None) != (b.topk is None):
+        return False
+    if a.topk is None:
+        return True
+    return (np.array_equal(a.topk.values, b.topk.values)
+            and np.array_equal(a.topk.scanned, b.topk.scanned)
+            and np.array_equal(a.topk.skipped, b.topk.skipped)
+            and a.topk_scan == b.topk_scan)
+
+
+def scan_sets_equal(a, b) -> bool:
+    if a.scan_sets.keys() != b.scan_sets.keys():
+        return False
+    return all(np.array_equal(a.scan_sets[n].part_ids, b.scan_sets[n].part_ids)
+               and np.array_equal(a.scan_sets[n].match, b.scan_sets[n].match)
+               for n in a.scan_sets)
 
 
 def reports_equal(a, b) -> bool:
-    if a.scan_sets.keys() != b.scan_sets.keys():
+    """Bit-identical reports: scan sets, every technique report, top-k."""
+    if not scan_sets_equal(a, b):
         return False
     for name in a.scan_sets:
-        sa, sb = a.scan_sets[name], b.scan_sets[name]
-        if not (np.array_equal(sa.part_ids, sb.part_ids)
-                and np.array_equal(sa.match, sb.match)):
-            return False
         if a.per_scan[name].keys() != b.per_scan[name].keys():
             return False
         for tech in a.per_scan[name]:
@@ -250,7 +496,35 @@ def reports_equal(a, b) -> bool:
             if (ra.before, ra.after, ra.applied, ra.detail) != \
                     (rb.before, rb.after, rb.applied, rb.detail):
                 return False
-    return True
+    return topk_equal(a, b)
+
+
+def host_equal(dev_rep, host_rep) -> bool:
+    """The device pipeline against the f64 host pipeline: the same scan
+    sets and technique reports (but for the execution path and the top-k
+    boundary, which the device init strengthens), the same top-k values,
+    and every partition the host skips skipped too."""
+    def strip(detail):
+        return {k: v for k, v in detail.items() if k != "path"}
+
+    if not scan_sets_equal(dev_rep, host_rep):
+        return False
+    for name in host_rep.scan_sets:
+        if dev_rep.per_scan[name].keys() != host_rep.per_scan[name].keys():
+            return False
+        for tech, rh in host_rep.per_scan[name].items():
+            if tech == "topk":
+                continue
+            rd = dev_rep.per_scan[name][tech]
+            if (rd.before, rd.after, rd.applied, strip(rd.detail)) != \
+                    (rh.before, rh.after, rh.applied, strip(rh.detail)):
+                return False
+    if (dev_rep.topk is None) != (host_rep.topk is None):
+        return False
+    if host_rep.topk is None:
+        return True
+    return (np.array_equal(dev_rep.topk.values, host_rep.topk.values)
+            and np.isin(host_rep.topk.skipped, dev_rep.topk.skipped).all())
 
 
 def keeps_superset(dev_rep, host_rep) -> bool:
@@ -267,42 +541,76 @@ def integral_only(q) -> bool:
     return True
 
 
+def bloom_work(words, pmin, width, P: int):
+    """What one Bloom launch's data needs: (candidates hashed, candidate x
+    query tests).  A (query, partition) pair tests candidates up to its
+    first hit, or all ``width`` of them; a candidate is hashed once for
+    all the queries that need it.  The candidates and their probes are
+    the plain version's own (``ref.bloom_slabs``)."""
+    import torch
+    from repro_torch.kernels import ref
+    none = 1 << 40
+    hashed = tested = 0
+    for s, e, w, seg, j, passes in ref.bloom_slabs(words, pmin, width, P):
+        need = torch.zeros(e - s, dtype=torch.int64, device=w.device)
+        for q in range(int(words.shape[0])):
+            first = torch.full((e - s,), none, dtype=torch.int64,
+                               device=w.device)
+            first.scatter_reduce_(0, seg, torch.where(passes(q), j, none),
+                                  reduce="amin")
+            n_q = torch.minimum(first + 1, w)
+            tested += int(n_q.sum().item())
+            need = torch.maximum(need, n_q)
+        hashed += int(need.sum().item())
+    return hashed, tested
+
+
 def phase_main_path(seed: int, n_batches: int, card: str, dev,
                     n_rows: int = 2 ** 24) -> dict:
+    import types
+
     import torch
 
     from repro_torch.core import expr as E
     from repro_torch.core.device_stats import plane_checksum
-    from repro_torch.core.flow import (FilterTechnique, LimitTechnique,
-                                       PruningPipeline, Query, TableScanSpec)
+    from repro_torch.core.flow import (JoinSpec, PruningPipeline, Query,
+                                       TableScanSpec)
     from repro_torch.core.prune_filter import extract_ranges
     from repro_torch.data.generator import (make_events_table,
                                             make_users_table, sample_limit_k)
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.minmax_prune_batched import minmax_prune_batched
-    from repro_torch.kernels.ref import minmax_prune_batched_ref
+    from repro_torch.data.table import Table
+    from repro_torch.kernels import ops, ref
     from repro_torch.serve.prune_service import PruningService
 
+    m = types.SimpleNamespace(E=E, Query=Query, TableScanSpec=TableScanSpec,
+                              JoinSpec=JoinSpec, sample_limit_k=sample_limit_k)
     t0 = time.perf_counter()
+    # user_clustering 0.99999 keeps every partition's user_id range narrow
+    # enough to enumerate against a Bloom filter (width <= 1024)
     events = make_events_table(np.random.default_rng(seed), n_rows=n_rows,
                                rows_per_partition=16, ts_clustering=0.995,
-                               user_clustering=0.995)
+                               user_clustering=0.99999)
     users = make_users_table(np.random.default_rng(seed + 99), n_rows=600,
                              rows_per_partition=750)
+    u20k = make_users_table(np.random.default_rng(seed + 99))
+    build = Table.from_arrays("users_20k", u20k.columns, u20k.data,
+                              u20k.nulls, u20k.part_bounds)
     log(f"[main] {card} host: tables built in {time.perf_counter() - t0:.1f} s: events "
         f"P={events.num_partitions} C={len(events.columns)}, users "
-        f"P={users.num_partitions}")
+        f"P={users.num_partitions}, {build.name} P={build.num_partitions}")
 
     rng = np.random.default_rng(seed)
-    queries = [Query(scans={"events": TableScanSpec(events,
-                                                    sample_filter_pred(rng, E))})
-               for _ in range(192)]
-    queries += [sample_limit_query(rng, events, users, E, Query,
-                                   TableScanSpec, sample_limit_k)
-                for _ in range(64)]
+    queries = [Query(scans={"events": TableScanSpec(
+        events, sample_filter_pred(rng, E))}) for _ in range(128)]
+    queries += [sample_limit_query(rng, events, users, m) for _ in range(48)]
+    queries += [sample_topk_query(rng, events, m, desc=i % 4 != 0)
+                for i in range(48)]
+    queries += [sample_join_query(rng, events, build, m, order_by=i < 8)
+                for i in range(32)]
     queries = [queries[i] for i in rng.permutation(len(queries))]
+    n_join_topk = sum(1 for q in queries if q.is_topk and q.join is not None)
 
-    # table groups with lowered predicates: one launch each per batch
+    # table groups with lowered predicates: one filter launch each per batch
     groups = {}
     non_lowering = 0
     for q in queries:
@@ -314,27 +622,47 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
                 non_lowering += 1
             else:
                 groups.setdefault(spec.table.name, []).append(ranges)
-    log(f"[main] {len(queries)} queries, table groups "
-        f"{ {k: len(v) for k, v in groups.items()} }, "
-        f"non-lowering predicates {non_lowering}")
+    log(f"[main] {len(queries)} queries, filter table groups "
+        f"{ {k: len(v) for k, v in groups.items()} }, non-lowering "
+        f"predicates {non_lowering}, join + ORDER BY {n_join_topk}")
 
     t0 = time.perf_counter()
     cpu_reports = PruningService(device="cpu").run_batch(queries)
     t_cpu = time.perf_counter() - t0
+    cpu_tech = cpu_reports[0].counters["technique"]
+    bloom_q = [i for i, r in enumerate(cpu_reports)
+               if "join" in r.per_scan.get("events", {})
+               and r.per_scan["events"]["join"].detail["summary_kind"]
+               == "bloom"]
+    # the host matcher expands every narrow partition of a Bloom join to a
+    # dense [n, 1024] candidate array (GBs a query at this P): Bloom joins
+    # are held to the CPU run only
+    host_idx = [i for i in range(len(queries)) if i not in set(bloom_q)]
     host = PruningPipeline(filter_mode="host")
     t0 = time.perf_counter()
-    host_reports = [host.run(q) for q in queries]
+    host_reports = {i: host.run(queries[i]) for i in host_idx}
     t_host = time.perf_counter() - t0
     log(f"[main] {card} host: references: CPU plain service {t_cpu:.2f} s, f64 host "
-        f"pipeline {t_host:.2f} s")
-    exact_host = [integral_only(q) for q in queries]
+        f"pipeline {t_host:.2f} s over {len(host_idx)} queries; CPU "
+        f"technique counters {cpu_tech}; Bloom joins {len(bloom_q)}")
+    exact_host = {i: integral_only(queries[i]) for i in host_idx}
+    for tech, want in (("filter", len(groups)), ("join", 1),
+                       ("join_bloom", 1)):
+        got = cpu_tech.get(tech, {}).get("launches", 0)
+        if got != want:
+            raise SystemExit(f"traffic: {got} {tech} launches, expected "
+                             f"{want} table groups")
+    if not 1 <= cpu_tech.get("topk", {}).get("launches", 0) <= 2:
+        raise SystemExit(f"traffic: top-k launches {cpu_tech.get('topk')}")
 
+    kernel_of = {t: getattr(ops, k[0]) for t, k in KERNELS.items()}
     svc = PruningService(device=dev)
-    minmax_prune_batched.launches = 0       # the main path's count from here
+    for fn in kernel_of.values():
+        fn.launches = 0                     # the main path's count from here
     times = []
     last = None
     for b in range(n_batches + 1):
-        before = minmax_prune_batched.launches
+        before = {t: fn.launches for t, fn in kernel_of.items()}
         sync(dev)
         t0 = time.perf_counter()
         reports = svc.run_batch(queries)
@@ -343,21 +671,31 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
         if b:
             times.append(dt)
         c = reports[0].counters
-        res = c["resilience"]
-        launched = minmax_prune_batched.launches - before
+        res, tech = c["resilience"], c["technique"]
+        launched = {t: fn.launches - before[t] for t, fn in kernel_of.items()}
         problems = []
         if any(res["demotions"].values()):
             problems.append(f"demotions {res['demotions']}")
         if res["salvaged_batches"] or res["passthroughs"] or res["errors"]:
             problems.append(f"resilience {res}")
-        if launched != len(groups):
-            problems.append(f"{launched} kernel launches for "
-                            f"{len(groups)} table groups")
-        for i, (r, rc, rh) in enumerate(zip(reports, cpu_reports,
-                                            host_reports)):
+        if tech != cpu_tech:
+            problems.append(f"technique counters {tech} != CPU {cpu_tech}")
+        for t, n in launched.items():
+            if n != tech.get(t, {}).get("launches", 0) or not n:
+                problems.append(f"{n} {t} kernel launches, technique "
+                                f"counters {tech.get(t)}")
+        if tech["topk"]["fallbacks"] != n_join_topk:
+            problems.append(f"top-k fallbacks {tech['topk']} for "
+                            f"{n_join_topk} join + ORDER BY queries")
+        if tech["join"]["fallbacks"] or tech["join_bloom"]["fallbacks"]:
+            problems.append(f"join fallbacks {tech}")
+        for i, (r, rc) in enumerate(zip(reports, cpu_reports)):
             if not reports_equal(r, rc):
                 problems.append(f"query {i}: differs from the CPU run")
-            if exact_host[i] and not reports_equal(r, rh):
+            rh = host_reports.get(i)
+            if rh is None:
+                continue
+            if exact_host[i] and not host_equal(r, rh):
                 problems.append(f"query {i}: differs from the host pipeline")
             if not keeps_superset(r, rh):
                 problems.append(f"query {i}: drops a partition the host "
@@ -365,11 +703,10 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
         if problems:
             raise SystemExit(f"batch {b}: " + "; ".join(problems[:10]))
         log(f"[main] {card}: batch {b}{' (warm-up)' if b == 0 else ''}: "
-            f"{dt * 1e3:.2f} ms, launches {launched}, host fallbacks "
-            f"{c['technique'].get('filter', {}).get('fallbacks', 0)}, "
+            f"{dt * 1e3:.2f} ms, launches {launched}, technique {tech}, "
             f"checks passed")
         last = reports
-    main_launches = minmax_prune_batched.launches
+    main_launches = {t: fn.launches for t, fn in kernel_of.items()}
     med = statistics.median(times)
     kept = sum(len(ss) for r in last for ss in r.scan_sets.values())
     touched = sum(s.table.num_partitions for q in queries
@@ -378,91 +715,201 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
         f"{len(times)} batches ({[round(t * 1e3, 3) for t in times]}), "
         f"{len(queries) / med:.1f} queries/s; partitions kept "
         f"{kept} of {touched} ({1 - kept / touched:.4%} pruned); "
-        f"{sum(exact_host)} of {len(queries)} queries held bit-exact "
-        f"to the host pipeline")
+        f"{sum(exact_host.values())} of {len(queries)} queries held "
+        f"bit-exact to the host pipeline")
 
-    # ---- split of one batch, events group ------------------------------
-    ranges = groups["events"]
+    split, kern = stage_split(svc, queries, events, card, dev)
+    for t, k in kern.items():
+        k["launches"] = main_launches[t]
+    t0 = time.perf_counter()
     dstats = svc.cache.get(events)
-    split = {}
-    t0 = time.perf_counter()
-    cids, lo, hi, _safe = ops.pack_ranges(ranges, dstats)
-    split["pack_ranges_ms"] = (time.perf_counter() - t0) * 1e3
-    Q = len(ranges)
-    sync(dev)
-    t0 = time.perf_counter()
-    cq = [torch.from_numpy(np.ascontiguousarray(a[:Q])).to(dev)
-          for a in (cids, lo, hi)]
-    sync(dev)
-    split["h2d_ms"] = (time.perf_counter() - t0) * 1e3
-    (mins, maxs, demote), P = dstats.planes_state
-    args = (*cq, mins, maxs, demote)
-    kernel_ms = cuda_ms(lambda: minmax_prune_batched(*args, num_partitions=P),
-                        20)
-    plain_ms = cuda_ms(lambda: minmax_prune_batched_ref(*args,
-                                                        num_partitions=P), 3)
-    got = minmax_prune_batched(*args, num_partitions=P)
-    want = minmax_prune_batched_ref(*args, num_partitions=P)
-    main_err = int((got.int() - want.int()).abs().max().item())
-    if main_err:
-        raise SystemExit(f"kernel != plain version at the main path's "
-                         f"shape: max abs err {main_err}")
-    split["kernel_ms"] = kernel_ms
-    sync(dev)
-    t0 = time.perf_counter()
-    tv = got.cpu().numpy()
-    sync(dev)
-    split["d2h_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    for row in tv:
-        svc._scan_set(row, events)
-    split["scan_sets_ms"] = (time.perf_counter() - t0) * 1e3
-    pipe = PruningPipeline(filter_mode="device", service=svc)
-    states = [pipe.make_state(q) for q in queries]
-    t0 = time.perf_counter()
-    FilterTechnique().run_batch(pipe, states, service=svc)
-    split["filter_stage_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    LimitTechnique().run_batch(pipe, states, service=svc)
-    split["limit_stage_ms"] = (time.perf_counter() - t0) * 1e3
-    # the cache's sampled integrity check (every 64th getter hit by
-    # default) reads the whole plane back and re-stamps it
-    t0 = time.perf_counter()
     if plane_checksum(dstats.planes) != dstats.checksum:
         raise SystemExit("resident events plane fails its checksum")
     split["integrity_verify_ms"] = (time.perf_counter() - t0) * 1e3
-    cols_used = len({c for r in ranges for c, _, _ in r})
-    Kb = int(cids.shape[1])
-    nbytes = 3 * 4 * cols_used * P + Q * P + Q * Kb * 12
-    ops_count = 10 * Q * Kb * P
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops_count / F32_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                >= ops_count / F32_OPS_PER_S else "operations")
-    log(f"[split] {card}: events group Q={Q} Kb={Kb} C={dstats.num_columns} "
-        f"P={P} capacity={dstats.capacity}: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    log(f"[split] {card}: kernel {kernel_ms:.4f} ms vs bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nbytes / 1e6:.1f} MB over 3.35 TB/s), plain "
-        f"version {plain_ms:.3f} ms; resident plane bytes "
-        f"{svc.cache.resident_bytes}; integrity {svc.cache.integrity_snapshot()}")
+    log(f"[split] {card}: resident plane bytes {svc.cache.resident_bytes}; "
+        f"integrity {svc.cache.integrity_snapshot()}")
     return dict(
         queries=len(queries), groups={k: len(v) for k, v in groups.items()},
-        non_lowering=non_lowering, batch_ms=[t * 1e3 for t in times],
+        non_lowering=non_lowering, join_topk=n_join_topk,
+        bloom_queries=len(bloom_q), batch_ms=[t * 1e3 for t in times],
         median_batch_ms=med * 1e3, queries_per_s=len(queries) / med,
         partitions_kept=kept, partitions_touched=touched,
-        exact_host_queries=sum(exact_host), cpu_ref_s=t_cpu,
-        host_ref_s=t_host, split_ms=split, kernel_ms=kernel_ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        bound_bytes=nbytes, launches=main_launches, main_max_abs_err=main_err,
-        resident_bytes=svc.cache.resident_bytes, shape=dict(
-            Q=Q, Kb=Kb, C=dstats.num_columns, P=P,
-            capacity=dstats.capacity, cols_used=cols_used))
+        exact_host_queries=sum(exact_host.values()), cpu_ref_s=t_cpu,
+        host_ref_s=t_host, split_ms=split, kernels=kern,
+        resident_bytes=svc.cache.resident_bytes)
+
+
+def stage_split(svc, queries, events, card, dev):
+    """One batch's stages run one after another with the kernels' inputs
+    recorded: each stage's wall time, and for each kernel its H2D copy,
+    device time (cold L2), D2H copy, plain-version time and library-call
+    time at the main path's shapes, and its bound from these inputs."""
+    import torch
+
+    from repro_torch.core.flow import PruningPipeline
+    from repro_torch.kernels import ops, ref, topk_boundary
+
+    seen = {t: [] for t in KERNELS}
+    real = {t: getattr(ops, k[0]) for t, k in KERNELS.items()}
+
+    def recorder(tech):
+        def rec(*a, **kw):
+            out = real[tech](*a, **kw)
+            seen[tech].append((a, kw, out))
+            return out
+        return rec
+
+    pipe = PruningPipeline(filter_mode="device", service=svc)
+    states = [pipe.make_state(q) for q in queries]
+    stage_ms = {}
+    for t, k in KERNELS.items():
+        setattr(ops, k[0], recorder(t))
+    try:
+        for tech in pipe.techniques:
+            sync(dev)
+            t0 = time.perf_counter()
+            tech.run_batch(pipe, states, service=svc)
+            sync(dev)
+            stage_ms[tech.name] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for t, fn in real.items():
+            setattr(ops, KERNELS[t][0], fn)
+
+    def h2d(tensors):
+        host = [t.cpu() for t in tensors]
+        return host_ms(lambda: [h.to(dev) for h in host], dev)
+
+    split = {"stage_ms": stage_ms}
+    kern = {}
+    for tech, calls in seen.items():
+        if not calls:
+            raise SystemExit(f"the split batch launched no {tech} kernel")
+        parts = dict(launches=len(calls), h2d_ms=0.0, kernel_ms=0.0,
+                     d2h_ms=0.0)
+        best = None
+        for a, kw, out in calls:
+            fn = timed = real[tech]
+            if tech == "filter":
+                queries_in = a[:3]
+                planes, P = a[3:6], kw["num_partitions"]
+                cols = len({int(c) for c in a[0].flatten().tolist()})
+                Q, Kb = a[1].shape
+                nbytes = 3 * 4 * cols * P + Q * P + Q * Kb * 12
+                ops_n = 10 * Q * Kb * P
+                plain = lambda a=a, kw=kw: ref.minmax_prune_batched_ref(*a, **kw)
+                library = None
+            elif tech == "join":
+                queries_in = a[:1]
+                dist, pmin, pmax = a
+                P = kw["num_partitions"]
+                Q, Db = dist.shape
+                nbytes = 8 * P + Q * P + 4 * Q * Db
+                ops_n = Q * P * (int(math.log2(Db)) + 2)
+                plain = lambda a=a, kw=kw: ref.join_overlap_batched_ref(*a, **kw)
+                lo_e = pmin[:P].expand(Q, P).contiguous()
+                hi_e = pmax[:P].expand(Q, P).contiguous()
+                library = lambda d=dist, lo=lo_e, hi=hi_e: (
+                    torch.searchsorted(d, hi, right=True)
+                    > torch.searchsorted(d, lo))
+            elif tech == "join_bloom":
+                queries_in = a[:1]
+                words, pmin, width = a
+                P = kw["num_partitions"]
+                Q, W = words.shape
+                hashed, tested = bloom_work(words, pmin, width, P)
+                nbytes = 8 * P + Q * P + 4 * Q * W
+                # a candidate: 3 mixes (8 ops each) and its add; a test:
+                # 4 probes of a shift-mask pair for the word, one for the
+                # bit, the load's address and the bit test
+                ops_n = 25 * hashed + 28 * tested
+                plain = lambda a=a, kw=kw: ref.bloom_probe_batched_ref(*a, **kw)
+                library = None
+            else:
+                queries_in = a[1:3]
+                plane, offsets, ids, k = a
+                Q = int(offsets.numel()) - 1
+                nnz = int(ids.numel())
+                nbytes = 8 * nnz + 8 * (Q + 1) + 4 * Q * k
+                ops_n = nnz
+                plain = lambda a=a: ref.topk_init_batched_ref(*a)
+                library = topk_library(plane, offsets, ids, k)
+                # the launch alone: the wrapper's candidate check (three
+                # reductions and a wait for them) is not the kernel's
+                timed = topk_boundary.launch_checked
+            err = require_equal(tech, fn(*a, **kw), plain(), "the main path")
+            t_k = cuda_ms(lambda: timed(*a, **kw), 10)
+            parts["kernel_ms"] += t_k
+            parts["h2d_ms"] += h2d(queries_in)
+            parts["d2h_ms"] += host_ms(lambda: out.cpu(), dev)
+            if best is None or t_k > best["ms"]:
+                bms, bby = bound(nbytes, ops_n)
+                best = dict(ms=t_k, plain_ms=cuda_ms(plain, 2),
+                            library_ms=(None if library is None
+                                        else cuda_ms(library, 3)),
+                            bound_ms=bms, bound_by=bby, bound_bytes=nbytes,
+                            bound_ops=ops_n, max_abs_err=err,
+                            shape=shape_of(tech, a, kw))
+            del library
+        split[tech] = parts
+        kern[tech] = best
+    for stage in ("filter", "join", "topk"):
+        dev_ms = sum(split[t]["h2d_ms"] + split[t]["kernel_ms"]
+                     + split[t]["d2h_ms"] for t in KERNELS
+                     if KERNELS[t][1] == stage)
+        split[f"{stage}_host_ms"] = stage_ms[stage] - dev_ms
+    for tech, parts in split.items():
+        log(f"[split] {card}: {tech}: " + (
+            ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            if isinstance(parts, dict) else f"{parts:.3f} ms"))
+    for tech, k in kern.items():
+        lib = ("none" if k["library_ms"] is None
+               else f"{k['library_ms']:.3f} ms")
+        log(f"[split] {card}: {tech} kernel at {k['shape']}: {k['ms']:.4f} ms "
+            f"vs bound {k['bound_ms']:.4f} ms ({k['bound_by']}: "
+            f"{k['bound_bytes'] / 1e6:.1f} MB, {k['bound_ops']:.3g} ops), "
+            f"plain version {k['plain_ms']:.3f} ms, library {lib}")
+    return split, kern
+
+
+def shape_of(tech, a, kw) -> dict:
+    if tech == "filter":
+        return dict(Q=int(a[1].shape[0]), Kb=int(a[1].shape[1]),
+                    P=int(kw["num_partitions"]), capacity=int(a[3].shape[1]))
+    if tech in ("join", "join_bloom"):
+        return dict(Q=int(a[0].shape[0]), row=int(a[0].shape[1]),
+                    P=int(kw["num_partitions"]), capacity=int(a[1].shape[0]))
+    return dict(Q=int(a[1].numel()) - 1, nnz=int(a[2].numel()), k=int(a[3]),
+                capacity=int(a[0].shape[0]))
+
+
+def topk_library(plane, offsets, ids, k):
+    """``torch.topk`` over each query's candidate rows: two calls, an
+    ``index_select`` of the rows into a dense [Q, longest list * K] block
+    (padded with an all -inf row) and one ``topk``."""
+    import torch
+    Q = int(offsets.numel()) - 1
+    off = offsets.tolist()
+    longest = max(off[q + 1] - off[q] for q in range(Q))
+    padded = torch.cat([plane, torch.full_like(plane[:1], float("-inf"))])
+    pad_id = int(plane.shape[0])
+    idx = torch.full((Q, max(longest, 1)), pad_id, dtype=torch.int64,
+                     device=plane.device)
+    for q in range(Q):
+        idx[q, :off[q + 1] - off[q]] = ids[off[q]:off[q + 1]]
+    K = int(plane.shape[1])
+    width = idx.shape[1] * K
+
+    def call():
+        rows = padded.index_select(0, idx.view(-1)).view(Q, width)
+        return torch.topk(rows, min(k, width), dim=1).values
+
+    return call
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=5)
+    ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--json", default=None,
                     help="also write every number to this JSON file")
     args = ap.parse_args()
@@ -472,34 +919,38 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.minmax_prune_batched import load_kernel
+    from repro_torch.kernels import ops
 
     t_start = time.perf_counter()
     card = card_line()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {card}")
     t0 = time.perf_counter()
-    load_kernel()
+    ops.load_kernels()
     build_s = time.perf_counter() - t0
-    log(f"[env] {card}: kernels built and loaded in {build_s:.2f} s")
+    log(f"[env] {card}: {len(ops.KERNELS)} kernels built and loaded "
+        f"in {build_s:.2f} s")
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
     kv = phase_kernel_vs_plain(args.seed, dev)
-    log(f"[kernel] {card}: {kv['cases']} cases, kernel == plain version exactly up "
-        f"to P={kv['max_p']} (max abs err {kv['max_abs_err']}) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    for name, r in kv.items():
+        log(f"[kernel] {card}: {name}: {r['cases']} cases, kernel == plain "
+            f"version exactly up to P={r['max_p']} (max abs err "
+            f"{r['max_abs_err']}) in {r['s']:.1f} s")
 
     mp = phase_main_path(args.seed, args.batches, card, dev)
     log(f"[done] {card}: {time.perf_counter() - t_start:.1f} s in all")
 
-    kernels = {"kernels": [dict(
-        name="minmax_prune_batched", route="cuda",
-        source="src/repro_torch/kernels/csrc/minmax_prune_batched.cu",
-        replaces="src/repro/kernels/minmax_prune_batched.py:82",
-        launches=mp["launches"],
-        max_abs_err=max(kv["max_abs_err"], mp["main_max_abs_err"]),
-        ms=mp["kernel_ms"], plain_ms=mp["plain_ms"], bound_ms=mp["bound_ms"],
-        bound_by=mp["bound_by"], library_ms=None)]}
+    rows = []
+    for tech, (name, _stage, replaces) in KERNELS.items():
+        k = mp["kernels"][tech]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, launches=k["launches"],
+            max_abs_err=max(kv[name]["max_abs_err"], k["max_abs_err"]),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    kernels = {"kernels": rows}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(

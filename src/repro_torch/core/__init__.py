@@ -1,9 +1,12 @@
 """The paper's primary contribution: partition pruning for analytical scans.
 
-This slice of the port carries two of the four techniques, composed by
-``flow`` (paper sections in parentheses):
+Four techniques (paper sections in parentheses), composed by ``flow``:
   * filter pruning        — prune_filter (Sec. 3)
   * LIMIT pruning         — prune_limit (Sec. 4)
+  * top-k pruning         — prune_topk  (Sec. 5)
+  * JOIN pruning          — prune_join  (Sec. 6)
+The adaptive filter tree of Sec. 3.2 (the reference's prune_tree) is not
+ported yet.
 """
 
 from . import expr
@@ -14,7 +17,9 @@ from .flow import JoinSpec, PruningPipeline, PruningReport, Query, TableScanSpec
 from .metadata import (FULL_MATCH, NO_MATCH, PARTIAL_MATCH, ColumnMeta,
                        PartitionStats, ScanSet, pruning_ratio)
 from .prune_filter import eval_tv, extract_ranges, fully_matching_two_pass
+from .prune_join import BlockedBloom, BuildSummary, prune_probe, summarize_build
 from .prune_limit import limit_prune
+from .prune_topk import run_topk, topk_oracle, upfront_boundary
 
 __all__ = [
     "expr", "col", "lit", "if_", "like", "startswith", "in_", "is_null",
@@ -24,5 +29,6 @@ __all__ = [
     "DeviceStats", "DeviceStatsCache",
     "NO_MATCH", "PARTIAL_MATCH", "FULL_MATCH",
     "eval_tv", "extract_ranges", "fully_matching_two_pass",
-    "limit_prune",
+    "BlockedBloom", "BuildSummary", "summarize_build", "prune_probe",
+    "limit_prune", "run_topk", "topk_oracle", "upfront_boundary",
 ]

@@ -3,9 +3,10 @@
 ``DeviceStatsCache.get`` stages a table's full ``[C, P]`` mins / maxs /
 demote planes to the GPU **once per table version** as float32 torch
 tensors; after that a batch of queries prunes against the resident planes
-with no host work per query.  Eviction is always safe (a miss simply
-re-stages).  This module carries the stat-plane family only: a table
-version change restages the plane in full.
+with no host work per query.  Beside them it stages the runtime
+techniques' per-column planes (join-key, enumeration and block-top-k
+rows; see ``DeviceStatsCache``).  Eviction is always safe (a miss simply
+re-stages), and a table version change restages a plane in full.
 
 Precision contract (the single place stats are downcast to f32)
 ---------------------------------------------------------------
@@ -333,11 +334,39 @@ class DeviceStats:
         )
 
 
+KPLANE = 64   # block-top-k plane width: values kept per partition
+# Per-column planes kept per family when the cache has no byte budget.
+MAX_PLANES = 64
+
 # Registry of plane families under the integrity protocol.  Every family
 # in DeviceStatsCache._stores MUST be declared here and vice versa, so a
 # new family cannot ship without joining checksum stamping and byte
 # accounting.
-PLANE_FAMILIES = ("stat",)
+PLANE_FAMILIES = ("stat", "join_key", "enum", "block_topk")
+
+
+@dataclasses.dataclass
+class _PlaneEntry:
+    """A resident per-column plane: device tensors + the version staged.
+
+    ``arrays`` are capacity-padded along the partition axis (axis 0);
+    slots beyond ``logical_p`` and dropped partitions hold the family's
+    sentinel.  ``meta`` carries host-side extras (the column, enum
+    wmax/domain_ok, the checksum stamp).
+    """
+
+    version: int
+    logical_p: int
+    arrays: Tuple
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.arrays[0].shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(a.numel() * a.element_size() for a in self.arrays))
 
 
 @dataclasses.dataclass
@@ -524,7 +553,7 @@ class PlaneMemoryManager:
 
 
 class DeviceStatsCache:
-    """Once-per-table-version staging of the stat planes, LRU-bounded.
+    """Once-per-table-version staging of metadata planes, LRU-bounded.
 
     Keys are ``(table_name, stats.uid)``: the stats uid distinguishes a
     *rebuilt* table — same name, same shape, new data — from the object
@@ -533,12 +562,30 @@ class DeviceStatsCache:
     ``TableVersion`` seen at staging; when either moves on, ``get``
     restages the whole plane (counted in ``full_restages``).
 
+    Runtime-technique planes
+    ------------------------
+    Beside the [C, cap] min/max/demote planes the cache stages three
+    *per-column* plane families for the runtime techniques, keyed by
+    (table identity, column) and restaged in full when the table's
+    version moves on:
+
+      * **join-key planes** (``join_key_plane``): the key column's widened
+        f32 [cap] min/max rows, consumed by ``join_overlap_batched``;
+      * **enumeration planes** (``enum_plane``): the key column's
+        integer-snapped [cap] int32 pmin/width rows (width 0 = never
+        enumerate), consumed by ``bloom_probe_batched``;
+      * **block-top-k planes** (``block_topk_plane``): [cap, KPLANE] rows
+        of the column's per-partition top-K *signed* values (sign = +1
+        DESC / -1 ASC, nulls excluded, f64 -> f32 rounded toward -inf so
+        every stored value is <= the true row value — a boundary derived
+        from them is always witnessed), consumed by ``topk_init_batched``.
+
     ``budget_bytes`` hands residency to a ``PlaneMemoryManager``: one
-    byte budget, per-table LRU eviction, and in-flight pinning via
-    ``pin_scope`` so a batched launch can never lose a plane it is
-    consuming.  Without a budget the ``max_entries`` count cap applies
-    and the manager only accounts.  Every getter is atomic under one
-    reentrant lock.
+    byte budget across all four families, per-plane LRU eviction, and
+    in-flight pinning via ``pin_scope`` so a batched launch can never lose
+    a plane it is consuming.  Without a budget the ``max_entries`` /
+    ``MAX_PLANES`` count caps apply and the manager only accounts.  Every
+    getter is atomic under one reentrant lock.
     """
 
     def __init__(self, max_entries: int = 16,
@@ -551,12 +598,23 @@ class DeviceStatsCache:
         self.max_entries = max_entries
         self.hits = 0
         self.misses = 0
+        # (name, uid, col) -> _PlaneEntry((pmin, pmax) [cap] f32 rows)
+        self.key_planes: "OrderedDict[Tuple, _PlaneEntry]" = OrderedDict()  # guarded-by: _lock
+        # (name, uid, col) -> _PlaneEntry((pmin, width) [cap] int32 rows,
+        #                                 meta: wmax, domain_ok)
+        self.enum_planes: "OrderedDict[Tuple, _PlaneEntry]" = OrderedDict()  # guarded-by: _lock
+        # (name, uid, col, desc) -> _PlaneEntry(([cap, KPLANE] signed rows,))
+        self.topk_planes: "OrderedDict[Tuple, _PlaneEntry]" = OrderedDict()  # guarded-by: _lock
+        self.plane_hits = 0
+        self.plane_misses = 0
         # staging-work counters (H2D bytes; full restages of planes that
         # were resident at an older version)
         self.staged_bytes = 0
         self.full_restages = 0
         self.memory = PlaneMemoryManager(budget_bytes)
-        self._stores = {"stat": self.entries}
+        self._stores = {"stat": self.entries, "join_key": self.key_planes,
+                        "enum": self.enum_planes,
+                        "block_topk": self.topk_planes}
         self.memory.bind(self._evict_family)
         # Epoch check + plane read must be atomic per getter; one
         # reentrant lock serializes getters, DML hooks and manager
@@ -768,7 +826,226 @@ class DeviceStatsCache:
                 self._quarantine("stat", key)
                 retried = True
 
+    # ---- runtime-technique planes --------------------------------------
+
+    def _plane_current(self, family: str, store: "OrderedDict", key: Tuple,
+                       table) -> Optional[_PlaneEntry]:
+        """The resident plane entry if it reflects the table's version,
+        else None (a stale entry is dropped and counted as a full
+        restage; the caller stages fresh)."""
+        e = store.get(key)
+        if e is None:
+            return None
+        if e.version != self._table_version(table):
+            del store[key]
+            self.memory.release(family, key)
+            self.full_restages += 1
+            return None
+        self.plane_hits += 1
+        store.move_to_end(key)
+        self._touch(family, key)
+        if not self._verify_due() or self._verify(e.arrays,
+                                                  e.meta.get("checksum")):
+            return e
+        # torn resident plane: quarantine; the caller stages fresh (and
+        # _plane_fresh force-verifies that restage)
+        self._quarantine(family, key)
+        return None
+
+    def _plane_fresh(self, family: str, store: "OrderedDict", key: Tuple,
+                     build_fn) -> _PlaneEntry:
+        """Stage a fresh per-column plane with the integrity protocol:
+        stamp from the built host arrays, move them to the device, admit,
+        and force-verify whenever the key was just quarantined or was ever
+        budget-evicted; a verify failure quarantines and rebuilds once, a
+        second failure raises ``PlaneIntegrityError`` (the serving ladder
+        demotes past it)."""
+        retried = False
+        while True:
+            self._fire(f"stage.{family}")
+            e = build_fn()
+            # stamped from the host arrays pre-H2D: free at stage time
+            e.meta["checksum"] = plane_checksum(e.arrays)
+            e.arrays = self._corrupt(f"stage.{family}", tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in e.arrays))
+            e = self._plane_put(family, store, key, e)
+            fk = (family, key)
+            force = fk in self._quarantined \
+                or self.memory.was_evicted(family, key) \
+                or self._verify_due()
+            if not force or self._verify(e.arrays, e.meta["checksum"]):
+                self._quarantined.discard(fk)
+                return e
+            if retried:
+                self._quarantined.discard(fk)
+                store.pop(key, None)
+                self.memory.release(family, key)
+                raise PlaneIntegrityError(
+                    f"{family} plane {key} failed checksum verification "
+                    f"after quarantine restage")
+            self._quarantine(family, key)
+            retried = True
+
+    def _plane_put(self, family: str, store: "OrderedDict", key: Tuple,
+                   entry: _PlaneEntry) -> _PlaneEntry:
+        self.plane_misses += 1
+        self.staged_bytes += entry.nbytes
+        self._admit(family, key, entry.nbytes)
+        store[key] = entry
+        if self.memory.budget_bytes is None:
+            while len(store) > MAX_PLANES:
+                k, _ = store.popitem(last=False)
+                self.memory.release(family, k)
+        return entry
+
+    def join_key_plane(self, table, key_col: str) -> Tuple:
+        """The key column's resident (pmin, pmax) [cap] f32 rows (widened).
+
+        Staged once per (table identity, column, version); consumed by the
+        batched join-overlap kernel.  Clamped to finite f32 like the
+        [C, cap] planes, so +inf distinct-key padding can never produce a
+        hit; dropped partitions (whose stats are the empty interval) and
+        capacity slots hold the sentinel (+f32max, -f32max) — never a hit
+        either.
+        """
+        with self._lock:
+            self._fire("get.join_key")
+            key = (table.name, table.stats.uid, key_col)
+            e = self._plane_current("join_key", self.key_planes, key, table)
+            if e is not None:
+                return e.arrays
+
+            def build():
+                P = table.stats.num_partitions
+                cap = plane_capacity(P)
+                pmin = np.full(cap, _F32_MAX, dtype=np.float32)
+                pmax = np.full(cap, -_F32_MAX, dtype=np.float32)
+                pmin[:P] = np.clip(round_down_f32(table.stats.col_min(key_col)),
+                                   -_F32_MAX, _F32_MAX)
+                pmax[:P] = np.clip(round_up_f32(table.stats.col_max(key_col)),
+                                   -_F32_MAX, _F32_MAX)
+                return _PlaneEntry(self._table_version(table), P,
+                                   (pmin, pmax), meta=dict(col=key_col))
+
+            return self._plane_fresh("join_key", self.key_planes, key,
+                                     build).arrays
+
+    def enum_plane(self, table, key_col: str) -> Tuple:
+        """The key column's resident enumeration rows:
+        (pmin, width, wmax, domain_ok).
+
+        pmin/width are [cap] int32 device rows feeding the Bloom probe
+        kernel's narrow-range enumeration: integer-snapped partition
+        minima (``ceil(col_min)``) and candidate counts
+        (``floor(col_max) - ceil(col_min) + 1``, compared in float64
+        before any integer cast so extreme ranges can't overflow).
+        width 0 marks partitions that must never be enumerated — empty
+        interval, non-finite bounds, or outside int32 (the kernel hashes
+        int32 candidates) — and means *keep*: skipping enumeration can
+        only miss prunable partitions, never prune joinable ones.  wmax
+        (host int) is the plane's max width.  domain_ok (host bool)
+        records whether every non-empty partition's bounds sit inside
+        int32 — the device-vs-host parity gate
+        (``PruningService.join_device_eligible``), computed once here so
+        eligibility never rescans [P] stats per query.  Width 0 is also
+        the drop/capacity sentinel.
+        """
+        with self._lock:
+            self._fire("get.enum")
+            key = (table.name, table.stats.uid, key_col)
+            e = self._plane_current("enum", self.enum_planes, key, table)
+            if e is not None:
+                return e.arrays + (e.meta["wmax"], e.meta["domain_ok"])
+
+            def build():
+                P = table.stats.num_partitions
+                cap = plane_capacity(P)
+                pmin_h, width_h, wmax, domain_ok = self._enum_rows(table,
+                                                                   key_col)
+                pmin = np.zeros(cap, dtype=np.int32)
+                width = np.zeros(cap, dtype=np.int32)
+                pmin[:P], width[:P] = pmin_h, width_h
+                return _PlaneEntry(self._table_version(table), P,
+                                   (pmin, width),
+                                   meta=dict(col=key_col, wmax=wmax,
+                                             domain_ok=domain_ok))
+
+            e = self._plane_fresh("enum", self.enum_planes, key, build)
+            return e.arrays + (e.meta["wmax"], e.meta["domain_ok"])
+
+    @staticmethod
+    def _enum_rows(table, key_col: str):
+        """Host enumeration rows over all partitions:
+        (pmin i32 [P], width i32 [P], wmax, domain_ok).  A dropped
+        partition's stats are the empty interval, so its width is 0."""
+        lo = np.ceil(np.asarray(table.stats.col_min(key_col), np.float64))
+        hi = np.floor(np.asarray(table.stats.col_max(key_col), np.float64))
+        with np.errstate(invalid="ignore", over="ignore"):
+            wf = hi - lo + 1.0
+            in32 = (lo >= -2.0 ** 31) & (hi < 2.0 ** 31)
+            live = np.isfinite(lo) & np.isfinite(hi) & (lo <= hi)
+            ok = live & in32 & (wf > 0) & (wf < 2.0 ** 31)
+        domain_ok = not bool(np.any(live & ~in32))
+        pmin = np.where(ok, lo, 0.0).astype(np.int32)
+        width = np.where(ok, wf, 0.0).astype(np.int32)
+        wmax = int(width.max()) if width.size else 0
+        return pmin, width, wmax, domain_ok
+
+    def block_topk_plane(self, table, order_col: str,
+                         desc: bool) -> torch.Tensor:
+        """The column's resident [cap, KPLANE] signed block-top-k rows.
+
+        Row p holds partition p's KPLANE largest ``sign * value`` entries
+        (desc per row, -inf padded, nulls excluded).  Values are rounded
+        toward -inf in the signed domain, so every stored entry is <= the
+        true value of an actual non-null row — any boundary taken from
+        these rows is a *witnessed* Sec. 5.4 boundary.
+        """
+        with self._lock:
+            self._fire("get.block_topk")
+            key = (table.name, table.stats.uid, order_col, bool(desc))
+            e = self._plane_current("block_topk", self.topk_planes, key,
+                                    table)
+            if e is not None:
+                return e.arrays[0]
+
+            def build():
+                P = table.stats.num_partitions
+                cap = plane_capacity(P)
+                rows = np.full((cap, KPLANE), -np.inf, dtype=np.float32)
+                rows[:P] = self._topk_rows(table, order_col, bool(desc))
+                return _PlaneEntry(self._table_version(table), P, (rows,),
+                                   meta=dict(col=order_col,
+                                             desc=bool(desc)))
+
+            return self._plane_fresh("block_topk", self.topk_planes, key,
+                                     build).arrays[0]
+
+    @staticmethod
+    def _topk_rows(table, order_col: str, desc: bool) -> np.ndarray:
+        """Signed block-top-k host rows for every partition.
+
+        Rows of dropped partitions are all -inf (the no-contribution
+        sentinel): their tombstoned data rows must never witness a
+        boundary.
+        """
+        from ..kernels.ops import build_block_topk  # lazy: ops imports us
+        sign = 1.0 if desc else -1.0
+        sv = round_down_f32(sign * np.asarray(table.data[order_col],
+                                              dtype=np.float64))
+        nm = table.nulls.get(order_col)
+        mask = None if nm is None else ~np.asarray(nm, dtype=bool)
+        live = getattr(table, "live", None)
+        if live is not None:
+            live_rows = np.repeat(np.asarray(live, dtype=bool),
+                                  np.diff(table.part_bounds))
+            mask = live_rows if mask is None else (mask & live_rows)
+        return build_block_topk(sv.astype(np.float32), table.part_bounds,
+                                KPLANE, mask=mask)
+
     @property
     def resident_bytes(self) -> int:
         with self._lock:
-            return sum(e.nbytes for e in self.entries.values())
+            return sum(e.nbytes for store in self._stores.values()
+                       for e in store.values())

@@ -6,6 +6,5 @@ Nothing is compiled at import: a kernel's library is built from
 """
 
 from . import ops, ref
-from .minmax_prune_batched import minmax_prune_batched
 
-__all__ = ["ops", "ref", "minmax_prune_batched"]
+__all__ = ["ops", "ref"]

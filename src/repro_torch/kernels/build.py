@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
-entry point, loaded with ``ctypes``; no PyTorch headers are involved, so a
-build takes seconds.  Libraries land in ``build/repro_torch/`` at the root
+entry point, loaded with ``ctypes`` and called through ``launch``; no
+PyTorch headers are involved, so a build takes seconds, and ``load_all``
+runs one ``nvcc`` per source at once.  Libraries land in ``build/repro_torch/`` at the root
 of the checkout, named by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one loads from disk.
 
@@ -20,7 +21,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,13 +31,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Callable] = {}          # name -> bound C entry point
 
 
 class KernelError(RuntimeError):
     """A CUDA kernel failed to build, was handed inputs it does not take,
     or failed to launch.  Never a degradation: the serving layer lets it
     through instead of demoting the work to a host rung."""
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise ``KernelError`` unless ``t`` is a contiguous tensor of this
+    dtype and shape on this device: what every kernel's wrapper checks
+    before it launches."""
+    if not isinstance(t, torch.Tensor):
+        raise KernelError(f"{name} must be a torch.Tensor")
+    if t.dtype != dtype:
+        raise KernelError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise KernelError(f"{name} must have shape {tuple(shape)}, "
+                          f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise KernelError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise KernelError(f"{name} must be contiguous")
 
 
 def nvcc_path() -> str:
@@ -58,23 +78,80 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+def _compile(names) -> None:
+    """Compile the missing libraries of ``names``, one ``nvcc`` process
+    per source, all started together."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)         # atomic: a reader never sees half
+    if failed:
+        raise KernelError("\n".join(failed))
+
+
+def load_all(names) -> None:
+    """Build every missing library of ``names`` in parallel, then load
+    them all and resolve their entry points."""
     with _lock:
-        if name not in _loaded:
-            out = library_path(name)
-            if not out.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.run(
-                    [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                     str(CSRC / f"{name}.cu")],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-                if proc.returncode != 0:
-                    tmp.unlink(missing_ok=True)
-                    raise KernelError(
-                        f"{name}: nvcc exit {proc.returncode}\n"
-                        f"{proc.stdout.decode(errors='replace')}")
-                os.replace(tmp, out)     # atomic: a reader never sees half
-            _loaded[name] = ctypes.CDLL(str(out))
-        return _loaded[name]
+        _compile([n for n in names if n not in _entries])
+        for name in names:
+            if name not in _entries:
+                lib = ctypes.CDLL(str(library_path(name)))
+                fn = getattr(lib, f"{name}_launch")
+                fn.restype = ctypes.c_int
+                _entries[name] = fn
+
+
+def entry(name: str):
+    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu`` (built at
+    first use): device pointers and C ints in, a ``cudaError_t`` out."""
+    if name not in _entries:
+        load_all([name])
+    return _entries[name]
+
+
+def runs_kernel(device) -> bool:
+    """Which version a wrapper runs on ``device``: the CUDA kernel (True)
+    or, on the CPU, the plain version (False).  Any other device raises."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise KernelError(f"unsupported device {device}")
+    return True
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch the kernel of ``csrc/<name>.cu`` on ``device``, on PyTorch's
+    current stream.  Tensors pass as device pointers and ints as C ints
+    (each must fit in int32); a CUDA error from the launch raises
+    ``KernelError``."""
+    cargs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            cargs.append(ctypes.c_void_p(a.data_ptr()))
+        elif -2 ** 31 <= int(a) < 2 ** 31:
+            cargs.append(ctypes.c_int(int(a)))
+        else:
+            raise KernelError(f"{name}: dimension {a} does not fit in int32")
+    fn = entry(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*cargs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise KernelError(f"{name} launch failed: cudaError {err}")

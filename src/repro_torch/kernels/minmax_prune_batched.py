@@ -17,13 +17,12 @@ the kernel does not take.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from . import build
-from .build import KernelError
+from .build import KernelError, check_tensor
 from .ref import minmax_prune_batched_ref
 
 KERNEL = "minmax_prune_batched"
@@ -36,37 +35,9 @@ BLOCK_Q = 32
 # CPU; keeps it memory-bounded for huge P.
 _REF_SLAB_ELEMS = 1 << 25
 
-_fn = None
-
-
-def load_kernel():
-    """Build (first use) and bind the kernel's C entry point."""
-    global _fn
-    if _fn is None:
-        fn = build.load(KERNEL).minmax_prune_batched_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
 
 def block_q(kb: int) -> int:
     return max(1, min(BLOCK_Q, MAX_BLOCK_SLOTS // max(kb, 1)))
-
-
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise KernelError(f"{name} must be a torch.Tensor")
-    if t.dtype != dtype:
-        raise KernelError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise KernelError(f"{name} must have shape {tuple(shape)}, "
-                          f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise KernelError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise KernelError(f"{name} must be contiguous")
 
 
 def _plain_slabbed(cids, lo, hi, mins, maxs, demote, P: int) -> torch.Tensor:
@@ -106,26 +77,16 @@ def minmax_prune_batched(
             ("mins", mins, torch.float32, (C, Pc)),
             ("maxs", maxs, torch.float32, (C, Pc)),
             ("demote", demote, torch.float32, (C, Pc))):
-        _check(name, t, dtype, shape, dev)
-    if dev.type == "cpu":
+        check_tensor(name, t, dtype, shape, dev)
+    if not build.runs_kernel(dev):
         return _plain_slabbed(cids, lo, hi, mins, maxs, demote, P)
-    if dev.type != "cuda":
-        raise KernelError(f"unsupported device {dev}")
-    if max(Q, Kb, C, Pc) >= 2 ** 31:
-        raise KernelError("dimensions must fit in int32")
-    fn = load_kernel()
     tv = torch.empty((Q, P), dtype=torch.int8, device=dev)
     if Q == 0 or P == 0:
         return tv                       # nothing to launch
     if Kb == 0:
         return tv.fill_(2)              # empty conjunction: all FULL
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(cids.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                 mins.data_ptr(), maxs.data_ptr(), demote.data_ptr(),
-                 tv.data_ptr(), Q, Kb, P, Pc, block_q(Kb), stream)
-    if err != 0:
-        raise KernelError(f"{KERNEL} launch failed: cudaError {err}")
+    build.launch(KERNEL, dev, cids, lo, hi, mins, maxs, demote, tv,
+                 Q, Kb, P, Pc, block_q(Kb))
     minmax_prune_batched.launches += 1
     return tv
 

@@ -1,21 +1,28 @@
-"""Wrappers wiring the batched kernel into the pruning engine.
+"""Wrappers wiring the batched kernels into the pruning engine.
 
 Host-side NumPy metadata is staged to torch tensors here; the core engine
 (core/*) stays NumPy-pure so compile-time pruning never touches a device.
 
-Resident + batched path (``prune_ranges_batched_device``): the table's
-full ``[C, P]`` planes live on the device in a
-``core.device_stats.DeviceStatsCache`` (staged once per table version); a
-*batch* of queries is packed into ``[Q, Kb]`` constraint tables (Kb a
-power-of-two bucket, ``(-inf, +inf)`` no-op padding) and evaluated by
-``minmax_prune_batched`` in one launch.  ``serve.prune_service
-.PruningService`` groups a workload by table and drives this path.
+Resident + batched paths: a table's planes live on the device in a
+``core.device_stats.DeviceStatsCache`` (staged once per table version)
+and a *batch* of queries is packed into one launch per table group.
+``serve.prune_service.PruningService`` groups a workload and drives them:
+
+  * filter (``prune_ranges_batched_device``): ``[Q, Kb]`` constraint
+    tables (Kb a power-of-two bucket, ``(-inf, +inf)`` no-op padding)
+    against the ``[C, P]`` stat planes, ``minmax_prune_batched``;
+  * JOIN, distinct summaries (``join_overlap_batched_device``): ``[Q, Db]``
+    sorted key rows against the join-key plane, ``join_overlap_batched``;
+  * JOIN, Bloom summaries (``bloom_probe_batched_device``): ``[Q, Bb*16]``
+    filter words against the enumeration plane, ``bloom_probe_batched``;
+  * top-k (``topk_init_batched_device``): per-query candidate partitions
+    (CSR) against the block-top-k plane, ``topk_init_batched``.
 
 Kernel modes: ``auto`` dispatches on the planes' device (CUDA tensors
 launch the kernel, CPU tensors run the plain torch version; the choice is
 the wrapper's), ``cuda`` requires CUDA planes and ``torch`` requires CPU
-planes; each raises on the other device.  The host rung (``prune_ranges_batched_host``) stays
-NumPy f64.
+planes; each raises on the other device.  The host rung
+(``prune_ranges_batched_host``) stays NumPy f64.
 
 All f32 downcasts go through ``core.device_stats`` (widening + demotion;
 see its precision contract).  Integral columns (int / dictionary codes)
@@ -25,16 +32,25 @@ exactly equal to the f64 host oracle on the paper's workloads.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.device_stats import (DeviceStats, cast_bounds_f32,
+from ..core.device_stats import (DeviceStats, cast_bounds_f32, round_up_f32,
                                  snap_bounds_integral)
 from ..core.metadata import PartitionStats
-from .build import KernelError
+from ..core.prune_join import BLOCK_WORDS
+from .bloom_probe import bloom_probe_batched
+from .build import KernelError, load_all
+from .join_overlap import join_overlap_batched
 from .minmax_prune_batched import minmax_prune_batched
+from .topk_boundary import topk_init_batched
+
+# the port's kernels (csrc/<name>.cu), in the order of the pipeline's
+# stages
+KERNELS = ("minmax_prune_batched", "join_overlap_batched",
+           "bloom_probe_batched", "topk_init_batched")
 
 MODES = ("auto", "cuda", "torch")
 
@@ -63,6 +79,38 @@ def k_bucket(k: int) -> int:
 def q_bucket(q: int) -> int:
     """Query-count bucket: next power of two >= max(q, BLOCK_Q)."""
     return _pow2_at_least(max(q, 1), floor=BLOCK_Q)
+
+
+def d_bucket(d: int) -> int:
+    """Distinct-key-count bucket: next power of two >= max(d, 8).
+
+    Batched join overlap pads each query's distinct list up to the bucket
+    with +inf no-op keys — the same scheme as ``k_bucket`` for constraint
+    counts.
+    """
+    return _pow2_at_least(max(d, 1), floor=8)
+
+
+def bloom_bucket(n_blocks: int) -> int:
+    """Bloom block-count bucket: next power of two >= max(n_blocks, 8).
+
+    Filters are *tiled* (not zero-padded) up to the bucket — block
+    selection is ``h & (blocks - 1)``, so a periodically repeated filter
+    probes identical words under the larger mask (see pack_blooms).
+    """
+    return _pow2_at_least(max(n_blocks, 1), floor=8)
+
+
+# Cap on blocks per Bloom filter on the batched path (64 KB of words):
+# bigger filters (build NDV > ~32k at 16 bits/key) keep the host matcher,
+# counted per technique, as in the reference engine.
+BLOOM_MAX_BLOCKS = 1024
+
+
+def load_kernels() -> None:
+    """Build every kernel of the port (one ``nvcc`` per source, all
+    started together) and bind their C entry points."""
+    load_all(KERNELS)
 
 
 def check_mode(mode: str, device: torch.device) -> None:
@@ -108,6 +156,16 @@ def pack_ranges(
     return cids, lo32, hi32, full_safe
 
 
+def _read_back(t: torch.Tensor, kernel: str) -> np.ndarray:
+    """The host copy of a kernel's output.  The first sync after a launch:
+    a fault the kernel raised on the card surfaces here, and must not pass
+    for a degradation."""
+    try:
+        return t.cpu().numpy()
+    except RuntimeError as exc:
+        raise KernelError(f"reading back {kernel}: {exc}") from exc
+
+
 def prune_ranges_batched_device(
     range_lists: Sequence[List[Tuple[int, float, float]]],
     dstats: DeviceStats,
@@ -134,13 +192,7 @@ def prune_ranges_batched_device(
     hi_d = torch.from_numpy(np.ascontiguousarray(hi[:Q])).to(dev)
     tv_d = minmax_prune_batched(cids_d, lo_d, hi_d, mins, maxs, demote,
                                 num_partitions=P)
-    try:
-        tv = tv_d.cpu().numpy()
-    except RuntimeError as exc:
-        # the first sync after the launch: a fault the kernel raised on
-        # the card surfaces here, and must not pass for a degradation
-        raise KernelError(f"reading back minmax_prune_batched: {exc}") \
-            from exc
+    tv = _read_back(tv_d, "minmax_prune_batched")
     if not full_safe.all():
         tv[~full_safe] = np.minimum(tv[~full_safe], 1)
     return tv
@@ -175,3 +227,164 @@ def prune_ranges_batched_host(
                 row, np.where(no, 0, np.where(full, 2, 1)).astype(np.int8))
         tv[qi] = row
     return tv
+
+
+# ---------------------------------------------------------------------------
+# Runtime techniques: JOIN (distinct keys, Bloom filters) and top-k
+# ---------------------------------------------------------------------------
+
+def build_block_topk(
+    values: np.ndarray,
+    part_bounds: np.ndarray,
+    k: int,
+    mask: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Per-partition block top-k table [P, k] (desc, -inf padded).
+
+    The metadata sketch the top-k boundary init consumes; masked-out rows
+    (filter misses, nulls) are excluded.  Segmented formulation: one
+    lexsort by (partition, -value) then a rank-within-partition select —
+    O(N log N) total with no Python loop over P.
+
+    part_bounds must be non-decreasing row offsets (they are cumulative
+    by construction everywhere in the engine).  NaN values are dropped
+    (a NaN in a sketch row would corrupt the boundary comparisons).
+    """
+    part_bounds = np.asarray(part_bounds)
+    if np.any(np.diff(part_bounds) < 0):
+        raise ValueError("part_bounds must be non-decreasing row offsets")
+    P = len(part_bounds) - 1
+    out = np.full((P, k), -np.inf, dtype=np.float32)
+    values = np.asarray(values)
+    # Clamp like the slice values[s:e] would: bounds may overrun values.
+    cb = np.clip(part_bounds, 0, len(values))
+    lo_row, hi_row = int(cb[0]), int(cb[-1])
+    # Widen, don't round-to-nearest: a plane value must never understate
+    # the block's potential, or the boundary test could skip a match.
+    vals = round_up_f32(values[lo_row:hi_row])
+    pid = np.repeat(np.arange(P), np.diff(cb))
+    if mask is not None:
+        sel = np.asarray(mask, dtype=bool)[lo_row:hi_row]
+        vals = vals[sel]
+        pid = pid[sel]
+    finite = ~np.isnan(vals)
+    if not finite.all():
+        vals = vals[finite]
+        pid = pid[finite]
+    if vals.size == 0:
+        return out
+    order = np.lexsort((-vals, pid))        # partition-major, value desc
+    pid_s = pid[order]
+    vals_s = vals[order]
+    starts = np.searchsorted(pid_s, np.arange(P), side="left")
+    rank = np.arange(len(vals_s)) - starts[pid_s]
+    keep = rank < k
+    out[pid_s[keep], rank[keep]] = vals_s[keep]
+    return out
+
+
+def pack_distinct(distinct_lists: Sequence[np.ndarray]) -> np.ndarray:
+    """Pack per-query sorted distinct keys into the [Q, Db] kernel layout.
+
+    Db is the power-of-two ``d_bucket``; padding is +inf — sorted last
+    and, against the finite join-key plane, never inside a range.  The
+    f32 key cast rounds to nearest, which is monotone: sorted keys stay
+    sorted and a key inside a partition's f64 range stays inside its
+    widened f32 one.
+    """
+    Q = len(distinct_lists)
+    Db = d_bucket(max((len(d) for d in distinct_lists), default=1))
+    dist = np.full((Q, Db), np.inf, dtype=np.float32)
+    for qi, d in enumerate(distinct_lists):
+        dist[qi, : len(d)] = np.asarray(d, dtype=np.float32)
+    return dist
+
+
+def join_overlap_batched_device(
+    distinct_lists: Sequence[np.ndarray],
+    pmin: torch.Tensor,      # [Pc] resident f32 key-column minima (widened)
+    pmax: torch.Tensor,      # [Pc] resident f32 key-column maxima (widened)
+    num_partitions: int,     # logical P of the plane
+    mode: str = "auto",
+) -> np.ndarray:
+    """hit [Q, P] int8 — Q build summaries vs the resident key plane, one
+    launch for the whole table group.  The device path can keep extra
+    partitions (widened intervals) but never prunes a partition holding a
+    joinable key."""
+    dev = pmin.device
+    check_mode(mode, dev)
+    dist = torch.from_numpy(pack_distinct(distinct_lists)).to(dev)
+    hit = join_overlap_batched(dist, pmin, pmax,
+                               num_partitions=num_partitions)
+    return _read_back(hit, "join_overlap_batched")
+
+
+def pack_blooms(blooms: Sequence) -> np.ndarray:
+    """Pack Q blocked-Bloom filters into the kernel's [Q, Bb * 16] layout.
+
+    Each row holds a filter's uint32 words (as int32 bits), word index
+    ``block * 16 + w``, tiled periodically up to the common power-of-two
+    Bb bucket: block selection is ``h & (n_blocks - 1)``, and
+    ``tiled[h & (Bb - 1)] == words[h & (nb - 1)]`` for any pow-2 multiple
+    Bb, so every query in a launch shares one block mask.
+    """
+    Q = len(blooms)
+    Bb = bloom_bucket(max((b.n_blocks for b in blooms), default=1))
+    out = np.zeros((Q, Bb * BLOCK_WORDS), dtype=np.uint32)
+    for qi, b in enumerate(blooms):
+        out[qi] = np.tile(b.words, Bb // b.n_blocks)
+    return out.view(np.int32)
+
+
+def bloom_probe_batched_device(
+    blooms: Sequence,        # Q core.prune_join.BlockedBloom filters
+    pmin: torch.Tensor,      # [Pc] int32 resident enumeration minima
+    width: torch.Tensor,     # [Pc] int32 resident candidate counts (0=keep)
+    enum_limit: int,
+    num_partitions: int,     # logical P of the plane
+    mode: str = "auto",
+) -> np.ndarray:
+    """hit [Q, P] int8 — Q Bloom summaries vs the resident enumeration
+    plane; row q equals the host matcher's narrow-range enumeration for
+    query q's filter (hit 0 only where 0 < width <= enum_limit and no
+    candidate value is in the filter)."""
+    dev = pmin.device
+    check_mode(mode, dev)
+    words = torch.from_numpy(pack_blooms(blooms)).to(dev)
+    # partitions wider than the enumeration limit are kept, never probed
+    width_eff = torch.where(width <= int(enum_limit), width,
+                            torch.zeros_like(width))
+    hit = bloom_probe_batched(words, pmin, width_eff,
+                              num_partitions=num_partitions)
+    return _read_back(hit, "bloom_probe_batched")
+
+
+def pack_candidates(candidate_lists: Sequence[np.ndarray]
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR of per-query candidate partition ids: (offsets int64 [Q + 1],
+    ids int32 [nnz])."""
+    counts = np.array([len(c) for c in candidate_lists], dtype=np.int64)
+    offsets = np.zeros(len(candidate_lists) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    ids = (np.concatenate([np.asarray(c, dtype=np.int32)
+                           for c in candidate_lists])
+           if len(candidate_lists) else np.zeros(0, dtype=np.int32))
+    return offsets, ids
+
+
+def topk_init_batched_device(
+    plane: torch.Tensor,     # [Pc, K] resident block-top-k rows (signed f32)
+    candidate_lists: Sequence[np.ndarray],   # per query: candidate ids
+    k: int,
+    mode: str = "auto",
+) -> np.ndarray:
+    """heap [Q, k] f32 — per-query top-k over its candidates' resident
+    plane rows.  Query q's Sec. 5.4 upfront boundary for any effective
+    kq <= k is ``heap[q, kq - 1]`` (-inf when fewer than kq values exist).
+    """
+    dev = plane.device
+    check_mode(mode, dev)
+    offsets, ids = pack_candidates(candidate_lists)
+    heap = topk_init_batched(plane, torch.from_numpy(offsets).to(dev),
+                             torch.from_numpy(ids).to(dev), k)
+    return _read_back(heap, "topk_init_batched")

@@ -1,0 +1,111 @@
+"""Batched top-k boundary initialisation, one launch per (table, order
+column, direction) group.
+
+For each of Q queries, the k largest values among the rows of its
+candidate partitions (its fully-matching partitions) in the resident
+block-top-k plane (core/device_stats.py ``block_topk_plane``: [Pc, K]
+signed f32 rows, descending, -inf padded): heap [Q, k], descending,
+-inf padded — query q's Sec. 5.4 upfront boundary for any kq <= k is
+``heap[q, kq - 1]``.  Candidates are CSR: query q's partition ids are
+``ids[offsets[q]:offsets[q + 1]]`` (``ops.pack_candidates``).
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+``csrc/topk_init_batched.cu`` (built at first use, see ``build.py``); on
+a CPU tensor it runs the plain PyTorch version
+(``ref.topk_init_batched_ref``).  There is no fallback between the two: a
+CUDA input either launches the kernel or raises ``KernelError``, as does
+any input the kernel does not take.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .build import KernelError, check_tensor
+from .ref import topk_init_batched_ref
+
+KERNEL = "topk_init_batched"
+# Largest heap the kernel keeps (its per-thread lists live in shared
+# memory: k * 128 threads * 4 bytes, 64 KB at 128).
+MAX_K = 128
+# Candidate rows per block the launch aims for; a query's list is cut
+# into at most MAX_SLABS slabs, one block each.
+SLAB_ROWS = 4096
+MAX_SLABS = 128
+
+
+def slabs(Q: int, nnz: int) -> int:
+    """Blocks per query: the average list cut into SLAB_ROWS-row slabs."""
+    per_query = -(-nnz // max(Q, 1))
+    return max(1, min(MAX_SLABS, -(-per_query // SLAB_ROWS)))
+
+
+def topk_init_batched(
+    plane: torch.Tensor,     # [Pc, K] f32 resident block-top-k rows
+    offsets: torch.Tensor,   # [Q + 1] int64 CSR row offsets into ids
+    ids: torch.Tensor,       # [nnz] int32 candidate partition ids
+    k: int,
+) -> torch.Tensor:
+    """Returns heap [Q, k] f32 on the plane's device."""
+    if plane.dim() != 2 or offsets.dim() != 1 or ids.dim() != 1:
+        raise KernelError("plane must be [Pc, K], offsets [Q + 1] and "
+                          "ids [nnz]")
+    if not 1 <= int(k) <= MAX_K:
+        raise KernelError(f"k {k} outside [1, {MAX_K}]")
+    k = int(k)
+    Pc, K = plane.shape
+    Q = int(offsets.shape[0]) - 1
+    nnz = int(ids.shape[0])
+    if Q < 0 or K < 1:
+        raise KernelError("offsets need Q + 1 >= 1 entries and rows K >= 1")
+    dev = plane.device
+    for name, t, dtype, shape in (
+            ("plane", plane, torch.float32, (Pc, K)),
+            ("offsets", offsets, torch.int64, (Q + 1,)),
+            ("ids", ids, torch.int32, (nnz,))):
+        check_tensor(name, t, dtype, shape, dev)
+    check_candidates(offsets, ids, Pc)
+    if not build.runs_kernel(dev):
+        return topk_init_batched_ref(plane, offsets, ids, k)
+    return launch_checked(plane, offsets, ids, k)
+
+
+def check_candidates(offsets: torch.Tensor, ids: torch.Tensor,
+                     Pc: int) -> None:
+    """Raise ``KernelError`` unless ``offsets``/``ids`` are CSR lists of
+    partition ids in [0, Pc): the kernel indexes the plane by them.  Three
+    reductions over the lists and, on the card, one wait for their
+    result."""
+    nnz = int(ids.shape[0])
+    bad = (offsets[0] != 0) | (offsets[-1] != nnz) \
+        | (offsets[1:] < offsets[:-1]).any()
+    if nnz:
+        bad = bad | (ids.min() < 0) | (ids.max() >= Pc)
+    if bool(bad):
+        raise KernelError("candidate lists must be CSR offsets from 0 to "
+                          f"{nnz} over partition ids in [0, {Pc})")
+
+
+def launch_checked(plane: torch.Tensor, offsets: torch.Tensor,
+                   ids: torch.Tensor, k: int) -> torch.Tensor:
+    """The kernel's launch alone, on CUDA inputs that
+    ``topk_init_batched`` has checked: heap [Q, k].  ``chip_smoke.py``
+    times this as the kernel's time."""
+    dev = plane.device
+    K = int(plane.shape[1])
+    Q = int(offsets.shape[0]) - 1
+    heap = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    if Q == 0:
+        return heap
+    S = slabs(Q, int(ids.shape[0]))
+    scratch = torch.empty((Q, S, k), dtype=torch.float32, device=dev)
+    tickets = torch.zeros(Q, dtype=torch.int32, device=dev)
+    build.launch(KERNEL, dev, plane, offsets, ids, heap, scratch, tickets,
+                 Q, K, k, S)
+    topk_init_batched.launches += 1
+    return heap
+
+
+# launches of the CUDA kernel (CPU calls of the plain version not counted)
+topk_init_batched.launches = 0

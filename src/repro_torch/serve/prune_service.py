@@ -3,8 +3,8 @@
 A production metadata service (paper Sec. 2) answers pruning questions for
 *every* query of a heavy workload, not one query at a time.  This service
 accepts a batch of ``core.flow.Query`` objects and drives the pipeline's
-technique sequence over them — in this slice of the port, filter then
-LIMIT:
+technique sequence over them — filter, LIMIT, JOIN, top-k — with every
+device-eligible stage batched per table group:
 
   * **filter** (``prune_batch``): each scan's predicate is lowered to
     conjunctive ranges; lowered scans are grouped by table and evaluated
@@ -12,14 +12,20 @@ LIMIT:
     [C, P] planes (non-lowerable predicates fall back to the host
     evaluator, counted, never wrong);
   * **LIMIT** runs on the host over the filter stage's FULL partitions
-    and launches nothing.
-
-A query with a JOIN or an ORDER BY raises ``NotImplementedError`` before
-any stage runs: those stages are not ported yet, and running the
-reference's sequence without them would answer a different question.
+    and launches nothing;
+  * **JOIN** (``join_hit_batch`` / ``bloom_hit_batch``): build sides are
+    summarized on the host; probe-side matching is one
+    ``join_overlap_batched`` launch per (probe table, key column) group
+    of distinct summaries against the resident join-key plane, and one
+    ``bloom_probe_batched`` launch per group of Bloom summaries against
+    the resident enumeration plane;
+  * **top-k** (``topk_init_batch``): the Sec. 5.4 upfront boundaries of a
+    (table, order column, direction) group come from one
+    ``topk_init_batched`` launch over the resident block-top-k plane; the
+    boundary scan itself stays on the host (it fetches rows).
 
 Device: the service runs on the GPU (``device=None``) unless the caller
-asks for ``device="cpu"``; without a card it raises.  On the GPU the
+asks for ``device="cpu"``; without a card it raises.  On the GPU every
 kernel library is built and loaded when the service is constructed,
 outside any ladder rung, so a build failure raises here instead of
 demoting every launch to the host.
@@ -43,13 +49,17 @@ import numpy as np
 from ..core import expr as E
 from ..core.device_stats import (DeviceStatsCache, PlaneMemoryManager,
                                  resolve_device)
-from ..core.flow import check_supported
-from ..core.metadata import (NO_MATCH, PARTIAL_MATCH, ScanSet,
+from ..core.metadata import (FULL_MATCH, NO_MATCH, PARTIAL_MATCH, ScanSet,
                              live_full_scan, mask_dead_partitions)
 from ..core.prune_filter import eval_tv, extract_ranges
+from ..core.prune_join import DEFAULT_ENUM_LIMIT, BuildSummary
 from ..kernels import ops as kops
 from ..kernels.build import KernelError
-from ..kernels.minmax_prune_batched import load_kernel
+# Boundary-init k cap: the kernel keeps per-thread top-k lists in shared
+# memory.  Larger k also gains little from the plane (each partition
+# contributes at most KPLANE=64 witnessed rows); such queries keep the
+# host-only init.
+from ..kernels.topk_boundary import MAX_K as TOPK_INIT_MAX_K
 from .resilience import (DegradationLadder, new_resilience_counters,
                          resilience_delta, resilience_snapshot)
 
@@ -58,6 +68,9 @@ from .resilience import (DegradationLadder, new_resilience_counters,
 # executed exclusively through ``self.ladder.execute``.
 LADDER_LAUNCH_SITES = frozenset({
     "PruningService._filter_rungs",
+    "PruningService.join_hit_batch",
+    "PruningService.bloom_hit_batch",
+    "PruningService.topk_init_batch",
 })
 
 
@@ -132,9 +145,9 @@ class PruningService:
             **({} if integrity_sample is None
                else dict(integrity_sample=integrity_sample)))
         if dev.type == "cuda":
-            # build + bind the kernel now: a build failure must raise
+            # build + bind the kernels now: a build failure must raise
             # here, not inside a ladder rung that would demote past it
-            load_kernel()
+            kops.load_kernels()
         self.counters = ServiceCounters()
         self.fault_injector = fault_injector
         # (stats uid, pred repr) pairs that validated clean (_validate_query)
@@ -296,6 +309,172 @@ class PruningService:
             results[qi][name] = self._scan_set(tv, spec.table)
         return results
 
+    # -- join stage ---------------------------------------------------------
+
+    def join_device_eligible(self, summary: BuildSummary, table=None,
+                             key_col: Optional[str] = None) -> bool:
+        """Can this summary's probe-side matching run on the device plane?
+
+        Distinct summaries need their keys finite in f32 (join-key plane
+        overlap).  Bloom summaries need the probe table/key column: the
+        kernel's narrow-range enumeration hashes *int32* candidates with
+        the shared murmur mixer, so the key column must be an
+        integer/dictionary domain wholly inside int32 — fractional or
+        out-of-range keys keep the host matcher so batched output stays
+        bit-identical to it — and the filter must fit the batched path's
+        block cap (``kops.BLOOM_MAX_BLOCKS``).  The int32-domain check is
+        the cached ``domain_ok`` of the enumeration plane, so eligibility
+        never rescans [P] stats per query.  Empty summaries are host
+        short-circuits, not kernel work.
+        """
+        if summary.empty:
+            return False
+        if summary.distinct is not None:
+            d32 = np.asarray(summary.distinct,
+                             dtype=np.float64).astype(np.float32)
+            return bool(np.isfinite(d32).all())
+        if summary.bloom is None or table is None or key_col is None:
+            return False
+        if summary.bloom.n_blocks > kops.BLOOM_MAX_BLOCKS:
+            return False
+        if table.stats.column(key_col).kind == "float":
+            return False
+        return self.cache.enum_plane(table, key_col)[3]
+
+    def join_hit_batch(self, table, key_col: str,
+                       summaries: Sequence[BuildSummary]
+                       ) -> Optional[np.ndarray]:
+        """hit [G, P] for a (table, key column) group — one launch.
+
+        Returns None when the ladder degraded past the device rung — the
+        caller's host matcher is this stage's exact terminal rung
+        (``prune_probe`` recomputes the overlap from host truth, so a
+        degraded join loses latency, never pruning quality).
+        """
+        def device():
+            self._fire("launch.join:device")
+            with self.cache.pin_scope():
+                pmin, pmax = self.cache.join_key_plane(table, key_col)
+                hit = kops.join_overlap_batched_device(
+                    [s.distinct for s in summaries], pmin, pmax,
+                    table.stats.num_partitions, self.mode)
+                self.counters.bump("join", launches=1)
+            return hit
+
+        def host_oracle():
+            self.counters.bump("join", fallbacks=len(summaries))
+            return None
+
+        hit, _rung = self.ladder.execute([("device", device),
+                                          ("host_oracle", host_oracle)])
+        return hit
+
+    def bloom_hit_batch(self, table, key_col: str,
+                        summaries: Sequence[BuildSummary]
+                        ) -> Optional[np.ndarray]:
+        """hit [G, P] for a (table, key column) group of Bloom summaries —
+        one batched narrow-range enumeration launch over the resident
+        enumeration plane.  None when the ladder degraded to the exact
+        host matcher.  The enumeration limit is the host matcher's
+        (``prune_probe``'s ``DEFAULT_ENUM_LIMIT``), so both give the same
+        verdicts."""
+        def device():
+            self._fire("launch.join_bloom:device")
+            with self.cache.pin_scope():
+                pmin, width, _wmax, _ok = self.cache.enum_plane(table,
+                                                                key_col)
+                hit = kops.bloom_probe_batched_device(
+                    [s.bloom for s in summaries], pmin, width,
+                    DEFAULT_ENUM_LIMIT,
+                    table.stats.num_partitions, self.mode)
+                self.counters.bump("join_bloom", launches=1)
+            return hit
+
+        def host_oracle():
+            self.counters.bump("join_bloom", fallbacks=len(summaries))
+            return None
+
+        hit, _rung = self.ladder.execute([("device", device),
+                                          ("host_oracle", host_oracle)])
+        return hit
+
+    def join_hit(self, table, key_col: str, summary: BuildSummary
+                 ) -> Optional[np.ndarray]:
+        """hit [P] for one query, or None -> host path (counted per
+        technique — ``join`` for distinct, ``join_bloom`` for Bloom —
+        unless the summary is empty, which the host handles as a trivial
+        wipe)."""
+        if not self.join_device_eligible(summary, table, key_col):
+            if not summary.empty:
+                self.counters.bump(
+                    "join_bloom" if summary.bloom is not None else "join",
+                    fallbacks=1)
+            return None
+        if summary.distinct is not None:
+            hit = self.join_hit_batch(table, key_col, [summary])
+        else:
+            hit = self.bloom_hit_batch(table, key_col, [summary])
+        # None: the ladder degraded to the host matcher terminal rung
+        return None if hit is None else hit[0]
+
+    # -- top-k stage --------------------------------------------------------
+
+    def topk_init_batch(self, table, order_col: str, desc: bool,
+                        jobs: Sequence[Tuple[ScanSet, int]]) -> List[float]:
+        """Per-query upfront boundaries for a (table, column, direction)
+        group — one ``topk_init_batched`` launch.
+
+        Each job is ``(scan_set, effective_k)``; the boundary is the k-th
+        largest resident block-top-k value over the scan set's
+        fully-matching partitions (signed domain), or -inf when fewer
+        than k candidates exist.  Launch heaps are sized to the group's
+        k bucket; a prefix of a larger heap is the exact smaller-k
+        answer, so mixed-k groups share one launch.
+        """
+        # Jobs whose k is out of the useful range never consult the heap —
+        # exclude them up front so they neither widen the group's k bucket
+        # nor force a launch alone.
+        live: List[Tuple[int, np.ndarray, int]] = []
+        for i, (scan, k) in enumerate(jobs):
+            if scan.match is None or not (0 < int(k) <= TOPK_INIT_MAX_K):
+                continue
+            live.append((i, scan.part_ids[scan.match == FULL_MATCH], int(k)))
+        out = [-np.inf] * len(jobs)
+        if not any(full.size for _, full, _ in live):
+            return out                     # nothing to bound; skip the launch
+        kb = kops.k_bucket(max(k for _, _, k in live))
+
+        def device():
+            self._fire("launch.topk:device")
+            with self.cache.pin_scope():
+                plane = self.cache.block_topk_plane(table, order_col, desc)
+                heap = kops.topk_init_batched_device(
+                    plane, [full for _, full, _ in live], kb, self.mode)
+                self.counters.bump("topk", launches=1)
+            return heap
+
+        def host_oracle():
+            # -inf floors: run_topk's own boundary discovery takes over —
+            # a weaker starting boundary, never a wrong result
+            self.counters.bump("topk", fallbacks=1)
+            return None
+
+        heap, _rung = self.ladder.execute([("device", device),
+                                           ("host_oracle", host_oracle)])
+        if heap is None:
+            return out
+        for row, (i, _full, k) in enumerate(live):
+            out[i] = float(heap[row, k - 1])
+        return out
+
+    def topk_init(self, table, scan: ScanSet, order_col: str, desc: bool,
+                  k: int) -> float:
+        """One query's upfront boundary from the resident plane (signed)."""
+        if (scan.match is None or k <= 0 or k > TOPK_INIT_MAX_K
+                or not (scan.match == FULL_MATCH).any()):
+            return -np.inf
+        return self.topk_init_batch(table, order_col, desc, [(scan, k)])[0]
+
     # -- workload entry points ----------------------------------------------
 
     def _validate_query(self, q) -> None:
@@ -305,7 +484,8 @@ class PruningService:
         (O(1) per scan, not O(P)) so unknown columns and bad literal
         dtypes surface *here*, at validation time — ``run_batch``
         isolates the raise to this query instead of letting it abort the
-        batch mid-launch.  Clean probes are memoized per (stats identity,
+        batch mid-launch.  Join/order-by column names are checked the
+        same way.  Clean probes are memoized per (stats identity,
         predicate); failed probes are never cached.
         """
         for spec in q.scans.values():
@@ -319,6 +499,13 @@ class PruningService:
             if len(self._validated) > self.VALIDATED_CAP:
                 self._validated.clear()
             self._validated.add(vkey)
+        if q.join is not None:
+            for scan_name, col in ((q.join.build, q.join.build_key),
+                                   (q.join.probe, q.join.probe_key)):
+                q.scans[scan_name].table.stats.col_id(col)
+        if q.order_by is not None:
+            scan_name, col, _desc = q.order_by
+            q.scans[scan_name].table.stats.col_id(col)
 
     def _passthrough_report(self, pipeline, q):
         """A no-prune report for a query the engine refused to run
@@ -335,8 +522,8 @@ class PruningService:
         return pipeline.finish(st)
 
     def run_batch(self, queries: Sequence, pipeline=None) -> List:
-        """Filter + LIMIT pruning over a workload, the filter stage
-        batched per table group.
+        """Full pruning pipelines over a workload, every device-eligible
+        stage batched per table group.
 
         Returns one ``PruningReport`` per query, identical to running
         ``pipeline.run(q)`` per query in the same mode.  Each report
@@ -345,9 +532,7 @@ class PruningService:
         (``counters["resilience"]``) and the plane-integrity block
         (``counters["integrity"]``).
 
-        A query with a JOIN or an ORDER BY raises ``NotImplementedError``
-        before any stage runs.  Otherwise ``run_batch`` never raises for
-        a query-shaped problem: malformed specs become no-prune
+        ``run_batch`` never raises for a query-shaped problem: malformed specs become no-prune
         passthrough reports (``errors`` counter); launch/staging/plane
         failures degrade through the ladder; an unexpected batch-level
         failure falls back to per-query execution
@@ -355,13 +540,11 @@ class PruningService:
         kernel failed to build, to take its inputs or to launch) is not
         such a problem and raises.
         """
-        for q in queries:
-            check_supported(q)
         from ..core.flow import PruningPipeline
         if pipeline is None:
             pipeline = PruningPipeline(filter_mode="device", service=self)
-        # Only batch the filter stage when the pipeline itself declares
-        # the device path — a host pipeline keeps its own semantics.
+        # Only batch device stages when the pipeline itself declares the
+        # device path — a host pipeline keeps its own semantics.
         device = pipeline.filter_mode == "device"
         before = self.counters.snapshot()
         before_staging = self.cache.staging_snapshot()

@@ -11,7 +11,9 @@ over-approximate).  This module turns that property into machinery:
   * ``DegradationLadder`` executes a per-table batched launch through an
     ordered fallback chain (``RUNGS``): device kernel -> host kernel
     fallback (``kernels/ops.py``) -> host oracle technique -> no-prune
-    passthrough.  Each rung gets a
+    passthrough.  The filter stage has all four rungs; the JOIN and top-k
+    stages go from the device rung straight to ``host_oracle``, which
+    hands the stage back to its exact host matcher / host boundary.  Each rung gets a
     bounded number of retries with deterministic exponential backoff
     (injectable clock/sleep so tests never really sleep) and a per-stage
     deadline; every demotion is recorded in the service's
@@ -74,7 +76,7 @@ COUNTER_REGISTRY = frozenset({
     # plane-integrity counters (core.device_stats.DeviceStatsCache)
     "verifications", "checksum_failures", "quarantines",
     # per-technique attribution (ServiceCounters.bump / .technique)
-    "filter", "launches", "fallbacks",
+    "filter", "join", "join_bloom", "topk", "launches", "fallbacks",
     # report sections attached to each batch (PruningService.run_batch)
     "technique", "staging", "memory", "resilience", "integrity", "planes",
 })
@@ -204,9 +206,9 @@ class FaultInjector:
             if h.size:
                 flat = h.reshape(-1)
                 idx = self._rng.randrange(flat.shape[0])
-                v = flat[idx]
-                # flip to a value that changes the bytes for any dtype
-                flat[idx] = (v + 1) if np.isfinite(v) else 0
+                # flip the element's lowest bit: its bytes change for any
+                # dtype and value (adding 1 leaves f32max or 2**30 as is)
+                flat[idx:idx + 1].view(np.uint8)[0] ^= 1
             out.append(_like(a, h))
         return tuple(out)
 

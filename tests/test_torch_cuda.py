@@ -1,8 +1,12 @@
-"""The hand-written CUDA kernel against its plain version, on the card.
+"""The hand-written CUDA kernels against their plain versions, on the card.
 
 These tests need a CUDA device and the CUDA compiler; without a card
-each one skips (a skip is no pass: on a machine without a GPU the kernel
-is checked only by ``chip_smoke.py`` on the card).  Run them there with
+each one skips (a skip is no pass: on a machine without a GPU the kernels
+are checked only by ``chip_smoke.py`` on the card).  Every comparison is
+exact: the kernels return verdicts and selected values, no arithmetic
+that could round differently.  The input generators here carry no JAX,
+so the CPU tests of ``test_torch_kernels.py`` reuse them.  Run these on
+the card with
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -13,15 +17,21 @@ import torch
 
 from repro_torch.core import device_stats as TD
 from repro_torch.core.metadata import ColumnMeta, PartitionStats
-import importlib
-
-from repro_torch.kernels import ops
+from repro_torch.core.prune_join import BlockedBloom
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.bloom_probe import bloom_probe_batched
 from repro_torch.kernels.build import KernelError
+from repro_torch.kernels.join_overlap import join_overlap_batched
 from repro_torch.kernels.minmax_prune_batched import minmax_prune_batched
-from repro_torch.kernels.ref import minmax_prune_batched_ref
+from repro_torch.kernels.ref import (bloom_probe_batched_ref,
+                                    join_overlap_batched_ref,
+                                    minmax_prune_batched_ref,
+                                    topk_init_batched_ref)
+from repro_torch.kernels.topk_boundary import topk_init_batched
 
 F32_MAX = np.float32(np.finfo(np.float32).max)
-tmpb = importlib.import_module("repro_torch.kernels.minmax_prune_batched")
+WRAPPERS = {f.__name__: f for f in (join_overlap_batched, bloom_probe_batched,
+                                    topk_init_batched)}
 
 
 @pytest.fixture
@@ -45,6 +55,68 @@ def _inputs(rng, Q, Kb, C, P, cap):
     lo[noop], hi[noop] = -np.inf, np.inf
     lo[0, 0] = np.float32(1e-45)                 # a denormal bound
     return cids, lo, hi, mins, maxs, demote
+
+
+def join_inputs(rng, Q, P, cap, max_keys=200):
+    """A join-key plane ([cap] f32 rows, drop sentinels inside P and in
+    the capacity tail) and Q sorted distinct key lists, some of them
+    holding a partition's exact bounds."""
+    pmin = rng.integers(-5000, 10_000, cap).astype(np.float32)
+    pmax = pmin + rng.integers(0, 100, cap).astype(np.float32)
+    drop = rng.random(cap) < 0.1
+    drop[P:] = True
+    pmin[drop], pmax[drop] = F32_MAX, -F32_MAX
+    lists = []
+    for qi in range(Q):
+        keys = rng.integers(-5000, 10_000, int(rng.integers(1, max_keys + 1)))
+        if qi % 3 == 0 and P:
+            p = int(rng.integers(0, P))
+            keys = np.append(keys, [pmin[p], pmax[p]])   # inclusive ends
+        lists.append(np.unique(keys).astype(np.float32))
+    return pmin, pmax, lists
+
+
+def bloom_inputs(rng, Q, P, cap, n_blocks=(1, 8, 256, 1024), limit=64):
+    """Q blocked-Bloom filters of the given block counts and an
+    enumeration plane: widths 0 (keep), within and above ``limit``,
+    negative candidates, and candidates at both ends of int32."""
+    blooms = []
+    for qi in range(Q):
+        nb = n_blocks[qi % len(n_blocks)]
+        b = BlockedBloom(nb * 32)          # 16 bits per key: nb blocks
+        assert b.n_blocks == nb
+        b.add(rng.integers(-3000, 3000, nb * 32))
+        blooms.append(b)
+    pmin = rng.integers(-3000, 3000, cap).astype(np.int32)
+    width = rng.integers(0, 40, cap).astype(np.int32)
+    width[rng.random(cap) < 0.1] = 0
+    width[rng.random(cap) < 0.05] = 2 * limit               # too wide
+    if P >= 2:
+        pmin[0], width[0] = np.iinfo(np.int32).min, 7
+        pmin[1], width[1] = np.iinfo(np.int32).max - 9, 10
+    width[P:] = 0
+    width_eff = np.where(width <= limit, width, 0).astype(np.int32)
+    return blooms, pmin, width, width_eff
+
+
+def topk_inputs(rng, Q, P, cap, K=TD.KPLANE):
+    """A [cap, K] block-top-k plane (rows descending, -inf padded, ties,
+    all -inf rows) and Q candidate lists: empty, all, and random subsets
+    of [0, P)."""
+    plane = np.full((cap, K), -np.inf, dtype=np.float32)
+    for p in range(P):
+        n = int(rng.integers(0, K + 1)) if rng.random() < 0.9 else 0
+        plane[p, :n] = -np.sort(-rng.integers(-60, 60, n).astype(np.float32))
+    lists = []
+    for qi in range(Q):
+        if qi == 0:
+            lists.append(np.zeros(0, dtype=np.int32))
+        elif qi == 1:
+            lists.append(np.arange(P, dtype=np.int32))
+        else:
+            keep = rng.random(P) < rng.choice([0.001, 0.05, 0.5])
+            lists.append(np.nonzero(keep)[0].astype(np.int32))
+    return plane, lists
 
 
 @pytest.mark.parametrize("Q,Kb,C,P", [
@@ -109,10 +181,154 @@ def test_launch_failure_raises_out_of_run_batch(cuda, monkeypatch):
     ev = make_events_table(np.random.default_rng(0), n_rows=4000,
                            rows_per_partition=20)
     svc = PruningService()
-    tmpb.load_kernel()
-    monkeypatch.setattr(tmpb, "_fn", lambda *_a: 1)   # cudaErrorInvalidValue
+    # every entry point returns cudaErrorInvalidValue
+    monkeypatch.setattr(build, "entry", lambda _name: lambda *_a: 1)
     with pytest.raises(KernelError, match="cudaError 1"):
         svc.run_batch([Query(scans={"e": TableScanSpec(
             ev, E.col("ts") >= 5_000_000)})])
     assert not any(svc.resilience["demotions"].values())
     assert svc.resilience["salvaged_batches"] == 0
+
+
+@pytest.mark.parametrize("Q,max_keys,P", [
+    (1, 1, 1), (7, 60, 1000), (32, 4096, 100_000),
+    # key rows longer than the kernel's shared-memory tile: searched in place
+    (3, 9000, 5000),
+])
+def test_join_overlap_equals_plain_version(cuda, Q, max_keys, P):
+    rng = np.random.default_rng(P + Q)
+    cap = TD.plane_capacity(P)
+    pmin, pmax, lists = join_inputs(rng, Q, P, cap, max_keys)
+    dist = torch.from_numpy(ops.pack_distinct(lists)).to(cuda)
+    pmin_d, pmax_d = (torch.from_numpy(a).to(cuda) for a in (pmin, pmax))
+    before = join_overlap_batched.launches
+    got = join_overlap_batched(dist, pmin_d, pmax_d, num_partitions=P)
+    torch.cuda.synchronize()
+    assert join_overlap_batched.launches == before + 1
+    want = join_overlap_batched_ref(dist, pmin_d, pmax_d, num_partitions=P)
+    assert got.dtype == torch.int8 and tuple(got.shape) == (Q, P)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("Q,P,n_blocks", [
+    (1, 1, (1,)), (4, 3000, (1, 8, 256, 1024)), (33, 20_000, (8, 1024)),
+    (70, 5000, (256,)),
+])
+def test_bloom_probe_equals_plain_version(cuda, Q, P, n_blocks):
+    rng = np.random.default_rng(P + Q)
+    cap = TD.plane_capacity(P)
+    blooms, pmin, _width, width_eff = bloom_inputs(rng, Q, P, cap, n_blocks)
+    words = torch.from_numpy(ops.pack_blooms(blooms)).to(cuda)
+    pmin_d, width_d = (torch.from_numpy(a).to(cuda)
+                       for a in (pmin, width_eff))
+    before = bloom_probe_batched.launches
+    got = bloom_probe_batched(words, pmin_d, width_d, num_partitions=P)
+    torch.cuda.synchronize()
+    assert bloom_probe_batched.launches == before + 1
+    want = bloom_probe_batched_ref(words, pmin_d, width_d, num_partitions=P)
+    assert got.dtype == torch.int8 and tuple(got.shape) == (Q, P)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("Q,P,k", [
+    (3, 1, 1), (6, 700, 3), (9, 5000, 64), (5, 20_000, 128),
+    # long candidate lists: many slabs per query, merged by the last block
+    (3, 600_000, 128),
+])
+def test_topk_init_equals_plain_version(cuda, Q, P, k):
+    rng = np.random.default_rng(P + k)
+    cap = TD.plane_capacity(P)
+    plane, lists = topk_inputs(rng, Q, P, cap)
+    offsets, ids = ops.pack_candidates(lists)
+    args = (torch.from_numpy(plane).to(cuda),
+            torch.from_numpy(offsets).to(cuda), torch.from_numpy(ids).to(cuda))
+    before = topk_init_batched.launches
+    got = topk_init_batched(*args, k)
+    torch.cuda.synchronize()
+    assert topk_init_batched.launches == before + 1
+    want = topk_init_batched_ref(*args, k)
+    assert tuple(got.shape) == (Q, k)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["join_overlap_batched",
+                                    "bloom_probe_batched",
+                                    "topk_init_batched"])
+def test_new_kernel_launch_failure_raises(cuda, monkeypatch, kernel):
+    """Each wrapper turns a CUDA error returned by its launch into a
+    KernelError and counts no launch."""
+    # every entry point returns cudaErrorInvalidValue
+    monkeypatch.setattr(build, "entry", lambda _name: lambda *_a: 1)
+    rng = np.random.default_rng(0)
+    fn = WRAPPERS[kernel]
+    before = fn.launches
+    if kernel == "join_overlap_batched":
+        pmin, pmax, lists = join_inputs(rng, 2, 16, 16)
+        args = (torch.from_numpy(ops.pack_distinct(lists)),
+                torch.from_numpy(pmin), torch.from_numpy(pmax))
+    elif kernel == "bloom_probe_batched":
+        blooms, pmin, _w, width_eff = bloom_inputs(rng, 2, 16, 16)
+        args = (torch.from_numpy(ops.pack_blooms(blooms)),
+                torch.from_numpy(pmin), torch.from_numpy(width_eff))
+    else:
+        plane, lists = topk_inputs(rng, 3, 16, 16)
+        args = (torch.from_numpy(plane),
+                *(torch.from_numpy(a) for a in ops.pack_candidates(lists)), 4)
+    args = tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    with pytest.raises(KernelError, match="cudaError 1"):
+        fn(*args)
+    assert fn.launches == before
+
+
+def test_mixed_service_on_card_equals_cpu(cuda):
+    """Filter, JOIN (distinct and Bloom summaries) and top-k through
+    run_batch on the card: identical reports to the CPU service, one
+    launch per table group and stage, no demotion."""
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import (JoinSpec, PruningPipeline, Query,
+                                       TableScanSpec)
+    from repro_torch.data.generator import (make_events_table,
+                                            make_users_table)
+    from repro_torch.serve.prune_service import PruningService
+    ev = make_events_table(np.random.default_rng(0), n_rows=40_000,
+                           rows_per_partition=20, user_clustering=0.99999)
+    us = make_users_table(np.random.default_rng(1), n_rows=4000,
+                          rows_per_partition=100)
+    rng = np.random.default_rng(2)
+    qs = []
+    for i in range(48):
+        pred = E.col("ts") >= float(rng.integers(0, 10_000_000))
+        if i % 3 == 0:
+            qs.append(Query(scans={"e": TableScanSpec(ev, pred)},
+                            limit=int(rng.integers(1, 100)),
+                            order_by=("e", "num_sightings", i % 2 == 0)))
+        elif i % 3 == 1:
+            qs.append(Query(
+                scans={"u": TableScanSpec(us, E.col("age") >= int(
+                    rng.integers(60, 90))), "e": TableScanSpec(ev, pred)},
+                join=JoinSpec("u", "e", "id", "user_id")))
+        else:
+            qs.append(Query(scans={"e": TableScanSpec(ev, pred)}))
+    svc = PruningService()
+    pipe = PruningPipeline(filter_mode="device", service=svc,
+                           join_ndv_limit=256)
+    got = svc.run_batch(qs, pipe)
+    cpu = PruningService(device="cpu")
+    want = cpu.run_batch(qs, PruningPipeline(filter_mode="device",
+                                             service=cpu, join_ndv_limit=256))
+    for g, w in zip(got, want):
+        for name in w.scan_sets:
+            np.testing.assert_array_equal(g.scan_sets[name].part_ids,
+                                          w.scan_sets[name].part_ids)
+            np.testing.assert_array_equal(g.scan_sets[name].match,
+                                          w.scan_sets[name].match)
+        if w.topk is not None:
+            np.testing.assert_array_equal(g.topk.values, w.topk.values)
+            np.testing.assert_array_equal(g.topk.skipped, w.topk.skipped)
+    tech = got[0].counters["technique"]
+    assert tech == want[0].counters["technique"]
+    assert tech["join"]["launches"] == 1
+    assert tech["join_bloom"]["launches"] == 1
+    assert tech["topk"]["launches"] == 2            # asc and desc groups
+    assert not any(got[0].counters["resilience"]["demotions"].values())

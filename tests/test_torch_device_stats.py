@@ -197,3 +197,154 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TD.DeviceStats.stage(t.stats)
     assert TD.resolve_device("cpu").type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the runtime techniques' planes: join-key, enumeration, block-top-k
+# ---------------------------------------------------------------------------
+
+def _runtime_tables(seed, wide_keys=False):
+    """A reference table and its port twin: int keys (optionally past
+    int32), a float column, an int column with nulls and a dictionary
+    column; some partitions dropped so the planes carry sentinels."""
+    from repro.data.table import Table as RTable
+    from repro_torch.data.table import Table as TTable
+    rng = np.random.default_rng(seed)
+    n = 900
+    key = np.sort(rng.integers(-3000, 3000, n))
+    if wide_keys:
+        key[-50:] += 2 ** 33
+    raw = {"k": key.astype(np.int64),
+           "f": rng.normal(size=n) * 1e3,
+           "v": rng.integers(-10_000, 10_000, n).astype(np.int64),
+           "s": np.array(["ok-1", "warn-2", "err-3"])[rng.integers(0, 3, n)]}
+    nulls = {"v": rng.random(n) < 0.1, "f": rng.random(n) < 0.05}
+    rt = RTable.build("rt", raw, 30, nulls)
+    rt.drop_partitions([1, 4, 17])
+    tt = TTable.from_arrays(rt.name, rt.columns, rt.data, rt.nulls,
+                            rt.part_bounds)
+    tt.drop_partitions([1, 4, 17])
+    return rt, tt
+
+
+def _planes_of(cache, family, table, col, desc=True):
+    if family == "join_key":
+        return cache.join_key_plane(table, col), ()
+    if family == "enum":
+        *arrays, wmax, ok = cache.enum_plane(table, col)
+        return arrays, (wmax, ok)
+    return (cache.block_topk_plane(table, col, desc),), ()
+
+
+STORE = {"join_key": "key_planes", "enum": "enum_planes",
+         "block_topk": "topk_planes"}
+
+
+@pytest.mark.parametrize("wide_keys", [False, True])
+@pytest.mark.parametrize("family,col,desc", [
+    ("join_key", "k", True), ("join_key", "f", True), ("join_key", "s", True),
+    ("enum", "k", True), ("enum", "v", True), ("enum", "s", True),
+    ("block_topk", "v", True), ("block_topk", "v", False),
+    ("block_topk", "f", True), ("block_topk", "k", False),
+])
+def test_runtime_planes_equal_reference_byte_for_byte(family, col, desc,
+                                                      wide_keys):
+    """Widening, clamping, the empty-interval and width-0 sentinels, the
+    -inf padding and rounding of the signed block-top-k rows, the
+    capacity tail and the checksum stamp: all as in the reference."""
+    rt, tt = _runtime_tables(5, wide_keys)
+    rcache = RD.DeviceStatsCache()
+    tcache = TD.DeviceStatsCache(device=CPU)
+    (r_arrays, r_meta) = _planes_of(rcache, family, rt, col, desc)
+    (t_arrays, t_meta) = _planes_of(tcache, family, tt, col, desc)
+    assert t_meta == r_meta
+    for got, want in zip(t_arrays, r_arrays):
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        got, want = TD.to_host(got), np.asarray(want)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+    rstore = getattr(rcache, STORE[family])
+    tstore = getattr(tcache, STORE[family])
+    (rkey, re), = rstore.items()
+    (tkey, te), = tstore.items()
+    assert te.meta["checksum"] == re.meta["checksum"]
+    assert TD.plane_checksum(te.arrays) == te.meta["checksum"]
+    P = tt.num_partitions
+    if family == "join_key":
+        pmin, pmax = (TD.to_host(a) for a in t_arrays)
+        assert (pmin[[1, 4, 17]] == TD._F32_MAX).all()
+        assert (pmin[P:] == TD._F32_MAX).all() and (pmax[P:] == -TD._F32_MAX).all()
+    elif family == "enum":
+        width = TD.to_host(t_arrays[1])
+        assert (width[[1, 4, 17]] == 0).all() and (width[P:] == 0).all()
+    else:
+        rows = TD.to_host(t_arrays[0])
+        assert rows.shape[1] == TD.KPLANE
+        assert (rows[[1, 4, 17]] == -np.inf).all() and (rows[P:] == -np.inf).all()
+
+
+@pytest.mark.parametrize("family", ["join_key", "enum", "block_topk"])
+def test_runtime_plane_hit_and_version_bump_restage(family):
+    _rt, tt = _runtime_tables(6)
+    cache = TD.DeviceStatsCache(device=CPU)
+    first, _ = _planes_of(cache, family, tt, "v")
+    again, _ = _planes_of(cache, family, tt, "v")
+    assert all(a is b for a, b in zip(first, again)) and cache.plane_hits == 1
+    tt.append_partitions({"k": np.arange(30, dtype=np.int64),
+                          "f": np.zeros(30), "v": np.arange(30) * 7,
+                          "s": np.array(["ok-1"] * 30)}, rows_per_partition=30)
+    after, _ = _planes_of(cache, family, tt, "v")
+    assert cache.full_restages == 1
+    fresh, _ = _planes_of(TD.DeviceStatsCache(device=CPU), family, tt, "v")
+    for x, y in zip(after, fresh):
+        assert TD.to_host(x).tobytes() == TD.to_host(y).tobytes()
+
+
+@pytest.mark.parametrize("family", ["join_key", "enum", "block_topk"])
+def test_torn_runtime_plane_is_quarantined_and_restaged(family):
+    _rt, tt = _runtime_tables(7)
+    inj = FaultInjector(seed=0).add(f"stage.{family}", kind="corrupt",
+                                    times=1)
+    cache = TD.DeviceStatsCache(device=CPU, fault_injector=inj,
+                                integrity_sample=1)
+    arrays, _ = _planes_of(cache, family, tt, "k")
+    assert cache.integrity["checksum_failures"] == 1
+    assert cache.integrity["quarantines"] == 1
+    (e,) = getattr(cache, STORE[family]).values()
+    assert TD.plane_checksum(arrays) == e.meta["checksum"]
+    # a second read verifies the resident plane and serves it
+    again, _ = _planes_of(cache, family, tt, "k")
+    assert all(a is b for a, b in zip(arrays, again))
+    assert cache.integrity["checksum_failures"] == 1
+
+
+@pytest.mark.parametrize("family", ["join_key", "enum", "block_topk"])
+def test_persistently_torn_runtime_plane_raises_integrity_error(family):
+    _rt, tt = _runtime_tables(8)
+    inj = FaultInjector(seed=0).add(f"stage.{family}", kind="corrupt")
+    cache = TD.DeviceStatsCache(device=CPU, fault_injector=inj,
+                                integrity_sample=1)
+    with pytest.raises(TD.PlaneIntegrityError):
+        _planes_of(cache, family, tt, "k")
+    assert not getattr(cache, STORE[family])
+    assert cache.memory.bytes_in_use == 0
+
+
+def test_runtime_planes_pinned_under_budget_and_accounted():
+    """All four families share one byte budget: pinned planes stay
+    resident, scope exit reclaims back under it."""
+    _rt, a = _runtime_tables(9)
+    _rt, b = _runtime_tables(10)
+    b.name = "rt2"
+    probe = TD.DeviceStatsCache(device=CPU)
+    one = TD.to_host(probe.block_topk_plane(a, "v", True)).nbytes
+    cache = TD.DeviceStatsCache(budget_bytes=int(1.5 * one), device=CPU)
+    with cache.pin_scope():
+        cache.block_topk_plane(a, "v", True)
+        cache.block_topk_plane(b, "v", True)    # over budget: a is pinned
+        cache.join_key_plane(a, "k")
+        assert len(cache.topk_planes) == 2 and len(cache.key_planes) == 1
+        assert cache.memory.evictions == 0 and cache.memory.pin_denied >= 1
+    assert cache.memory.bytes_in_use <= cache.memory.budget_bytes
+    assert cache.memory.evictions >= 1
+    assert cache.resident_bytes == cache.memory.bytes_in_use

@@ -1,11 +1,12 @@
-"""The batched pruning kernel's plain PyTorch version against the JAX
-package: its jnp oracle and its Pallas kernel in interpret mode.
+"""The batched kernels' plain PyTorch versions against the JAX package:
+its jnp oracles and its Pallas kernels in interpret mode.
 
-Verdicts are integers, so the tolerance is exact equality everywhere.
-Shapes stay small (P <= 2048 and Q <= 16 through Pallas interpret mode).
+Verdicts are integers and the top-k heaps are selected values, so the
+tolerance is exact equality everywhere.  Shapes stay small (P <= 2048 and
+Q <= 16 through Pallas interpret mode).  Kernel inputs come from the
+generators of ``test_torch_cuda.py``, which the on-card tests share.
 """
 
-import importlib
 
 import numpy as np
 import pytest
@@ -17,19 +18,31 @@ from repro.core import device_stats as RD
 from repro.core import metadata as RM
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
+from repro.core import prune_join as RJ
+from repro.kernels.bloom_probe import \
+    bloom_probe_batched as pallas_bloom_probe_batched
+from repro.kernels.join_overlap import \
+    join_overlap_batched as pallas_join_overlap_batched
 from repro.kernels.minmax_prune_batched import \
     minmax_prune_batched as pallas_minmax_prune_batched
+from repro.kernels.topk_boundary import \
+    topk_init_batched as pallas_topk_init_batched
 
 from repro_torch.core import device_stats as TD
 from repro_torch.core import metadata as TM
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.build import KernelError
+from repro_torch.kernels.bloom_probe import bloom_probe_batched
+from repro_torch.kernels.join_overlap import join_overlap_batched
 from repro_torch.kernels.minmax_prune_batched import minmax_prune_batched
+from repro_torch.kernels.topk_boundary import topk_init_batched
+
+from test_torch_cuda import bloom_inputs, join_inputs, topk_inputs
 
 torch.set_num_threads(1)
 
-tmpb = importlib.import_module("repro_torch.kernels.minmax_prune_batched")
+from repro_torch.kernels import minmax_prune_batched as tmpb
 
 SENT = np.array([0, 3, 7, 11])          # sentinel (dropped) positions
 LIVE = np.array([i for i in range(12) if i not in SENT])
@@ -211,9 +224,9 @@ def test_wrapper_runs_plain_version_on_cpu_and_counts_no_launch():
     rng = np.random.default_rng(9)
     arrays = [torch.from_numpy(a)
               for a in _random_kernel_inputs(rng, 5, 2, 3, 40)]
-    before = tmpb.minmax_prune_batched.launches
+    before = minmax_prune_batched.launches
     got = minmax_prune_batched(*arrays, num_partitions=33)
-    assert tmpb.minmax_prune_batched.launches == before
+    assert minmax_prune_batched.launches == before
     assert got.dtype == torch.int8 and tuple(got.shape) == (5, 33)
     torch.testing.assert_close(
         got, tref.minmax_prune_batched_ref(*arrays)[:, :33], rtol=0, atol=0)
@@ -257,3 +270,280 @@ def test_modes_refuse_the_other_device():
     with pytest.raises(ValueError, match="unknown kernel mode"):
         tops.prune_ranges_batched_device([[(0, 0.0, 1.0)]], tdst,
                                          mode="pallas")
+
+
+# ---------------------------------------------------------------------------
+# join_overlap_batched
+# ---------------------------------------------------------------------------
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("Q,max_keys,P", [
+    (1, 1, 1), (5, 60, 300), (9, 200, 1000), (3, 1, 257), (16, 40, 2048),
+])
+def test_join_plain_version_equals_jnp_oracle_and_pallas_interpret(
+        Q, max_keys, P):
+    rng = np.random.default_rng(Q * 100 + P)
+    cap = TD.plane_capacity(P)
+    pmin, pmax, lists = join_inputs(rng, Q, P, cap, max_keys)
+    dist = tops.pack_distinct(lists)
+    dist_r = rops.pack_distinct(lists)          # [Db, Qb]: keys on axis 0
+    assert dist.tobytes() == np.ascontiguousarray(dist_r[:, :Q].T).tobytes()
+    got = tref.join_overlap_batched_ref(*_t(dist, pmin, pmax),
+                                        num_partitions=P).numpy()
+    args_r = (jnp.asarray(dist_r), jnp.asarray(pmin[:P]),
+              jnp.asarray(pmax[:P]))
+    oracle = np.asarray(rref.join_overlap_batched_ref(*args_r))[:Q]
+    pallas = np.asarray(pallas_join_overlap_batched(*args_r,
+                                                    interpret=True))[:Q]
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got, pallas)
+    # the service path: packing, plane slicing and readback
+    np.testing.assert_array_equal(
+        tops.join_overlap_batched_device(lists, *_t(pmin, pmax), P,
+                                         mode="torch"),
+        rops.join_overlap_batched_device(lists, jnp.asarray(pmin[:P]),
+                                         jnp.asarray(pmax[:P]), mode="ref"))
+
+
+def test_join_plain_version_slabs_over_p(monkeypatch):
+    rng = np.random.default_rng(3)
+    P = 3000
+    pmin, pmax, lists = join_inputs(rng, 7, P, TD.plane_capacity(P))
+    args = _t(tops.pack_distinct(lists), pmin, pmax)
+    want = tref.join_overlap_batched_ref(*args, num_partitions=P)
+    monkeypatch.setattr(tref, "JOIN_SLAB_ELEMS", 7 * 256)   # 256-wide slabs
+    assert torch.equal(tref.join_overlap_batched_ref(*args, num_partitions=P),
+                       want)
+
+
+# ---------------------------------------------------------------------------
+# bloom_probe_batched
+# ---------------------------------------------------------------------------
+
+def test_mix32_equals_host_mixer():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.integers(0, 2 ** 32, 5000, dtype=np.uint64),
+                        [0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]])
+    got = tref.mix32(torch.from_numpy(x.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(got, RJ._mix32(x.astype(np.uint32)))
+
+
+@pytest.mark.parametrize("Q,P,n_blocks,limit", [
+    (1, 1, (1,), 64), (4, 300, (1, 8, 256, 1024), 64), (3, 700, (8,), 16),
+    (9, 129, (1, 256), 96),
+])
+def test_bloom_plain_version_equals_jnp_oracle_and_pallas_interpret(
+        Q, P, n_blocks, limit):
+    rng = np.random.default_rng(Q * 100 + P)
+    cap = TD.plane_capacity(P)
+    blooms, pmin, width, width_eff = bloom_inputs(rng, Q, P, cap, n_blocks,
+                                                  limit)
+    words = tops.pack_blooms(blooms)
+    lo, hi = rops.pack_blooms(blooms)           # [Qb, 16, Bb] 16-bit halves
+    w = words.view(np.uint32).reshape(Q, -1, 16).transpose(0, 2, 1)
+    np.testing.assert_array_equal(w & 0xFFFF, lo[:Q])
+    np.testing.assert_array_equal(w >> 16, hi[:Q])
+    got = tref.bloom_probe_batched_ref(*_t(words, pmin, width_eff),
+                                       num_partitions=P).numpy()
+    wmax = int(width[:P].max())
+    eb = rops.enum_bucket(max(1, min(wmax, limit)))
+    args_r = (jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(pmin[:P]),
+              jnp.asarray(width_eff[:P]))
+    oracle = np.asarray(rref.bloom_probe_batched_ref(*args_r, eb))[:Q]
+    pallas = np.asarray(pallas_bloom_probe_batched(
+        *args_r, enum_pad=eb, interpret=True))[:Q]
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got, pallas)
+    # the service path (raw widths; the wrapper applies the limit) against
+    # the reference's host BlockedBloom matcher
+    np.testing.assert_array_equal(
+        tops.bloom_probe_batched_device(blooms, *_t(pmin, width), limit, P,
+                                        mode="torch"),
+        rops.bloom_probe_batched_device(blooms, jnp.asarray(pmin[:P]),
+                                        jnp.asarray(width[:P]), wmax, limit,
+                                        mode="ref"))
+
+
+def test_bloom_plain_version_slabs_over_p(monkeypatch):
+    rng = np.random.default_rng(4)
+    P = 2000
+    blooms, pmin, _w, width_eff = bloom_inputs(rng, 5, P,
+                                               TD.plane_capacity(P))
+    args = _t(tops.pack_blooms(blooms), pmin, width_eff)
+    want = tref.bloom_probe_batched_ref(*args, num_partitions=P)
+    monkeypatch.setattr(tref, "BLOOM_SLAB_CANDIDATES", 100)
+    assert torch.equal(tref.bloom_probe_batched_ref(*args, num_partitions=P),
+                       want)
+
+
+# ---------------------------------------------------------------------------
+# topk_init_batched
+# ---------------------------------------------------------------------------
+
+def _dense_mask(lists, cap):
+    mask = np.zeros((cap, len(lists)), dtype=np.float32)      # [P, Q]
+    for q, ids in enumerate(lists):
+        mask[ids, q] = 1.0
+    return mask
+
+
+@pytest.mark.parametrize("Q,P,K,k", [
+    (1, 1, 8, 1), (5, 200, 8, 3), (9, 130, 8, 8), (3, 300, 4, 16),
+])
+def test_topk_plain_version_equals_jnp_oracle_and_pallas_interpret(
+        Q, P, K, k):
+    rng = np.random.default_rng(Q * 100 + P)
+    cap = TD.plane_capacity(P)
+    plane, lists = topk_inputs(rng, Q, P, cap, K)
+    offsets, ids = tops.pack_candidates(lists)
+    got = tref.topk_init_batched_ref(*_t(plane, offsets, ids), k).numpy()
+    mask = _dense_mask(lists, cap)
+    args_r = (jnp.asarray(plane), jnp.asarray(mask))
+    oracle = np.asarray(rref.topk_init_batched_ref(*args_r, k))
+    pallas = np.asarray(pallas_topk_init_batched(*args_r, k, interpret=True))
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("k", [1, 3, 64, 128])
+def test_topk_service_path_equals_reference(k):
+    rng = np.random.default_rng(k)
+    P = 1500
+    plane, lists = topk_inputs(rng, 12, P, TD.plane_capacity(P))
+    got = tops.topk_init_batched_device(torch.from_numpy(plane), lists, k,
+                                        mode="torch")
+    want = rops.topk_init_batched_device(
+        jnp.asarray(plane), _dense_mask(lists, P).T, k, mode="ref")
+    np.testing.assert_array_equal(got, want)
+    assert (got[0] == -np.inf).all()            # the query with no candidate
+
+
+def test_build_block_topk_equals_reference():
+    rng = np.random.default_rng(2)
+    vals = rng.normal(size=500) * 1e6
+    vals[rng.random(500) < 0.05] = np.nan
+    bounds = np.concatenate([[0], np.sort(rng.integers(0, 520, 40)), [500]])
+    mask = rng.random(500) < 0.8
+    for k in (1, 4, 64):
+        for m in (None, mask):
+            got = tops.build_block_topk(vals, bounds, k, mask=m)
+            want = rops.build_block_topk(vals, bounds, k, mask=m)
+            assert got.tobytes() == np.asarray(want).tobytes()
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 100, 1024, 1025, 4096])
+def test_join_buckets_equal_reference(n):
+    assert tops.d_bucket(n) == rops.d_bucket(n)
+    assert tops.bloom_bucket(n) == rops.bloom_bucket(n)
+    assert tops.BLOOM_MAX_BLOCKS == rops.BLOOM_MAX_BLOCKS
+
+
+# ---------------------------------------------------------------------------
+# the three wrappers on the CPU
+# ---------------------------------------------------------------------------
+
+def _wrapper_args(kernel, rng, P=40):
+    cap = TD.plane_capacity(P)
+    if kernel == "join_overlap_batched":
+        pmin, pmax, lists = join_inputs(rng, 4, P, cap)
+        return (join_overlap_batched, _t(tops.pack_distinct(lists), pmin,
+                                         pmax), dict(num_partitions=P),
+                lambda a, kw: tref.join_overlap_batched_ref(*a, **kw))
+    if kernel == "bloom_probe_batched":
+        blooms, pmin, _w, weff = bloom_inputs(rng, 4, P, cap)
+        return (bloom_probe_batched, _t(tops.pack_blooms(blooms), pmin,
+                                        weff), dict(num_partitions=P),
+                lambda a, kw: tref.bloom_probe_batched_ref(*a, **kw))
+    plane, lists = topk_inputs(rng, 4, P, cap)
+    return (topk_init_batched,
+            _t(plane, *tops.pack_candidates(lists)) + [5], {},
+            lambda a, kw: tref.topk_init_batched_ref(*a))
+
+
+KERNELS = ["join_overlap_batched", "bloom_probe_batched", "topk_init_batched"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_new_wrappers_run_plain_version_on_cpu_and_count_no_launch(kernel):
+    fn, args, kw, plain = _wrapper_args(kernel, np.random.default_rng(11))
+    before = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == before
+    torch.testing.assert_close(got, plain(args, kw), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel,bad", [
+    (k, b) for k in KERNELS for b in ("dtype", "shape", "contiguous", "p")
+])
+def test_new_wrappers_reject_what_the_kernel_does_not_take(kernel, bad):
+    fn, args, kw, _ = _wrapper_args(kernel, np.random.default_rng(12))
+    args = list(args)
+    if bad == "dtype":
+        args[1] = args[1].double() if kernel != "topk_init_batched" \
+            else args[1].int()
+    elif bad == "shape" and kernel == "topk_init_batched":
+        args[0] = args[0].reshape(-1)       # rows must be [Pc, K]
+    elif bad == "shape":
+        args[2] = args[2][:-1].contiguous()
+    elif bad == "contiguous":
+        args[0] = torch.cat([args[0], args[0]], -1)[..., ::2]
+    elif kernel == "topk_init_batched":
+        args[3] = 129                       # k above the kernel's heap
+    else:
+        kw = dict(num_partitions=int(args[1].shape[0]) + 1)
+    with pytest.raises(KernelError):
+        fn(*args, **kw)
+
+
+def test_bloom_wrapper_rejects_a_non_power_of_two_filter():
+    fn, args, kw, _ = _wrapper_args("bloom_probe_batched",
+                                    np.random.default_rng(13))
+    words = torch.cat([args[0], args[0][:, :16]], 1)       # 3 blocks of 16
+    with pytest.raises(KernelError, match="power-of-two"):
+        fn(words, *args[1:], **kw)
+
+
+@pytest.mark.parametrize("bad", ["id_high", "id_negative", "offsets_end",
+                                 "offsets_order"])
+def test_topk_wrapper_rejects_candidates_outside_the_plane(bad):
+    fn, (plane, offsets, ids, k), _kw, _ = _wrapper_args(
+        "topk_init_batched", np.random.default_rng(14))
+    ids, offsets = ids.clone(), offsets.clone()
+    if bad == "id_high":
+        ids[-1] = plane.shape[0]
+    elif bad == "id_negative":
+        ids[0] = -1
+    elif bad == "offsets_end":
+        offsets[-1] += 1
+    else:
+        offsets[1] = int(offsets[2]) + 1        # a list ending before it starts
+    with pytest.raises(KernelError, match="CSR"):
+        fn(plane, offsets, ids, k)
+
+
+@pytest.mark.parametrize("arg", [2 ** 31, -2 ** 31 - 1])
+def test_launch_rejects_an_argument_outside_int32(monkeypatch, arg):
+    """``build.launch`` refuses a dimension the kernel's ``int`` would
+    truncate, before it reaches the entry point or the card."""
+    from repro_torch.kernels import build
+    called = []
+    monkeypatch.setattr(build, "entry", lambda name: called.append(name))
+    with pytest.raises(KernelError, match="int32"):
+        build.launch("minmax_prune_batched", torch.device("cpu"),
+                     torch.zeros(1), 3, arg)
+    assert not called
+
+
+@pytest.mark.parametrize("device,kernel", [("cpu", False), ("meta", None)])
+def test_runs_kernel_by_device(device, kernel):
+    """The wrappers' one dispatch: the plain version on the CPU, the
+    kernel on CUDA (tested on the card), any other device refused."""
+    from repro_torch.kernels import build
+    if kernel is None:
+        with pytest.raises(KernelError, match="unsupported device"):
+            build.runs_kernel(torch.device(device))
+    else:
+        assert build.runs_kernel(torch.device(device)) is kernel
