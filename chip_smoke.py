@@ -6,8 +6,8 @@
 Phases (each failure exits non-zero; nothing is caught and passed over):
 
   1. environment: torch version, the card's name and power limit, and the
-     build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-     ``nvcc`` per source, all started together);
+     build of all seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+     (one ``nvcc`` per source, all started together);
   2. each kernel vs its plain version on the card, exact equality of every
      output, on the same inputs:
        * ``minmax_prune_batched`` over Q x Kb x C x P grids with drop
@@ -22,7 +22,17 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
          of 1, 8, 256 and 1024 blocks;
        * ``topk_init_batched`` with k in {1, 3, 64, 128}, queries with no
          candidate, ties, all -inf rows and candidate lists long enough to
-         need many slabs; P up to 2**21 throughout;
+         need many slabs;
+       * the per-query kernels at P in {1, 7, 2047, 2048, 2049, 2**20,
+         2**21}: ``minmax_prune`` with K in {1, 3} and, at the small P,
+         {2049, 8192} (past its shared tile), empty intervals, bounds on a
+         stat, denormals; ``join_overlap`` with D in {1, 64, 4096, 4097,
+         9000} (past its shared tile), keys on a partition's bounds,
+         denormals, keys at both infinities and empty partitions;
+         ``topk_boundary`` with k in {1, 8, 64} and its largest k, random,
+         descending and (P <= 2049) ascending row orders, ties, all -inf
+         rows, with and without an upfront boundary; P up to 2**21
+         throughout;
   3. the main path at full size: ``PruningService.run_batch`` over the
      production-like events table (2**24 rows in 1,048,576
      micro-partitions, 6 columns), a 600-row users dimension table and a
@@ -40,6 +50,24 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      batch's time by stage, with each kernel timed at the main path's
      shapes beside its plain version and, where one exists, a PyTorch
      library call computing the same function.
+  4. the per-query path of ``ops`` on phase 3's events table, with the
+     three per-query kernels' launch counts set to 0 just before and read
+     just after: each of the 128 filter-only queries through
+     ``extract_ranges`` + ``prune_ranges_device`` (equal to its row of one
+     batched launch and to the CPU call), each of the 32 joins' distinct
+     build keys through ``join_overlap_device`` (equal to the CPU call and,
+     for the 16 distinct summaries, to the batched row), and four
+     unfiltered ``ORDER BY num_sightings LIMIT k`` queries, both
+     directions, through ``topk_boundary_device`` on ordered block-top-k
+     rows (heap equal to ``topk_oracle``, skips equal to the host
+     ``run_topk(strategy="sort")``, equal to the CPU call; ``prefix`` the
+     same heap and a superset of the skips).  Then the per-query split
+     (host staging, H2D, kernel, D2H), the per-query loop's queries/s
+     beside one batched call's, the host ``run_topk`` time beside the
+     ``topk_boundary`` launch, and each kernel at this path's shapes
+     beside its plain version, bound and library call (``minmax_prune``
+     at the widest conjunction and at the one whose data needs the most
+     bytes, each bound counted from what its data needs).
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -63,19 +91,30 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# The port's kernels by the service's technique counter, in the order of
-# the pipeline's stages: (kernel, its stage, the TPU kernel it replaces,
-# by the JAX package's wrapper).
+# The port's kernels, in the order of the pipeline's stages: (the path
+# that launches it: phase 3's service technique counter, or PER_QUERY for
+# phase 4; its stage; the TPU kernel it replaces, by the JAX package's
+# wrapper).
+PER_QUERY = "per-query"
 KERNELS = {
-    "filter": ("minmax_prune_batched", "filter",
-               "src/repro/kernels/minmax_prune_batched.py:82"),
-    "join": ("join_overlap_batched", "join",
-             "src/repro/kernels/join_overlap.py:67"),
-    "join_bloom": ("bloom_probe_batched", "join",
-                   "src/repro/kernels/bloom_probe.py:100"),
-    "topk": ("topk_init_batched", "topk",
-             "src/repro/kernels/topk_boundary.py:140"),
+    "minmax_prune_batched": ("filter", "filter",
+                             "src/repro/kernels/minmax_prune_batched.py:82"),
+    "join_overlap_batched": ("join", "join",
+                             "src/repro/kernels/join_overlap.py:67"),
+    "bloom_probe_batched": ("join_bloom", "join",
+                            "src/repro/kernels/bloom_probe.py:100"),
+    "topk_init_batched": ("topk", "topk",
+                          "src/repro/kernels/topk_boundary.py:140"),
+    "minmax_prune": (PER_QUERY, "filter",
+                     "src/repro/kernels/minmax_prune.py:49"),
+    "join_overlap": (PER_QUERY, "join",
+                     "src/repro/kernels/join_overlap.py:116"),
+    "topk_boundary": (PER_QUERY, "topk",
+                      "src/repro/kernels/topk_boundary.py:185"),
 }
+# Phase 3's kernels by the service's technique counter.
+MAIN_KERNELS = {path: name for name, (path, _, _) in KERNELS.items()
+                if path != PER_QUERY}
 
 # H100 SXM peaks (NVIDIA data sheet): device memory rate, and the f32 rate
 # outside the tensor cores, which also stands for the 32-bit integer ALU
@@ -375,6 +414,155 @@ def topk_cases(rng, dev, sizes, K: int = 64) -> dict:
     return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
 
 
+# P of the per-query kernels' grids: 2048 is the TPU kernels' block
+SINGLE_SIZES = (1, 7, 2047, 2048, 2049, 1 << 20, 1 << 21)
+
+
+def minmax_single_cases(rng, dev, sizes) -> dict:
+    """``minmax_prune``: K in {1, 3} at every P, and K in {2049, 8192}
+    (past the kernel's 2048-slot shared tile, in chunks) at the small P;
+    empty intervals, nullable rows, bounds equal to a stat, denormal bounds
+    and stats."""
+    import torch
+
+    from repro_torch.kernels.minmax_prune import minmax_prune
+    from repro_torch.kernels.ref import minmax_prune_ref
+
+    cases, max_p = 0, 0
+    grid = [(K, P) for P in sizes for K in (1, 3)] + \
+        [(K, P) for K in (2049, 8192) for P in sizes if P <= 4096]
+    for K, P in grid:
+        mins = rng.integers(-1000, 1000, (K, P)).astype(np.float32)
+        maxs = mins + rng.integers(0, 200, (K, P)).astype(np.float32)
+        den = rng.random((K, P)) < 0.05
+        mins[den] = rng.choice(DENORMALS, int(den.sum()))
+        maxs[den] = np.maximum(mins[den], rng.choice(DENORMALS,
+                                                     int(den.sum())))
+        empty = rng.random((K, P)) < 0.05
+        mins[empty], maxs[empty] = np.inf, -np.inf
+        nullable = (rng.random((K, P)) < 0.2).astype(np.float32)
+        lo = rng.integers(-1100, 1100, K).astype(np.float32)
+        hi = lo + rng.integers(0, 800, K).astype(np.float32)
+        pick = rng.integers(0, P, K)
+        eq = rng.random(K) < 0.3
+        lo[eq] = np.where(np.isfinite(mins[eq, pick[eq]]),
+                          mins[eq, pick[eq]], lo[eq])
+        lo[rng.random(K) < 0.1] = DENORMALS[0]
+        if K > 64:                 # long conjunctions: mostly wide ranges
+            wide = rng.random(K) < 0.98
+            lo[wide], hi[wide] = -2000.0, 2000.0
+        args = [torch.from_numpy(a).to(dev)
+                for a in (lo, hi, mins, maxs, nullable)]
+        got = minmax_prune(*args)
+        sync(dev)
+        require_equal("minmax_prune", got, minmax_prune_ref(*args),
+                      f"K={K} P={P}")
+        max_p = max(max_p, P)
+        cases += 1
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+
+
+def join_single_cases(rng, dev, sizes) -> dict:
+    """``join_overlap``: key lists of D from 1 past the kernel's
+    4096-key shared tile, keys on a partition's bounds, denormal intervals
+    and keys, keys at both infinities and empty partitions (+inf, -inf)."""
+    import torch
+
+    from repro_torch.kernels.join_overlap import join_overlap
+    from repro_torch.kernels.ref import join_overlap_ref
+
+    cases, max_p = 0, 0
+    for P in sizes:
+        pmin = rng.integers(-5000, 10_000, P).astype(np.float32)
+        pmax = pmin + rng.integers(0, 100, P).astype(np.float32)
+        den = rng.random(P) < 0.02
+        pmin[den], pmax[den] = -DENORMALS[1], DENORMALS[0]
+        empty = rng.random(P) < 0.05
+        pmin[empty], pmax[empty] = np.inf, -np.inf
+        plane = [torch.from_numpy(a).to(dev) for a in (pmin, pmax)]
+        live = np.nonzero(~empty)[0]
+        for D in (1, 64, 4096, 4097, 9000):
+            p = rng.choice(live, min(4, live.size)) if live.size else []
+            extra = np.concatenate([pmin[p], pmax[p], DENORMALS[:2],
+                                    [-np.inf, np.inf]]).astype(np.float32)
+            keys = np.unique(np.concatenate([rng.choice(
+                np.arange(-5000, 10_000), D, replace=False), extra]
+            ).astype(np.float32))
+            # exactly D distinct keys, most of the edge keys among them
+            keys = np.delete(keys, rng.choice(keys.size, keys.size - D,
+                                              replace=False))
+            d = torch.from_numpy(keys).to(dev)
+            got = join_overlap(*plane, d)
+            sync(dev)
+            require_equal("join_overlap", got, join_overlap_ref(*plane, d),
+                          f"P={P} D={int(d.numel())}")
+            max_p = max(max_p, P)
+            cases += 1
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+
+
+def topk_rows(gen, dev, P: int, k: int, order: str, lo: int, hi: int):
+    """[P, k] block-top-k rows made on the card: integers in [lo, hi)
+    (ties), each row cut to a random count and -inf padded, 10% all -inf;
+    in random order, by descending head (the scan's sort strategy), or
+    with strictly rising heads (every row merges)."""
+    import torch
+    if order == "ascending":
+        heads = 2.0 * torch.arange(P, device=dev, dtype=torch.float32)
+        return heads[:, None] - torch.arange(k, device=dev,
+                                             dtype=torch.float32)[None, :]
+    rows = torch.randint(lo, hi, (P, k), generator=gen, device=dev).float()
+    rows = torch.sort(rows, dim=1, descending=True).values
+    n = torch.randint(0, k + 1, (P,), generator=gen, device=dev)
+    n[torch.rand(P, generator=gen, device=dev) < 0.1] = 0
+    rows[torch.arange(k, device=dev)[None, :] >= n[:, None]] = float("-inf")
+    if order == "descending":
+        rows = rows[torch.sort(-rows[:, 0], stable=True).indices]
+    return rows.contiguous()
+
+
+def topk_scan_cases(rng, dev, sizes) -> dict:
+    """``topk_boundary``: k in {1, 8} at every P and 64 up to 2**20, the
+    largest k the kernel takes at the small P; random and descending row
+    orders, ascending (every row merges) up to P = 2049; ties, all -inf
+    rows; no upfront boundary and one at the median head."""
+    import torch
+
+    from repro_torch.kernels.ref import topk_boundary_ref
+    from repro_torch.kernels.topk_boundary import MAX_K_SCAN, topk_boundary
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2 ** 31)))
+    cases, max_p = 0, 0
+    grid = []
+    for P in sizes:
+        ks = (1, 8) + ((64,) if P <= 1 << 20 else ()) + \
+            ((MAX_K_SCAN,) if P <= 7 else ())
+        for k in ks:
+            for order in ("random", "descending") + \
+                    (("ascending",) if P <= 2049 and k <= 64 else ()):
+                grid.append((P, k, order))
+    grid.append((40, MAX_K_SCAN, "random"))
+    for P, k, order in grid:
+        lo, hi = (-20, 20) if (P + k) % 2 else (-100_000, 100_000)
+        rows = topk_rows(gen, dev, P, k, order, lo, hi)
+        for b_init in (float("-inf"), float(rows[P // 2, 0])):
+            skip, heap = topk_boundary(rows, b_init)
+            sync(dev)
+            want_skip, want_heap = topk_boundary_ref(rows, b_init)
+            where = f"P={P} k={k} order={order} b_init={b_init}"
+            require_equal("topk_boundary", skip, want_skip, where)
+            require_equal("topk_boundary", heap, want_heap, where)
+            if order == "ascending" and b_init == float("-inf") \
+                    and bool(skip.any()):
+                raise SystemExit(f"topk_boundary skipped a rising row at "
+                                 f"{where}")
+            cases += 1
+        max_p = max(max_p, P)
+        del rows
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+
+
 def phase_kernel_vs_plain(seed: int, dev) -> dict:
     rng = np.random.default_rng(seed)
     out = {}
@@ -382,7 +570,10 @@ def phase_kernel_vs_plain(seed: int, dev) -> dict:
             ("minmax_prune_batched", minmax_cases, (1, 31, 4097, 1 << 20)),
             ("join_overlap_batched", join_cases, (1, 31, 4097, 1 << 21)),
             ("bloom_probe_batched", bloom_cases, (1, 4097, 1 << 21)),
-            ("topk_init_batched", topk_cases, (1, 4097, 1 << 21))):
+            ("topk_init_batched", topk_cases, (1, 4097, 1 << 21)),
+            ("minmax_prune", minmax_single_cases, SINGLE_SIZES),
+            ("join_overlap", join_single_cases, SINGLE_SIZES),
+            ("topk_boundary", topk_scan_cases, SINGLE_SIZES)):
         t0 = time.perf_counter()
         out[name] = fn(rng, dev, sizes)
         out[name]["s"] = time.perf_counter() - t0
@@ -565,8 +756,43 @@ def bloom_work(words, pmin, width, P: int):
     return hashed, tested
 
 
+def minmax_need(lo, hi, mins, maxs, nullable):
+    """What one ``minmax_prune`` launch's data needs: (bytes, operations).
+    AND is a min and NO is its floor, so constraint i's min and max are
+    needed only for the partitions no earlier constraint has made NO, and
+    its nullable flag only where the verdict can still be FULL (2 so far,
+    and the partition's interval inside [lo, hi]).  Loads are counted in
+    32-byte sectors, the least the card moves; the bounds and the [P]
+    int32 verdicts are added whole."""
+    import torch
+    K, P = mins.shape
+    v = torch.full((P,), 2, dtype=torch.int32, device=mins.device)
+
+    def sectors(i, need):
+        idx = (i * P + torch.nonzero(need).flatten()) // 8
+        return 32 * (int(idx.numel() > 0)
+                     + int((idx[1:] != idx[:-1]).sum().item()))
+
+    nbytes, nops = 8 * K + 4 * P, 0
+    for i in range(K):
+        live = v > 0
+        if not bool(live.any()):
+            break
+        pmin, pmax = mins[i], maxs[i]
+        empty = pmin > pmax
+        no = (pmax < lo[i]) | (pmin > hi[i]) | empty
+        inside = (pmin >= lo[i]) & (pmax <= hi[i]) & ~empty
+        nbytes += 2 * sectors(i, live) + sectors(i, live & (v == 2) & inside)
+        nops += 10 * int(live.sum().item())
+        t = torch.where(no, 0, torch.where(inside & (nullable[i] == 0), 2, 1))
+        v = torch.where(live, torch.minimum(v, t.to(torch.int32)), v)
+    return nbytes, nops
+
+
 def phase_main_path(seed: int, n_batches: int, card: str, dev,
-                    n_rows: int = 2 ** 24) -> dict:
+                    n_rows: int = 2 ** 24):
+    """Phase 3; returns (the tables, query lists and service that phase 4
+    reuses, the phase's numbers)."""
     import types
 
     import torch
@@ -607,6 +833,9 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
                 for i in range(48)]
     queries += [sample_join_query(rng, events, build, m, order_by=i < 8)
                 for i in range(32)]
+    # the per-query path (phase 4) takes the filter, top-k and join queries
+    ctx = dict(events=events, build=build, filter_queries=queries[:128],
+               topk_queries=queries[176:224], join_queries=queries[224:])
     queries = [queries[i] for i in rng.permutation(len(queries))]
     n_join_topk = sum(1 for q in queries if q.is_topk and q.join is not None)
 
@@ -655,7 +884,7 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
     if not 1 <= cpu_tech.get("topk", {}).get("launches", 0) <= 2:
         raise SystemExit(f"traffic: top-k launches {cpu_tech.get('topk')}")
 
-    kernel_of = {t: getattr(ops, k[0]) for t, k in KERNELS.items()}
+    kernel_of = {t: getattr(ops, n) for t, n in MAIN_KERNELS.items()}
     svc = PruningService(device=dev)
     for fn in kernel_of.values():
         fn.launches = 0                     # the main path's count from here
@@ -728,7 +957,8 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
     split["integrity_verify_ms"] = (time.perf_counter() - t0) * 1e3
     log(f"[split] {card}: resident plane bytes {svc.cache.resident_bytes}; "
         f"integrity {svc.cache.integrity_snapshot()}")
-    return dict(
+    ctx["svc"] = svc
+    return ctx, dict(
         queries=len(queries), groups={k: len(v) for k, v in groups.items()},
         non_lowering=non_lowering, join_topk=n_join_topk,
         bloom_queries=len(bloom_q), batch_ms=[t * 1e3 for t in times],
@@ -749,8 +979,8 @@ def stage_split(svc, queries, events, card, dev):
     from repro_torch.core.flow import PruningPipeline
     from repro_torch.kernels import ops, ref, topk_boundary
 
-    seen = {t: [] for t in KERNELS}
-    real = {t: getattr(ops, k[0]) for t, k in KERNELS.items()}
+    seen = {t: [] for t in MAIN_KERNELS}
+    real = {t: getattr(ops, n) for t, n in MAIN_KERNELS.items()}
 
     def recorder(tech):
         def rec(*a, **kw):
@@ -762,8 +992,8 @@ def stage_split(svc, queries, events, card, dev):
     pipe = PruningPipeline(filter_mode="device", service=svc)
     states = [pipe.make_state(q) for q in queries]
     stage_ms = {}
-    for t, k in KERNELS.items():
-        setattr(ops, k[0], recorder(t))
+    for t, n in MAIN_KERNELS.items():
+        setattr(ops, n, recorder(t))
     try:
         for tech in pipe.techniques:
             sync(dev)
@@ -773,7 +1003,7 @@ def stage_split(svc, queries, events, card, dev):
             stage_ms[tech.name] = (time.perf_counter() - t0) * 1e3
     finally:
         for t, fn in real.items():
-            setattr(ops, KERNELS[t][0], fn)
+            setattr(ops, MAIN_KERNELS[t], fn)
 
     def h2d(tensors):
         host = [t.cpu() for t in tensors]
@@ -854,8 +1084,8 @@ def stage_split(svc, queries, events, card, dev):
         kern[tech] = best
     for stage in ("filter", "join", "topk"):
         dev_ms = sum(split[t]["h2d_ms"] + split[t]["kernel_ms"]
-                     + split[t]["d2h_ms"] for t in KERNELS
-                     if KERNELS[t][1] == stage)
+                     + split[t]["d2h_ms"] for t, n in MAIN_KERNELS.items()
+                     if KERNELS[n][1] == stage)
         split[f"{stage}_host_ms"] = stage_ms[stage] - dev_ms
     for tech, parts in split.items():
         log(f"[split] {card}: {tech}: " + (
@@ -906,6 +1136,306 @@ def topk_library(plane, offsets, ids, k):
     return call
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the per-query device path
+# ---------------------------------------------------------------------------
+
+def phase_per_query(ctx: dict, card: str, dev) -> dict:
+    """The per-query path of ``ops`` on phase 3's events table: every
+    filter-only query through ``prune_ranges_device`` (held to the batched
+    verdict row and the CPU call), every join's distinct build keys through
+    ``join_overlap_device`` (held to the CPU call and, for the distinct
+    summaries, the batched row) and four unfiltered top-k queries through
+    ``topk_boundary_device`` (held to ``topk_oracle``, the host
+    ``run_topk`` skips and the CPU call; ``prefix`` to the same heap and a
+    superset of the skips).  Then the per-query split, the per-query
+    loop's queries/s beside the batched launch's, the host ``run_topk``
+    time beside the boundary kernel's, and each kernel timed at this
+    path's shapes beside its plain version and bound."""
+    import torch
+
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import PruningPipeline
+    from repro_torch.core.metadata import ScanSet
+    from repro_torch.core.prune_filter import extract_ranges
+    from repro_torch.core.prune_topk import run_topk, topk_oracle
+    from repro_torch.core.rowval import matches
+    from repro_torch.kernels import join_overlap as join_overlap_mod
+    from repro_torch.kernels import ops, ref
+
+    events, build, svc = ctx["events"], ctx["build"], ctx["svc"]
+    stats = events.stats
+    P = events.num_partitions
+    cpu = torch.device("cpu")
+    kernel_of = {n: getattr(ops, n) for n, (path, _, _) in KERNELS.items()
+                 if path == PER_QUERY}
+
+    # inputs of the path, prepared before the counts start
+    lowered = [(i, r) for i, r in (
+        (i, extract_ranges(q.scans["events"].pred, stats))
+        for i, q in enumerate(ctx["filter_queries"])) if r is not None]
+    bctx = build.global_ctx()
+    ids, id_nulls = bctx.col("id")
+    join_keys = [np.unique(ids[matches(q.scans["users"].pred, bctx)
+                               & ~id_nulls]) for q in ctx["join_queries"]]
+    ndv_limit = PruningPipeline(filter_mode="host").join_ndv_limit
+    plain_topk = [q for q in ctx["topk_queries"]
+                  if isinstance(q.scans["events"].pred, E.TruePred)]
+    picked = [q for q in plain_topk if q.order_by[2]][:2] + \
+        [q for q in plain_topk if not q.order_by[2]][:2]
+    picked += [q for q in plain_topk if q not in picked][:4 - len(picked)]
+    if len(picked) < 4 or len({q.order_by[2] for q in picked}) < 2:
+        raise SystemExit(f"traffic: {len(plain_topk)} unfiltered top-k "
+                         f"queries, need 4 in both directions")
+    vals, vnull = events.global_ctx().col("num_sightings")
+    t0 = time.perf_counter()
+    topk_rows_of = {}                    # direction -> ordered rows, order
+    for desc in (True, False):
+        kmax = max(q.limit for q in picked if q.order_by[2] == desc)
+        sign = 1.0 if desc else -1.0
+        rows = ops.build_block_topk(sign * vals, events.part_bounds, kmax,
+                                    mask=~vnull)
+        bmax = stats.col_max("num_sightings") if desc \
+            else -stats.col_min("num_sightings")
+        order = np.argsort(-bmax, kind="stable")
+        topk_rows_of[desc] = (rows[order], order)
+    prep_s = time.perf_counter() - t0
+    log(f"[per-query] {card} host: {len(lowered)} of "
+        f"{len(ctx['filter_queries'])} filter queries lower to ranges; "
+        f"{len(join_keys)} joins, {sum(len(k) <= ndv_limit for k in join_keys)}"
+        f" distinct summaries, {min(map(len, join_keys))}-"
+        f"{max(map(len, join_keys))} keys; top-k k = "
+        f"{[(q.limit, 'desc' if q.order_by[2] else 'asc') for q in picked]};"
+        f" block-top-k rows built in {prep_s:.1f} s")
+
+    # the batched reference rows (their kernels are phase 3's)
+    dstats = svc.cache.get(events)
+    batched_tv = ops.prune_ranges_batched_device([r for _, r in lowered],
+                                                 dstats)
+    small = [i for i, k in enumerate(join_keys) if len(k) <= ndv_limit]
+    pmin_plane, pmax_plane = svc.cache.join_key_plane(events, "user_id")
+    batched_hit = ops.join_overlap_batched_device(
+        [join_keys[i] for i in small], pmin_plane, pmax_plane, P)
+
+    for fn in kernel_of.values():
+        fn.launches = 0                  # the per-query path's count
+    filter_ms, want_launch = [], {n: 0 for n in kernel_of}
+    for qi, (i, ranges) in enumerate(lowered):
+        t = time.perf_counter()
+        tv = ops.prune_ranges_device(ranges, stats, device=dev)
+        filter_ms.append((time.perf_counter() - t) * 1e3)
+        want_launch["minmax_prune"] += bool(ranges)
+        tv_cpu = ops.prune_ranges_device(ranges, stats, device="cpu")
+        if not (np.array_equal(tv, batched_tv[qi])
+                and np.array_equal(tv, tv_cpu)):
+            raise SystemExit(f"filter query {i}: per-query verdicts differ "
+                             f"from the batched row or the CPU call")
+    join_ms = []
+    for i, keys in enumerate(join_keys):
+        t = time.perf_counter()
+        hit = ops.join_overlap_device(stats, "user_id", keys, device=dev)
+        join_ms.append((time.perf_counter() - t) * 1e3)
+        want_launch["join_overlap"] += bool(len(keys))
+        if not np.array_equal(hit, ops.join_overlap_device(
+                stats, "user_id", keys, device="cpu")):
+            raise SystemExit(f"join {i}: per-query hits differ from the "
+                             f"CPU call")
+        if i in small and not np.array_equal(hit,
+                                             batched_hit[small.index(i)]):
+            raise SystemExit(f"join {i}: per-query hits differ from the "
+                             f"batched row")
+    topk = []
+    for q in picked:
+        k, desc = q.limit, q.order_by[2]
+        sign = 1.0 if desc else -1.0
+        rows_all, order = topk_rows_of[desc]
+        rows = np.ascontiguousarray(rows_all[:, :k])
+        t = time.perf_counter()
+        skip, heap = ops.topk_boundary_device(rows, device=dev)
+        dev_ms = (time.perf_counter() - t) * 1e3
+        want_launch["topk_boundary"] += 1
+        scan = ScanSet.full(P)
+        t = time.perf_counter()
+        host = run_topk(events, scan, "num_sightings", k, desc=desc,
+                        strategy="sort")
+        host_ms_ = (time.perf_counter() - t) * 1e3
+        oracle = topk_oracle(events, "num_sightings", k, desc=desc)
+        got = sign * np.sort(heap[heap > -np.inf])[::-1]
+        host_skip = np.isin(scan.part_ids[order], host.skipped)
+        cpu_skip, cpu_heap = ops.topk_boundary_device(rows, device="cpu")
+        pre_skip, pre_heap = ops.topk_boundary_device(rows, mode="prefix",
+                                                      device=dev)
+        problems = []
+        if not np.array_equal(got, oracle.astype(np.float32)):
+            problems.append("heap != topk_oracle")
+        if not np.array_equal(skip.astype(bool), host_skip):
+            problems.append("skips != host run_topk's")
+        if not (np.array_equal(skip, cpu_skip)
+                and np.array_equal(heap, cpu_heap)):
+            problems.append("differs from the CPU call")
+        if not (np.array_equal(pre_heap, heap) and (pre_skip >= skip).all()):
+            problems.append("prefix: heap differs or skips not a superset")
+        if problems:
+            raise SystemExit(f"top-k k={k} desc={desc}: " + "; ".join(problems))
+        topk.append(dict(k=k, desc=desc, kernel_call_ms=dev_ms,
+                         host_run_topk_ms=host_ms_, skipped=int(skip.sum()),
+                         merged=int(P - skip.sum()),
+                         prefix_skipped=int(pre_skip.sum()),
+                         host_rows_scanned=host.rows_scanned))
+    launches = {n: fn.launches for n, fn in kernel_of.items()}
+    if launches != want_launch or not all(launches.values()):
+        raise SystemExit(f"per-query path launches {launches}, expected "
+                         f"{want_launch}")
+    log(f"[per-query] {card}: {len(lowered)} filter queries equal to their "
+        f"batched rows and the CPU calls; {len(join_keys)} joins equal to "
+        f"the CPU calls and {len(small)} to their batched rows; top-k "
+        f"heaps equal to topk_oracle, skips to run_topk: {topk}; "
+        f"launches {launches}")
+
+    # ---- times (after the counts: comparison launches do not count) ----
+    # per-query split over every 8th lowered query
+    split = dict(stage_ms=[], h2d_ms=[], kernel_ms=[], d2h_ms=[])
+    for _i, ranges in lowered[::8]:
+        if not ranges:
+            continue
+        t = time.perf_counter()
+        staged, _ = ops._stage_ranges(ranges, stats, cpu)
+        split["stage_ms"].append((time.perf_counter() - t) * 1e3)
+        split["h2d_ms"].append(host_ms(
+            lambda: [a.to(dev) for a in staged], dev))
+        staged_d = [a.to(dev) for a in staged]
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        tv_d = ops.minmax_prune(*staged_d)
+        e1.record()
+        sync(dev)
+        split["kernel_ms"].append(e0.elapsed_time(e1))
+        split["d2h_ms"].append(host_ms(lambda: tv_d.cpu(), dev))
+    split = {k: statistics.mean(v) for k, v in split.items()}
+    reps = []
+    ranges_all = [r for _, r in lowered]
+    for _ in range(3):
+        reps.append(host_ms(lambda: ops.prune_ranges_batched_device(
+            ranges_all, dstats), dev))
+    batched_ms = statistics.median(reps)
+    qps_loop = len(lowered) / (sum(filter_ms) / 1e3)
+    qps_batched = len(lowered) / (batched_ms / 1e3)
+    log(f"[per-query] {card}: filter split per query (mean of "
+        f"{len(lowered[::8])}): host staging {split['stage_ms']:.3f} ms, "
+        f"H2D {split['h2d_ms']:.3f}, kernel {split['kernel_ms']:.4f}, D2H "
+        f"{split['d2h_ms']:.3f}; per-query loop {sum(filter_ms):.1f} ms for "
+        f"{len(lowered)} queries ({qps_loop:.1f} queries/s) vs one batched "
+        f"call {batched_ms:.2f} ms ({qps_batched:.1f} queries/s, "
+        f"{qps_batched / qps_loop:.1f}x); join per query "
+        f"{statistics.mean(join_ms):.2f} ms")
+
+    kern = {}
+    # minmax_prune: what each conjunction's data needs (its bound), then
+    # the kernel at the path's widest conjunction (the row) and at the one
+    # that needs the most bytes
+    need = [(minmax_need(*ops._stage_ranges(r, stats, dev)[0]), i)
+            for i, r in lowered if r]
+    by_q = dict(lowered)
+    widest = max(lowered, key=lambda ir: len(ir[1]))[0]
+    heaviest = max(need)[1]
+    mb = sorted(b / 1e6 for (b, _), _ in need)
+    log(f"[per-query] {card}: minmax_prune data needed per conjunction: "
+        f"{mb[0]:.2f} / {statistics.median(mb):.2f} / {mb[-1]:.2f} MB "
+        f"(min / median / max over {len(mb)}); all three [K, P] rows would "
+        f"be {12 * P / 1e6:.1f} MB a constraint")
+    for role, i in (("widest", widest), ("heaviest", heaviest)):
+        ranges = by_q[i]
+        args = ops._stage_ranges(ranges, stats, dev)[0]
+        err = require_equal("minmax_prune", ops.minmax_prune(*args),
+                            ref.minmax_prune_ref(*args), "the per-query path")
+        nbytes, nops = next(w for w, j in need if j == i)
+        bms, bby = bound(nbytes, nops)
+        timed = dict(
+            ms=cuda_ms(lambda: ops.minmax_prune(*args), 10),
+            plain_ms=cuda_ms(lambda: ref.minmax_prune_ref(*args), 3),
+            library_ms=None, bound_ms=bms, bound_by=bby, bound_bytes=nbytes,
+            bound_ops=nops, max_abs_err=err,
+            shape=dict(query=i, K=len(ranges), P=P))
+        del args
+        if role == "widest":
+            kern["minmax_prune"] = timed
+        else:
+            kern["minmax_prune"]["heaviest"] = timed
+    # join_overlap at the longest key list (past the kernel's shared
+    # tile: searched in place), the launch alone; beside it the wrapper
+    # with its sortedness / NaN check, and the launch at the longest list
+    # that fits the tile (the distinct summaries')
+    pmin, pmax, d = ops._stage_join(stats, "user_id",
+                                    max(join_keys, key=len), dev)
+    d_tile = ops._stage_join(stats, "user_id", max(
+        (join_keys[i] for i in small), key=len), dev)[2]
+    D = int(d.numel())
+    err = max(require_equal("join_overlap", ops.join_overlap(pmin, pmax, x),
+                            ref.join_overlap_ref(pmin, pmax, x),
+                            "the per-query path") for x in (d, d_tile))
+    bms, bby = bound(8 * P + 4 * D + 4 * P, P * (math.log2(D) + 2))
+    kern["join_overlap"] = dict(
+        ms=cuda_ms(lambda: join_overlap_mod.launch_checked(pmin, pmax, d),
+                   10),
+        plain_ms=cuda_ms(lambda: ref.join_overlap_ref(pmin, pmax, d), 3),
+        library_ms=cuda_ms(lambda: torch.searchsorted(d, pmax, right=True)
+                           > torch.searchsorted(d, pmin), 3),
+        bound_ms=bms, bound_by=bby, max_abs_err=err, shape=dict(D=D, P=P),
+        wrapper_ms=cuda_ms(lambda: ops.join_overlap(pmin, pmax, d), 10),
+        tile_ms=cuda_ms(lambda: join_overlap_mod.launch_checked(
+            pmin, pmax, d_tile), 10), tile_D=int(d_tile.numel()))
+    # topk_boundary at the first picked query's shape, launch alone
+    q = picked[0]
+    k = q.limit
+    rows = torch.from_numpy(np.ascontiguousarray(
+        topk_rows_of[q.order_by[2]][0][:, :k])).to(dev)
+    b = float("-inf")
+    skip, heap = ops.topk_boundary(rows, b)
+    want = ref.topk_boundary_ref(rows, b)
+    err = max(require_equal("topk_boundary", skip, want[0], "the path"),
+              require_equal("topk_boundary", heap, want[1], "the path"))
+    merged = int(P - skip.sum().item())
+    # the row heads (one 32-byte sector each), the merged rows, the skips
+    bms, bby = bound(32 * P + 4 * k * merged + 4 * P + 4 * k,
+                     P + 2 * k * merged * max(1.0, math.log2(k)))
+    kern["topk_boundary"] = dict(
+        ms=cuda_ms(lambda: ops.topk_boundary(rows, b), 10),
+        plain_ms=cuda_ms(lambda: ref.topk_boundary_ref(rows, b), 2),
+        library_ms=None, bound_ms=bms, bound_by=bby, max_abs_err=err,
+        shape=dict(P=P, k=k, merged=merged), host_run_topk_ms=next(
+            t["host_run_topk_ms"] for t in topk if t["k"] == k
+            and t["desc"] == q.order_by[2]))
+    del rows
+    for name, kk in kern.items():
+        kk["launches"] = launches[name]
+        lib = ("none" if kk["library_ms"] is None
+               else f"{kk['library_ms']:.4f} ms")
+        log(f"[per-query] {card}: {name} at {kk['shape']}: {kk['ms']:.4f} ms "
+            f"vs bound {kk['bound_ms']:.4f} ms ({kk['bound_by']}), plain "
+            f"version {kk['plain_ms']:.3f} ms, library {lib}")
+    for role, mm in (("widest", kern["minmax_prune"]),
+                     ("heaviest", kern["minmax_prune"]["heaviest"])):
+        log(f"[per-query] {card}: minmax_prune at the {role} conjunction "
+            f"{mm['shape']}: {mm['ms']:.4f} ms vs bound {mm['bound_ms']:.5f} "
+            f"ms ({mm['bound_bytes'] / 1e6:.2f} MB needed, "
+            f"{mm['bound_ops']:.3g} ops; {mm['ms'] / mm['bound_ms']:.1f}x)")
+    jo = kern["join_overlap"]
+    log(f"[per-query] {card}: join_overlap wrapper (key check + launch) "
+        f"{jo['wrapper_ms']:.4f} ms; launch alone at D={jo['tile_D']} (keys "
+        f"in the shared tile) {jo['tile_ms']:.4f} ms")
+    log(f"[per-query] {card}: top-k host run_topk "
+        f"{kern['topk_boundary']['host_run_topk_ms']:.1f} ms vs the "
+        f"topk_boundary launch {kern['topk_boundary']['ms']:.4f} ms for the "
+        f"same query")
+    return dict(filter_queries=len(lowered), join_queries=len(join_keys),
+                distinct_joins=len(small), topk=topk, split_ms=split,
+                filter_loop_ms=sum(filter_ms), batched_ms=batched_ms,
+                queries_per_s_loop=qps_loop,
+                queries_per_s_batched=qps_batched,
+                join_ms_mean=statistics.mean(join_ms), launches=launches,
+                kernels=kern)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -937,12 +1467,17 @@ def main() -> int:
             f"version exactly up to P={r['max_p']} (max abs err "
             f"{r['max_abs_err']}) in {r['s']:.1f} s")
 
-    mp = phase_main_path(args.seed, args.batches, card, dev)
+    ctx, mp = phase_main_path(args.seed, args.batches, card, dev)
+    t0 = time.perf_counter()
+    pq = phase_per_query(ctx, card, dev)
+    log(f"[per-query] {card}: phase 4 took {time.perf_counter() - t0:.1f} s")
+    del ctx
     log(f"[done] {card}: {time.perf_counter() - t_start:.1f} s in all")
 
     rows = []
-    for tech, (name, _stage, replaces) in KERNELS.items():
-        k = mp["kernels"][tech]
+    for name, (path, _stage, replaces) in KERNELS.items():
+        k = (pq["kernels"][name] if path == PER_QUERY
+             else mp["kernels"][path])
         rows.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -955,7 +1490,8 @@ def main() -> int:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, build_s=build_s,
-                 kernel_vs_plain=kv, main_path=mp, **kernels), indent=1))
+                 kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
+                 **kernels), indent=1))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -138,13 +138,16 @@ def runs_kernel(device) -> bool:
 
 def launch(name: str, device, *args) -> None:
     """Launch the kernel of ``csrc/<name>.cu`` on ``device``, on PyTorch's
-    current stream.  Tensors pass as device pointers and ints as C ints
-    (each must fit in int32); a CUDA error from the launch raises
+    current stream.  Tensors pass as device pointers, Python floats as C
+    floats (the caller rounds them to f32 first) and ints as C ints (each
+    must fit in int32); a CUDA error from the launch raises
     ``KernelError``."""
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):
             cargs.append(ctypes.c_void_p(a.data_ptr()))
+        elif isinstance(a, float):
+            cargs.append(ctypes.c_float(a))
         elif -2 ** 31 <= int(a) < 2 ** 31:
             cargs.append(ctypes.c_int(int(a)))
         else:

@@ -1,7 +1,25 @@
-"""Wrappers wiring the batched kernels into the pruning engine.
+"""Wrappers wiring the kernels into the pruning engine.
 
 Host-side NumPy metadata is staged to torch tensors here; the core engine
 (core/*) stays NumPy-pure so compile-time pruning never touches a device.
+Two staging regimes coexist.
+
+Per-query paths: one query's inputs are gathered from the host
+``PartitionStats`` (or its ordered block-top-k rows) and staged for one
+launch of a single-query kernel.  Simple, but every query pays a host
+gather and cast, an H2D copy and a launch -- fine for one-off queries,
+wrong for a workload:
+
+  * filter (``prune_ranges_device``): the ``[K, P]`` stat rows of the
+    query's constraints (``stage_ranges``), ``minmax_prune``;
+  * JOIN (``join_overlap_device``): the key column's [P] intervals
+    against the build side's sorted distinct keys, ``join_overlap``;
+  * top-k (``topk_boundary_device``): the sequential boundary scan over
+    ordered block-top-k rows, ``topk_boundary`` (or the plain prefix-merge
+    formulation, ``mode="prefix"``).
+
+Each takes the device explicitly: ``None`` is the GPU (raising without
+one), ``"cpu"`` runs the plain versions.
 
 Resident + batched paths: a table's planes live on the device in a
 ``core.device_stats.DeviceStatsCache`` (staged once per table version)
@@ -22,7 +40,9 @@ Kernel modes: ``auto`` dispatches on the planes' device (CUDA tensors
 launch the kernel, CPU tensors run the plain torch version; the choice is
 the wrapper's), ``cuda`` requires CUDA planes and ``torch`` requires CPU
 planes; each raises on the other device.  The host rung
-(``prune_ranges_batched_host``) stays NumPy f64.
+(``prune_ranges_batched_host``) stays NumPy f64.  ``topk_boundary_device``
+also takes ``prefix``, the plain prefix-merge formulation on either
+device (the JAX package has no Pallas kernel for it).
 
 All f32 downcasts go through ``core.device_stats`` (widening + demotion;
 see its precision contract).  Integral columns (int / dictionary codes)
@@ -37,22 +57,28 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.device_stats import (DeviceStats, cast_bounds_f32, round_up_f32,
+from ..core.device_stats import (DeviceStats, cast_bounds_f32,
+                                 cast_stats_f32, resolve_device,
+                                 round_down_f32, round_up_f32,
                                  snap_bounds_integral)
 from ..core.metadata import PartitionStats
 from ..core.prune_join import BLOCK_WORDS
 from .bloom_probe import bloom_probe_batched
 from .build import KernelError, load_all
-from .join_overlap import join_overlap_batched
+from .join_overlap import join_overlap, join_overlap_batched
+from .minmax_prune import minmax_prune
 from .minmax_prune_batched import minmax_prune_batched
-from .topk_boundary import topk_init_batched
+from .ref import topk_boundary_prefix_ref
+from .topk_boundary import topk_boundary, topk_init_batched
 
-# the port's kernels (csrc/<name>.cu), in the order of the pipeline's
-# stages
+# the port's kernels (csrc/<name>.cu): the batched ones in the order of
+# the pipeline's stages, then the per-query ones
 KERNELS = ("minmax_prune_batched", "join_overlap_batched",
-           "bloom_probe_batched", "topk_init_batched")
+           "bloom_probe_batched", "topk_init_batched",
+           "minmax_prune", "join_overlap", "topk_boundary")
 
 MODES = ("auto", "cuda", "torch")
+TOPK_MODES = MODES + ("prefix",)
 
 # Query-row floor of ``q_bucket``: the packed tables keep the reference's
 # power-of-two query buckets (8 rows minimum), so both packages pack
@@ -122,6 +148,72 @@ def check_mode(mode: str, device: torch.device) -> None:
     if mode == "torch" and device.type != "cpu":
         raise ValueError(f"mode 'torch' runs on the CPU, got {device}")
 
+
+# ---------------------------------------------------------------------------
+# Per-query staging (single-launch path)
+# ---------------------------------------------------------------------------
+
+def _stage_ranges(ranges, stats: PartitionStats, device: torch.device):
+    """One staging pass: kernel inputs + whether FULL is provable.
+
+    Returns ((lo, hi, mins, maxs, demote) tensors on ``device``,
+    full_safe bool).  The f32 downcast is centralized in core.device_stats:
+    stat intervals are widened (mins down, maxs up) and partitions whose
+    cast was inexact are FULL-demoted via the nullable/demote rows
+    (``null_counts > 0 | inexact``); full_safe is False when any query
+    bound's own cast was inexact.
+    """
+    cids = np.array([c for c, _, _ in ranges], dtype=np.int64)
+    lo64 = np.array([l for _, l, _ in ranges], dtype=np.float64)
+    hi64 = np.array([h for _, _, h in ranges], dtype=np.float64)
+    integral = np.array([c.kind != "float" for c in stats.columns], dtype=bool)
+    lo64, hi64 = snap_bounds_integral(lo64, hi64, integral[cids])
+    lo32, hi32, exact = cast_bounds_f32(lo64, hi64)
+    mins32, maxs32, inexact = cast_stats_f32(stats.mins.T[cids],
+                                             stats.maxs.T[cids])
+    demote = ((stats.null_counts.T[cids] > 0) | inexact).astype(np.float32)
+    staged = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in (lo32, hi32, mins32, maxs32, demote))
+    return staged, bool(exact.all())
+
+
+def stage_ranges(
+    ranges: List[Tuple[int, float, float]],
+    stats: PartitionStats,
+    device=None,
+):
+    """Gather per-constraint stat rows into the kernel's [K, P] layout:
+    (lo [K], hi [K], mins, maxs, demote [K, P]) f32 tensors on ``device``
+    (None: the GPU)."""
+    staged, _ = _stage_ranges(ranges, stats, resolve_device(device))
+    return staged
+
+
+def prune_ranges_device(
+    ranges: List[Tuple[int, float, float]],
+    stats: PartitionStats,
+    mode: str = "auto",          # 'auto' | 'cuda' | 'torch'
+    device=None,
+) -> np.ndarray:
+    """Three-valued conjunctive-range pruning of one query; returns tv [P]
+    (int32 from the kernel).  Equal, row for row, to
+    ``prune_ranges_batched_device``'s row for the same ranges."""
+    dev = resolve_device(device)
+    check_mode(mode, dev)
+    if not ranges:   # empty conjunction == TruePred: everything FULL
+        return np.full(stats.num_partitions, 2, dtype=np.int8)
+    (lo, hi, mins, maxs, nullable), full_safe = _stage_ranges(ranges, stats,
+                                                              dev)
+    tv = _read_back(minmax_prune(lo, hi, mins, maxs, nullable),
+                    "minmax_prune")
+    if not full_safe:
+        tv = np.minimum(tv, 1)   # inexact f32 bounds: FULL is not provable
+    return tv
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-query path (resident metadata plane)
+# ---------------------------------------------------------------------------
 
 def pack_ranges(
     range_lists: Sequence[List[Tuple[int, float, float]]],
@@ -281,6 +373,65 @@ def build_block_topk(
     keep = rank < k
     out[pid_s[keep], rank[keep]] = vals_s[keep]
     return out
+
+
+def topk_boundary_device(
+    rows: np.ndarray,
+    b_init: float = -np.inf,
+    mode: str = "auto",          # 'auto' | 'cuda' | 'torch' | 'prefix'
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(skip [P] int32, heap [k] f32) for pre-ordered block top-k rows.
+
+    The upfront boundary is rounded down to f32 on every route, so a
+    narrowed ``b_init`` can never skip a block the f64 boundary would have
+    kept, and a CPU run and a card run agree on every input.  ``prefix``
+    runs the plain prefix-merge formulation on ``device``: the same heap,
+    and with a witnessed ``b_init`` a superset of the sequential skips.
+    """
+    dev = resolve_device(device)
+    if mode not in TOPK_MODES:
+        raise ValueError(f"unknown kernel mode {mode!r}; have {TOPK_MODES}")
+    if mode != "prefix":
+        check_mode(mode, dev)
+    rows_t = torch.from_numpy(
+        np.ascontiguousarray(rows, dtype=np.float32)).to(dev)
+    b32 = float(round_down_f32(b_init))
+    if mode == "prefix":
+        skip, heap = topk_boundary_prefix_ref(rows_t, b32)
+    else:
+        skip, heap = topk_boundary(rows_t, b32)
+    return _read_back(skip, "topk_boundary"), _read_back(heap, "topk_boundary")
+
+
+def _stage_join(stats: PartitionStats, key_col: str, distinct: np.ndarray,
+                device: torch.device):
+    """The join kernel's inputs on ``device``: (pmin [P], pmax [P],
+    distinct [D]) f32, the key column's intervals widened (min down, max
+    up) and the keys cast round-to-nearest."""
+    pmin = round_down_f32(stats.col_min(key_col))
+    pmax = round_up_f32(stats.col_max(key_col))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+                 .to(device) for a in (pmin, pmax, distinct))
+
+
+def join_overlap_device(
+    stats: PartitionStats,
+    key_col: str,
+    distinct: np.ndarray,
+    mode: str = "auto",
+    device=None,
+) -> np.ndarray:
+    """hit [P] int32: 1 where a build key may live in the partition.
+
+    The key column's intervals are widened (min down, max up) and the keys
+    cast round-to-nearest, which is monotone: a key inside a partition's
+    f64 range stays inside its widened f32 one, and a sorted list stays
+    sorted."""
+    dev = resolve_device(device)
+    check_mode(mode, dev)
+    return _read_back(join_overlap(*_stage_join(stats, key_col, distinct,
+                                                dev)), "join_overlap")
 
 
 def pack_distinct(distinct_lists: Sequence[np.ndarray]) -> np.ndarray:

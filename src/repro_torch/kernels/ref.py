@@ -47,14 +47,53 @@ def minmax_prune_batched_ref(cids, lo, hi, mins, maxs, demote,
     return tv
 
 
+# Peak elements of a [K_chunk, P] intermediate of the single-query plain
+# version; long conjunctions go through in chunks of constraints.
+MINMAX_SLAB_ELEMS = 1 << 24
+
+
+def minmax_prune_ref(lo, hi, mins, maxs, nullable) -> torch.Tensor:
+    """tv [P] int32 for one conjunction of K closed ranges over [K, P]
+    pre-gathered stats: NO (0) when a range misses the partition interval
+    or the interval is empty, FULL (2) when every range holds it and its
+    nullable flag is 0, else PARTIAL (1); constraints AND by min.  No slot
+    is padding here: every row is a real constraint.  K = 0 is the empty
+    conjunction, FULL everywhere."""
+    K, P = mins.shape
+    tv = torch.full((P,), 2, dtype=torch.int32, device=mins.device)
+    step = max(1, MINMAX_SLAB_ELEMS // max(P, 1))
+    for s in range(0, K, step):
+        e = min(s + step, K)
+        lo_k, hi_k = lo[s:e, None], hi[s:e, None]
+        pmin, pmax = mins[s:e], maxs[s:e]
+        empty = pmin > pmax
+        no = (pmax < lo_k) | (pmin > hi_k) | empty
+        full = ((pmin >= lo_k) & (pmax <= hi_k) & (nullable[s:e] == 0.0)
+                & ~empty)
+        tv_k = torch.where(no, 0, torch.where(full, 2, 1)).to(torch.int32)
+        tv = torch.minimum(tv, tv_k.amin(dim=0))
+    return tv
+
+
 # ---------------------------------------------------------------------------
 # JOIN: distinct-key overlap and blocked-Bloom enumeration
 # ---------------------------------------------------------------------------
+
+def join_overlap_ref(pmin, pmax, distinct) -> torch.Tensor:
+    """hit [P] int32: 1 iff some key of the sorted, NaN-free ``distinct``
+    [D] lies in [pmin, pmax] -- the CPU engine's searchsorted formulation:
+    the keys below ``pmin`` against the keys at or below ``pmax``.  The
+    empty interval (+inf, -inf) never hits."""
+    lo = torch.searchsorted(distinct, pmin, side="left")
+    hi = torch.searchsorted(distinct, pmax, side="right")
+    return (hi > lo).to(torch.int32)
+
 
 # Slab sizes of the plain versions over P: elements of a [Q, slab] search
 # state, and candidates enumerated at once.
 JOIN_SLAB_ELEMS = 1 << 24
 BLOOM_SLAB_CANDIDATES = 1 << 21
+
 
 def join_overlap_batched_ref(dist, pmin, pmax,
                              num_partitions: Optional[int] = None
@@ -222,3 +261,94 @@ def topk_init_batched_ref(plane, offsets, ids, k: int) -> torch.Tensor:
         top = torch.sort(vals, descending=True).values[:k]
         heap[q, :top.numel()] = top
     return heap
+
+
+# ---------------------------------------------------------------------------
+# top-k: the boundary scan over ordered block-top-k rows
+# ---------------------------------------------------------------------------
+
+# Row heads tested at once by the sequential plain version: a first chunk
+# after every merge, doubled while no row merges.
+TOPK_FIRST_CHUNK = 256
+TOPK_MAX_CHUNK = 1 << 20
+
+
+def topk_boundary_ref(rows, b_init: float) -> tuple:
+    """(skip [P] int32, heap [k] f32): the sequential boundary scan.
+
+    ``rows`` [P, k] f32 are the block-top-k rows in processing order, each
+    descending and -inf padded; ``b_init`` is the upfront boundary, an f32
+    value (-inf for none).  Row j, with H the heap's k-th value and the
+    heap full iff H > -inf, is skipped iff
+    ``row[0] < max(b_init, H if full else -inf)`` or ``full and
+    row[0] <= H``; a row that is not skipped merges into the heap.
+
+    Between two merges the heap does not change, so the skip test is one
+    fixed threshold over the row heads: the scan jumps, vectorised over a
+    chunk of heads, to the next row that merges.  Exact, with one step a
+    merge instead of one a row.
+    """
+    P, k = rows.shape
+    dev = rows.device
+    neg = float("-inf")
+    heap = torch.full((k,), neg, dtype=torch.float32, device=dev)
+    skip = torch.ones(P, dtype=torch.int32, device=dev)
+    heads = rows[:, 0]
+    b = float(b_init)
+    h_kth = neg
+    pos, chunk = 0, TOPK_FIRST_CHUNK
+    none = torch.ones(1, dtype=torch.bool, device=dev)   # "no merge" marker
+    while pos < P:
+        full = h_kth > neg
+        eff = max(b, h_kth if full else neg)
+        end = min(pos + chunk, P)
+        seg = heads[pos:end]
+        skipped = seg < eff
+        if full:
+            skipped |= seg <= h_kth
+        # index of the first row that merges; end - pos when none does
+        first = int(torch.argmax(torch.cat([~skipped, none]).to(torch.int32)))
+        if first == end - pos:
+            pos, chunk = end, min(2 * chunk, TOPK_MAX_CHUNK)
+            continue
+        j = pos + first
+        skip[j] = 0
+        heap = torch.sort(torch.cat([heap, rows[j]]),
+                          descending=True).values[:k]
+        h_kth = float(heap[k - 1])
+        pos, chunk = j + 1, TOPK_FIRST_CHUNK
+    return skip, heap
+
+
+def topk_boundary_prefix_ref(rows, b_init: float) -> tuple:
+    """(skip [P] int32, heap [k] f32): the associative prefix-merge
+    formulation of the boundary scan.
+
+    The heap before row j is taken as the top-k of every earlier row (an
+    exclusive prefix top-k merge, here an inclusive Hillis-Steele scan in
+    ceil(log2 P) steps, then shifted by one row), merging rows the
+    sequential scan skips.  Top-k selection is associative and its values
+    are one multiset whatever the merge order, so the final heap equals
+    the sequential one and, with a witnessed ``b_init``, the skip mask is
+    a superset of the sequential one.
+    """
+    P, k = rows.shape
+    dev = rows.device
+    neg = torch.full((1, k), float("-inf"), dtype=torch.float32, device=dev)
+    if P == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev), neg[0]
+    inc = rows
+    d = 1
+    while d < P:
+        merged = torch.topk(torch.cat([inc[:-d], inc[d:]], dim=1), k,
+                            dim=1).values
+        inc = torch.cat([inc[:d], merged])
+        del merged
+        d *= 2
+    h_kth = torch.cat([neg, inc[:-1]])[:, k - 1]
+    heap_full = h_kth > float("-inf")
+    bm = rows[:, 0]
+    eff = torch.maximum(torch.full_like(h_kth, float(b_init)),
+                        torch.where(heap_full, h_kth, float("-inf")))
+    skip = (bm < eff) | (heap_full & (bm <= h_kth))
+    return skip.to(torch.int32), inc[-1].clone()

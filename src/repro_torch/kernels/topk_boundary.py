@@ -1,5 +1,6 @@
-"""Batched top-k boundary initialisation, one launch per (table, order
-column, direction) group.
+"""Top-k boundaries: the batched upfront initialisation, one launch per
+(table, order column, direction) group, and the sequential boundary scan
+of one query.
 
 For each of Q queries, the k largest values among the rows of its
 candidate partitions (its fully-matching partitions) in the resident
@@ -9,12 +10,18 @@ signed f32 rows, descending, -inf padded): heap [Q, k], descending,
 ``heap[q, kq - 1]``.  Candidates are CSR: query q's partition ids are
 ``ids[offsets[q]:offsets[q + 1]]`` (``ops.pack_candidates``).
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/topk_init_batched.cu`` (built at first use, see ``build.py``); on
-a CPU tensor it runs the plain PyTorch version
-(``ref.topk_init_batched_ref``).  There is no fallback between the two: a
-CUDA input either launches the kernel or raises ``KernelError``, as does
-any input the kernel does not take.
+``topk_boundary`` is the paper's Sec. 5 scan for one query: the ordered
+block-top-k rows [P, k] (``ops.build_block_topk``, in processing order)
+walked one after another with the global heap carried along; it returns
+each row's skip flag and the final heap (``ref.topk_boundary_ref`` states
+the rule).
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/topk_init_batched.cu``, ``csrc/topk_boundary.cu``, built at first
+use, see ``build.py``); on a CPU tensor it runs the plain PyTorch version
+(``ref.topk_init_batched_ref``, ``ref.topk_boundary_ref``).  There is no
+fallback between the two: a CUDA input either launches the kernel or
+raises ``KernelError``, as does any input the kernel does not take.
 """
 
 from __future__ import annotations
@@ -23,9 +30,10 @@ import torch
 
 from . import build
 from .build import KernelError, check_tensor
-from .ref import topk_init_batched_ref
+from .ref import topk_boundary_ref, topk_init_batched_ref
 
 KERNEL = "topk_init_batched"
+KERNEL_SCAN = "topk_boundary"
 # Largest heap the kernel keeps (its per-thread lists live in shared
 # memory: k * 128 threads * 4 bytes, 64 KB at 128).
 MAX_K = 128
@@ -109,3 +117,43 @@ def launch_checked(plane: torch.Tensor, offsets: torch.Tensor,
 
 # launches of the CUDA kernel (CPU calls of the plain version not counted)
 topk_init_batched.launches = 0
+
+
+# Largest heap of the boundary scan: the kernel keeps the heap, the row
+# being merged and the merge target in dynamic shared memory, 3 * k * 4
+# bytes (192 KB at 16384, under the 227 KB a block can opt in to).
+MAX_K_SCAN = 16384
+
+
+def topk_boundary(
+    rows: torch.Tensor,      # [P, k] f32 rows, each descending, -inf padded
+    b_init: float = float("-inf"),   # upfront boundary (-inf: none)
+):
+    """Returns (skip [P] int32, heap [k] f32) on the rows' device.
+
+    ``b_init`` is taken as the nearest f32 (callers round it down first,
+    as ``ops.topk_boundary_device`` does), and the kernel and the plain
+    version get the same value.  Rows must hold no NaN."""
+    if rows.dim() != 2:
+        raise KernelError("rows must be [P, k]")
+    P, k = rows.shape
+    if not 1 <= k <= MAX_K_SCAN:
+        raise KernelError(f"k {k} outside [1, {MAX_K_SCAN}]")
+    b32 = float(torch.tensor(float(b_init), dtype=torch.float32))
+    if b32 != b32:
+        raise KernelError("b_init must not be NaN")
+    dev = rows.device
+    check_tensor("rows", rows, torch.float32, (P, k), dev)
+    if not build.runs_kernel(dev):
+        return topk_boundary_ref(rows, b32)
+    skip = torch.empty(P, dtype=torch.int32, device=dev)
+    heap = torch.full((k,), float("-inf"), dtype=torch.float32, device=dev)
+    if P == 0:
+        return skip, heap               # nothing to scan
+    build.launch(KERNEL_SCAN, dev, rows, b32, skip, heap, P, k)
+    topk_boundary.launches += 1
+    return skip, heap
+
+
+# launches of the CUDA kernel (CPU calls of the plain version not counted)
+topk_boundary.launches = 0

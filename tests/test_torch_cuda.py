@@ -28,10 +28,17 @@ from repro_torch.kernels.ref import (bloom_probe_batched_ref,
                                     minmax_prune_batched_ref,
                                     topk_init_batched_ref)
 from repro_torch.kernels.topk_boundary import topk_init_batched
+from repro_torch.kernels.join_overlap import join_overlap
+from repro_torch.kernels.minmax_prune import minmax_prune
+from repro_torch.kernels.ref import (join_overlap_ref, minmax_prune_ref,
+                                    topk_boundary_ref)
+from repro_torch.kernels.topk_boundary import MAX_K_SCAN, topk_boundary
 
 F32_MAX = np.float32(np.finfo(np.float32).max)
 WRAPPERS = {f.__name__: f for f in (join_overlap_batched, bloom_probe_batched,
                                     topk_init_batched)}
+DENORMALS = np.array([1e-45, 1e-40, 1.1754942e-38, -1e-45, -1e-40, 0.0,
+                      -0.0], dtype=np.float32)
 
 
 @pytest.fixture
@@ -117,6 +124,93 @@ def topk_inputs(rng, Q, P, cap, K=TD.KPLANE):
             keep = rng.random(P) < rng.choice([0.001, 0.05, 0.5])
             lists.append(np.nonzero(keep)[0].astype(np.int32))
     return plane, lists
+
+
+def range_problem(rng, K, P, edges=False, denormals=False):
+    """One conjunction of K ranges over [K, P] pre-gathered stats, as the
+    JAX suite draws them (``tests/test_kernels.py`` ``range_problems``:
+    10% empty intervals (+inf, -inf), 20% nullable).  ``edges`` adds
+    bounds equal to a partition's stat, ``denormals`` denormal stats and
+    bounds (compared with the IEEE plain version only: XLA on the CPU
+    flushes denormals to zero); a long conjunction (K > 64) keeps most of
+    its ranges wide, so verdicts survive to its last constraint."""
+    mins = rng.uniform(-100, 100, size=(K, P)).astype(np.float32)
+    maxs = mins + rng.uniform(0, 50, size=(K, P)).astype(np.float32)
+    empty = rng.random((K, P)) < 0.1
+    mins = np.where(empty, np.inf, mins).astype(np.float32)
+    maxs = np.where(empty, -np.inf, maxs).astype(np.float32)
+    nullable = (rng.random((K, P)) < 0.2).astype(np.float32)
+    lo = rng.uniform(-120, 120, size=K).astype(np.float32)
+    hi = lo + rng.uniform(0, 100, size=K).astype(np.float32)
+    if K > 64:
+        wide = rng.random(K) < 0.98
+        lo[wide], hi[wide] = -1000.0, 1000.0
+    if denormals:
+        den = rng.random((K, P)) < 0.05
+        mins[den] = rng.choice(DENORMALS, int(den.sum()))
+        maxs[den] = np.maximum(mins[den],
+                               rng.choice(DENORMALS, int(den.sum())))
+        lo[0] = DENORMALS[0]
+    if edges:
+        pick = rng.integers(0, P, K)
+        eq = (rng.random(K) < 0.3) & ~empty[np.arange(K), pick]
+        lo[eq] = mins[eq, pick[eq]]
+        eq = (rng.random(K) < 0.3) & ~empty[np.arange(K), pick]
+        hi[eq] = np.maximum(lo[eq], maxs[eq, pick[eq]])
+    return lo, hi, mins, maxs, nullable
+
+
+def overlap_problem(rng, P, D, edges=False, denormals=False):
+    """[P] partition intervals and a sorted distinct key list of at most D
+    keys, as the JAX suite draws them (``overlap_problems``: 5% empty
+    intervals (+inf, -inf)).  ``edges`` adds keys on a partition's bounds
+    and keys at both infinities, ``denormals`` denormal intervals and
+    keys."""
+    pmin = rng.integers(0, 10_000, size=P).astype(np.float32)
+    pmax = pmin + rng.integers(0, 100, size=P).astype(np.float32)
+    empty = rng.random(P) < 0.05
+    pmin = np.where(empty, np.inf, pmin).astype(np.float32)
+    pmax = np.where(empty, -np.inf, pmax).astype(np.float32)
+    keys = rng.integers(0, 10_000, size=D).astype(np.float32)
+    if edges:
+        live = np.nonzero(~empty)[0]
+        if live.size:
+            p = rng.choice(live, min(4, live.size))
+            keys = np.concatenate([keys, pmin[p], pmax[p]])
+        keys = np.concatenate([keys, [-np.inf, np.inf]])
+    if denormals:
+        den = rng.random(P) < 0.05
+        pmin[den] = rng.choice(DENORMALS[3:], int(den.sum()))
+        pmax[den] = rng.choice(DENORMALS[:3], int(den.sum()))
+        keys = np.concatenate([keys, DENORMALS[:2]])
+    return pmin, pmax, np.unique(keys)[:max(D, 1)].astype(np.float32)
+
+
+def topk_problem(rng, P, k, valid_binit=False, order="random", lo=-1000,
+                 hi=1000):
+    """(rows [P, k], b_init) as the JAX suite draws them
+    (``topk_problems``): integer rows in [lo, hi) (a narrow range makes
+    ties), each cut to a random count and -inf padded, sorted descending;
+    ``b_init`` from {-inf, -500, 0, 500}, or with ``valid_binit`` a
+    witnessed boundary (k values >= it exist).  ``order`` is "random",
+    "descending" (by row head, the scan's sort strategy) or "ascending"
+    (strictly rising heads: every row merges)."""
+    rows = rng.integers(lo, hi, size=(P, k)).astype(np.float32)
+    fill = rng.integers(0, k + 1, size=P)
+    rows[np.arange(k)[None, :] >= fill[:, None]] = -np.inf
+    rows = -np.sort(-rows, axis=1)
+    if order == "descending":
+        rows = rows[np.argsort(-rows[:, 0], kind="stable")]
+    elif order == "ascending":
+        rows = (2.0 * np.arange(P, dtype=np.float32))[:, None] \
+            - np.arange(k, dtype=np.float32)[None, :]
+    if valid_binit:
+        finite = np.sort(rows[np.isfinite(rows)])[::-1]
+        kth = finite[k - 1] if len(finite) >= k else -np.inf
+        binit = rng.choice([-np.inf, float(kth), float(kth) - 10.0])
+    else:
+        binit = rng.choice([-np.inf, -500.0, 0.0, 500.0])
+    return np.ascontiguousarray(rows, dtype=np.float32), np.float32(binit)
 
 
 @pytest.mark.parametrize("Q,Kb,C,P", [
@@ -332,3 +426,140 @@ def test_mixed_service_on_card_equals_cpu(cuda):
     assert tech["join_bloom"]["launches"] == 1
     assert tech["topk"]["launches"] == 2            # asc and desc groups
     assert not any(got[0].counters["resilience"]["demotions"].values())
+
+
+# ---------------------------------------------------------------------------
+# the per-query kernels: minmax_prune, join_overlap, topk_boundary
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K,P", [
+    (1, 1), (3, 7), (2, 2047), (1, 2048), (3, 2049), (2, 100_000),
+    # conjunctions longer than the kernel's 2048-slot shared tile
+    (2049, 3000), (8192, 4097),
+])
+def test_minmax_prune_equals_plain_version(cuda, K, P):
+    rng = np.random.default_rng(K * 7 + P)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in range_problem(rng, K, P, edges=True, denormals=True)]
+    before = minmax_prune.launches
+    got = minmax_prune(*args)
+    torch.cuda.synchronize()
+    assert minmax_prune.launches == before + 1
+    want = minmax_prune_ref(*args)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (P,)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("P,D", [
+    (1, 1), (7, 60), (2049, 4096), (100_000, 4097),
+    # key lists longer than the kernel's shared-memory tile: in place
+    (5000, 9000),
+])
+def test_join_overlap_equals_plain_version(cuda, P, D):
+    rng = np.random.default_rng(P + D)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in overlap_problem(rng, P, D, edges=True,
+                                     denormals=True)]
+    before = join_overlap.launches
+    got = join_overlap(*args)
+    torch.cuda.synchronize()
+    assert join_overlap.launches == before + 1
+    want = join_overlap_ref(*args)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (P,)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("P,k,order,lo,hi", [
+    (1, 1, "random", -1000, 1000), (300, 1, "descending", -20, 20),
+    (2049, 8, "random", -20, 20), (100_000, 64, "descending", -1000, 1000),
+    (3000, 4, "ascending", -1000, 1000),      # every row merges
+    (40, MAX_K_SCAN, "random", -50, 50),      # the largest heap
+])
+def test_topk_boundary_equals_plain_version(cuda, P, k, order, lo, hi):
+    rng = np.random.default_rng(P + k)
+    rows, b_init = topk_problem(rng, P, k, order=order, lo=lo, hi=hi)
+    if order != "ascending":
+        rows[rng.random(P) < 0.1] = -np.inf    # all -inf rows
+    rows_d = torch.from_numpy(rows).to(cuda)
+    for b in (float("-inf"), float(b_init)):
+        before = topk_boundary.launches
+        skip, heap = topk_boundary(rows_d, b)
+        torch.cuda.synchronize()
+        assert topk_boundary.launches == before + 1
+        want_skip, want_heap = topk_boundary_ref(rows_d, b)
+        assert skip.dtype == torch.int32 and tuple(skip.shape) == (P,)
+        assert torch.equal(skip, want_skip) and torch.equal(heap, want_heap)
+    if order == "ascending":
+        assert not skip.any()
+
+
+def test_per_query_kernels_reject_inputs_on_the_card(cuda):
+    rng = np.random.default_rng(5)
+    pmin, pmax, _keys = (torch.from_numpy(a).to(cuda)
+                         for a in overlap_problem(rng, 50, 20))
+    for bad in ([3.0, 1.0, 2.0], [1.0, np.nan]):      # unsorted, NaN
+        with pytest.raises(KernelError, match="sorted"):
+            join_overlap(pmin, pmax, torch.tensor(bad, device=cuda))
+    rows = torch.zeros((4, MAX_K_SCAN + 1), device=cuda)
+    with pytest.raises(KernelError, match="k "):
+        topk_boundary(rows)
+    lo, hi, mins, maxs, nullable = (torch.from_numpy(a).to(cuda)
+                                    for a in range_problem(rng, 2, 30))
+    with pytest.raises(KernelError):
+        minmax_prune(lo, hi, mins.double(), maxs, nullable)
+    with pytest.raises(KernelError, match="cpu"):
+        minmax_prune(lo, hi, mins, maxs, nullable.cpu())
+
+
+@pytest.mark.parametrize("kernel", ["minmax_prune", "join_overlap",
+                                    "topk_boundary"])
+def test_per_query_launch_failure_raises(cuda, monkeypatch, kernel):
+    """Each per-query wrapper turns a CUDA error returned by its launch
+    into a KernelError and counts no launch."""
+    monkeypatch.setattr(build, "entry", lambda _name: lambda *_a: 1)
+    rng = np.random.default_rng(1)
+    if kernel == "minmax_prune":
+        fn, args = minmax_prune, range_problem(rng, 3, 64)
+    elif kernel == "join_overlap":
+        fn, args = join_overlap, overlap_problem(rng, 64, 30)
+    else:
+        fn, args = topk_boundary, topk_problem(rng, 64, 8)[:1]
+    before = fn.launches
+    with pytest.raises(KernelError, match="cudaError 1"):
+        fn(*(torch.from_numpy(a).to(cuda) for a in args))
+    assert fn.launches == before
+
+
+def test_per_query_ops_on_card_equal_cpu(cuda):
+    """The per-query ops on the card and on the CPU: the same verdicts,
+    hits, skips and heap, each through its kernel."""
+    from repro_torch.core import expr as E
+    from repro_torch.core.prune_filter import extract_ranges
+    from repro_torch.data.generator import make_events_table
+    ev = make_events_table(np.random.default_rng(0), n_rows=40_000,
+                           rows_per_partition=20)
+    rng = np.random.default_rng(3)
+    launches = (ops.minmax_prune.launches, ops.join_overlap.launches,
+                ops.topk_boundary.launches)
+    for i in range(8):
+        pred = (E.col("ts") >= float(rng.integers(0, 10_000_000))) \
+            & (E.col("score") < float(rng.random()))
+        ranges = extract_ranges(pred, ev.stats)
+        np.testing.assert_array_equal(
+            ops.prune_ranges_device(ranges, ev.stats),
+            ops.prune_ranges_device(ranges, ev.stats, device="cpu"))
+        keys = np.unique(rng.integers(0, 20_000, int(rng.integers(1, 3000))))
+        np.testing.assert_array_equal(
+            ops.join_overlap_device(ev.stats, "user_id", keys),
+            ops.join_overlap_device(ev.stats, "user_id", keys, device="cpu"))
+    vals, _ = ev.global_ctx().col("num_sightings")
+    rows = ops.build_block_topk(vals, ev.part_bounds, 16)
+    rows = rows[np.argsort(-ev.stats.col_max("num_sightings"), kind="stable")]
+    for mode in ("auto", "prefix"):
+        got = ops.topk_boundary_device(rows, mode=mode)
+        want = ops.topk_boundary_device(rows, mode=mode, device="cpu")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert (ops.minmax_prune.launches - launches[0] == 8
+            and ops.join_overlap.launches - launches[1] == 8
+            and ops.topk_boundary.launches - launches[2] == 1)
