@@ -6,10 +6,12 @@
 Phases (each failure exits non-zero; nothing is caught and passed over):
 
   1. environment: torch version, the card's name and power limit, and the
-     build of all seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+     build of all eight CUDA kernels from ``src/repro_torch/kernels/csrc``
      (one ``nvcc`` per source, all started together);
-  2. each kernel vs its plain version on the card, exact equality of every
-     output, on the same inputs:
+  2. each kernel vs its plain version on the card, on
+     the same inputs: exact equality of every output for the pruning
+     kernels, the JAX package's bounds for ``flash_attention`` (rtol =
+     atol = 2e-5 in f32, 2e-2 in bf16):
        * ``minmax_prune_batched`` over Q x Kb x C x P grids with drop
          sentinels inside P and in the capacity tail, (-inf, +inf) no-op
          slots, bounds equal to a stat, denormal bounds and stats, and
@@ -33,6 +35,10 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
          descending and (P <= 2049) ascending row orders, ties, all -inf
          rows, with and without an upfront boundary; P up to 2**21
          throughout;
+       * ``flash_attention`` in f32 and bf16 at every head dim D in {8,
+         16, 32, 64, 128, 256}: Sq = Sk in {1, 7, 128, 130, 256} with and
+         without causal, Sk != Sq without it (up to 2048), 2048 causal,
+         and BH = 128 at 2048 causal for D in {128, 256};
   3. the main path at full size: ``PruningService.run_batch`` over the
      production-like events table (2**24 rows in 1,048,576
      micro-partitions, 6 columns), a 600-row users dimension table and a
@@ -68,6 +74,26 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      beside its plain version, bound and library call (``minmax_prune``
      at the widest conjunction and at the one whose data needs the most
      bytes, each bound counted from what its data needs).
+  5. LM serving at full width: GLM-4-9B (``get_config("glm4-9b")``, all 40
+     layers, bf16, parameters from the port's ``init_params`` seeded by
+     ``--seed``), the ``Generator`` on 4 prompts of 2,048 tokens and 32
+     greedy steps, and the ``ContinuousBatcher`` on 8 requests of 128 to
+     1,024 tokens, 16 new tokens each, in 4 slots; checks: (a)
+     ``flash_attention`` launched once a layer per prefill (40 for the
+     ``Generator``, 40 x 8 for the batcher); (b) the kernel equals its
+     plain version at every layer's q, k, v of the served prefill; (c)
+     the served logits at every served position agree with the f32
+     forward without cache or kernel (``reference_logits``), and an fp8
+     control does not; (d) the served path with the plain attention in
+     place of the kernel agrees with the kernel run (and logs how far its
+     prefill drifts from it, layer by layer), and (e) the batcher's logits
+     agree with the ``Generator``'s fed the same tokens, within (c)'s
+     bound (bounds and reasons at ``SERVE_VS_F32_TOL``).  The logits are
+     recorded by a model whose steps wrap the real ones, on the timed
+     runs.  Then the prefill and decode times and
+     tokens/s, the batcher's requests/s, weight, cache and peak bytes, and
+     the kernel at the prefill shape beside its bound, its plain version
+     and SDPA.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -92,10 +118,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # The port's kernels, in the order of the pipeline's stages: (the path
-# that launches it: phase 3's service technique counter, or PER_QUERY for
-# phase 4; its stage; the TPU kernel it replaces, by the JAX package's
-# wrapper).
+# that launches it: phase 3's service technique counter, PER_QUERY for
+# phase 4 or LM for phase 5; its stage; the TPU kernel it replaces, by the
+# JAX package's wrapper).
 PER_QUERY = "per-query"
+LM = "lm-serving"
 KERNELS = {
     "minmax_prune_batched": ("filter", "filter",
                              "src/repro/kernels/minmax_prune_batched.py:82"),
@@ -111,10 +138,12 @@ KERNELS = {
                      "src/repro/kernels/join_overlap.py:116"),
     "topk_boundary": (PER_QUERY, "topk",
                       "src/repro/kernels/topk_boundary.py:185"),
+    "flash_attention": (LM, "prefill",
+                        "src/repro/kernels/flash_attention.py:81"),
 }
 # Phase 3's kernels by the service's technique counter.
 MAIN_KERNELS = {path: name for name, (path, _, _) in KERNELS.items()
-                if path != PER_QUERY}
+                if path not in (PER_QUERY, LM)}
 
 # H100 SXM peaks (NVIDIA data sheet): device memory rate, and the f32 rate
 # outside the tensor cores, which also stands for the 32-bit integer ALU
@@ -563,7 +592,69 @@ def topk_scan_cases(rng, dev, sizes) -> dict:
     return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
 
 
-def phase_kernel_vs_plain(seed: int, dev) -> dict:
+def require_close(name: str, got, want, tol: float, where: str) -> float:
+    """Largest |got - want|; raises unless every element is within
+    ``tol + tol * |want|`` (rtol = atol = tol)."""
+    import torch
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        raise SystemExit(f"{name}: shape {tuple(g.shape)} != "
+                         f"{tuple(w.shape)} at {where}")
+    d = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) or bool((d > tol + tol * w.abs())
+                                                  .any()):
+        raise SystemExit(f"{name} kernel != plain version at {where}: max "
+                         f"abs err {float(d.max())} (tolerance {tol})")
+    return float(d.max()) if d.numel() else 0.0
+
+
+# flash_attention: the JAX package's bounds, rtol and atol
+# (tests/test_flash_attention.py): the f32 sums run in another order
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def flash_cases(rng, dev, sizes) -> dict:
+    """``flash_attention``, f32 and bf16, every head dim D in ``sizes``:
+    BH = 3 at Sq = Sk in {1, 7, 128, 130, 256}, with and without causal;
+    Sk != Sq without causal (1 x 2048, 7 x 130, 130 x 7, 256 x 1, 128 x
+    256, 2048 x 130); BH = 1 at Sq = Sk = 2048 causal; BH = 128 at 2048
+    causal for D in {128, 256}, the serving prefill's shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2 ** 31)))
+    grid = []
+    for D in sizes:
+        grid += [(3, S, S, c, D) for S in (1, 7, 128, 130, 256)
+                 for c in (True, False)]
+        grid += [(3, sq, sk, False, D) for sq, sk in (
+            (1, 2048), (7, 130), (130, 7), (256, 1), (128, 256), (2048, 130))]
+        grid.append((1, 2048, 2048, True, D))
+        if D >= 128:
+            grid.append((128, 2048, 2048, True, D))
+    cases, err = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        for BH, Sq, Sk, causal, D in grid:
+            q, k, v = (torch.randn((BH, S, D), generator=gen, device=dev)
+                       .to(dtype) for S in (Sq, Sk, Sk))
+            got = flash_attention(q, k, v, causal=causal)
+            sync(dev)
+            want = flash_attention_ref(q, k, v, causal=causal)
+            err = max(err, require_close(
+                "flash_attention", got, want, tol,
+                f"BH={BH} Sq={Sq} Sk={Sk} D={D} causal={causal} {dtype}"))
+            cases += 1
+            del q, k, v, got, want
+    return dict(cases=cases, max_abs_err=err, max_p=max(sizes))
+
+
+def phase_kernel_vs_plain(seed: int, dev, names=tuple(KERNELS)) -> dict:
+    """Phase 2 for the kernels in ``names`` (all eight unless a rehearsal
+    picks some), in the order of ``KERNELS``."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, fn, sizes in (
@@ -573,7 +664,10 @@ def phase_kernel_vs_plain(seed: int, dev) -> dict:
             ("topk_init_batched", topk_cases, (1, 4097, 1 << 21)),
             ("minmax_prune", minmax_single_cases, SINGLE_SIZES),
             ("join_overlap", join_single_cases, SINGLE_SIZES),
-            ("topk_boundary", topk_scan_cases, SINGLE_SIZES)):
+            ("topk_boundary", topk_scan_cases, SINGLE_SIZES),
+            ("flash_attention", flash_cases, (8, 16, 32, 64, 128, 256))):
+        if name not in names:
+            continue
         t0 = time.perf_counter()
         out[name] = fn(rng, dev, sizes)
         out[name]["s"] = time.perf_counter() - t0
@@ -1436,6 +1530,452 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
                 kernels=kern)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: LM serving at full width
+# ---------------------------------------------------------------------------
+# GLM-4-9B at its published widths, all 40 layers, bf16, random weights
+# from --seed: the dense family's served path (prefill through the flash
+# kernel, decode through the cache) under the Generator and the
+# ContinuousBatcher.
+
+LM_ARCH = "glm4-9b"
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+
+# Agreement bounds of phase 5, each on max |a - b| / max |b| over every
+# compared logit (b the reference side):
+#  (b) the kernel against its plain version at each layer's q, k, v of the
+#      served bf16 prefill: ``FLASH_TOL["bfloat16"]``, rtol and atol, the
+#      JAX package's bound; only the f32 sums' order differs;
+#  (c) served (bf16 weights, activations and cache, the kernel) against
+#      the f32 forward from the same weights: 1e-1.  bf16 keeps 8
+#      significant bits; the residual stream is rounded to it at each of
+#      the 80 residual adds, where one bf16 step of the growing stream is
+#      far above most of the update added to it, and the logits are
+#      rounded once more.  Seed 0 leaves 4.5e-2 on an H100 (PERF.md);
+#      serving in fp8 (e4m3, 4 significant bits) leaves ~0.5, and the
+#      phase checks that its fp8 control (weights and residual stream in
+#      e4m3) fails the bound;
+#  (d), (e): the served path with the plain attention in place of the
+#      kernel, and the batcher against the Generator fed the same tokens
+#      (decode at B = 1 against the batcher's 4 slots), are two more bf16
+#      serving runs, held to (c)'s bound.  Only attention's summation
+#      order, or the decode batch, differs, but where that moves a bf16
+#      value by a step the random 40-layer model grows the step as it
+#      grows (c)'s roundings: (d) logs, layer by layer, how far its
+#      prefill's q and attention output have moved from the kernel run's
+#      (layer 0's q is the same in both, and is checked to be), and (b)
+#      is the tight check of the kernel in the template that serves.
+SERVE_VS_F32_TOL = 1e-1
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in f64."""
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def rms_err(got, want) -> float:
+    """|got - want| / |want| in the 2-norm, in f64: how much of ``want``
+    has moved, where ``rel_err`` is set by the one element that moved
+    most."""
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def fp8_round(t):
+    """``t`` rounded to fp8 e4m3 with one scale for the tensor (its
+    largest magnitude to 448), back in f32; vectors (the norms' weights)
+    stay as they are."""
+    import torch
+    t = t.float()
+    if t.dim() < 2:
+        return t
+    s = t.abs().amax().clamp_min(1e-30) / 448.0
+    return (t / s).to(torch.float8_e4m3fn).float() * s
+
+
+def reference_logits(params, cfg, tokens, first: int, weight, act=None):
+    """f32 logits [B, T - first, V] at positions first .. T - 1 of
+    ``tokens`` [B, T]: the full forward with no cache and no kernel, each
+    layer's weights taken through ``weight`` one layer at a time, the
+    residual stream through ``act`` after the embedding and each residual
+    add (f32 and nothing, or the fp8 control: ``fp8_round`` for both),
+    attention one sequence at a time (the plain version in f32 over
+    [H, T, T] scores)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import _unembed_matrix, layer_params
+    from repro_torch.models.sharding import tree_map
+
+    B, T = tokens.shape
+    dev = tokens.device
+    act = act or (lambda t: t)
+    with torch.no_grad():
+        x = act(weight(params["embed"])[tokens])
+        positions = torch.arange(T, device=dev)[None, :]
+        for i in range(cfg.n_layers):
+            lp = tree_map(weight, layer_params(params, i))
+            q, k, v = L.qkv_project(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
+                                    positions)
+            k = L._expand_kv(k, cfg.n_heads)
+            v = L._expand_kv(v, cfg.n_heads)
+            o = torch.empty_like(q)
+            for b in range(B):
+                hm = [t[b].transpose(0, 1).contiguous() for t in (q, k, v)]
+                o[b] = ref.flash_attention_ref(*hm, causal=True).transpose(0, 1)
+            x = act(x + L._mm("bshk,hkd->bsd", o, lp["attn"]["wo"]))
+            x = act(x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg))
+            del lp, q, k, v, o
+        hidden = L.rmsnorm(x[:, first:], weight(params["final_norm"]))
+        W = weight(_unembed_matrix(params))
+        logits = L._mm("bsd,vd->bsv", hidden, W)
+        if W.shape[0] > cfg.vocab:
+            logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def recording(model, logits, forced=None):
+    """``model`` with its prefill and decode steps appending the logits
+    they return to the list ``logits``; with ``forced`` [B, steps], decode
+    step i is fed ``forced[:, i]`` in place of the caller's token (teacher
+    forcing)."""
+    import torch
+    fed = []
+
+    def prefill(params, batch, max_seq):
+        out, cache = model.prefill_fn(params, batch, max_seq)
+        logits.append(out)
+        return out, cache
+
+    def decode(params, cache, tok, position):
+        if forced is not None:
+            tok = torch.as_tensor(np.asarray(forced)[:, len(fed):len(fed) + 1],
+                                  device=tok.device)
+            fed.append(tok)
+        out, cache = model.decode_fn(params, cache, tok, position)
+        logits.append(out)
+        return out, cache
+
+    return model._replace(prefill_fn=prefill, decode_fn=decode)
+
+
+def recording_batcher(model, params, **kw):
+    """A ``ContinuousBatcher`` and a dict that its model fills with, for
+    each request id, the logits [V] that chose each of its tokens: the k-th
+    prefill is request k (ids count up from 0 at submit and the queue is
+    first in, first out), and row s of a decode step is the request that
+    held slot s when the step ran."""
+    from repro_torch.serve.batcher import ContinuousBatcher
+    seen = {}
+
+    def prefill(params, batch, max_seq):
+        out, kv = model.prefill_fn(params, batch, max_seq)
+        seen[len(seen)] = [out[0]]
+        return out, kv
+
+    def decode(params, cache, tok, position):
+        out, cache = model.decode_fn(params, cache, tok, position)
+        for slot, req in enumerate(batcher.slot_req):
+            if req is not None:
+                seen[req.rid].append(out[slot])
+        return out, cache
+
+    batcher = ContinuousBatcher(
+        model._replace(prefill_fn=prefill, decode_fn=decode), params, **kw)
+    return batcher, seen
+
+
+class attention_as:
+    """``with attention_as(fn):`` the layers call ``fn`` in place of
+    ``ops.flash_attention`` (they look it up on ``ops`` at each call)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.kernel, ops.flash_attention = ops.flash_attention, self.fn
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self.kernel
+
+
+def teacher_forced_err(model, params, max_seq: int, finished, seen, rids,
+                       reqs, V: int, dev) -> float:
+    """Largest ``rel_err`` of a finished request's batcher logits
+    (``seen``) against a ``Generator`` fed the same prompt and tokens (one
+    request at a time)."""
+    import torch
+
+    from repro_torch.serve.serve_step import Generator
+    err = 0.0
+    for rid, p in zip(rids, reqs):
+        out = finished[rid].out
+        lg = []
+        Generator(recording(model, lg, forced=np.asarray(out[:-1])[None, :]),
+                  params, max_seq=max_seq, device=dev).generate(
+            p[None, :], len(out) - 1)
+        err = max(err, rel_err(torch.stack(seen[rid])[:, :V],
+                               torch.stack(lg, dim=1)[0, :, :V]))
+    return err
+
+
+def flash_bound(BH: int, Sq: int, Sk: int, D: int, causal: bool,
+                elem: int):
+    """(bound_ms, bound_by) of one attention call: 4 D operations a live
+    (query, key) pair on the bf16 tensor-core rate, against q, k, v and o
+    read or written once."""
+    if causal:
+        live = sum(min(i, Sk - 1) + 1 for i in range(Sq))
+    else:
+        live = Sq * Sk
+    ops_n = 4 * D * live * BH
+    nbytes = elem * BH * D * (2 * Sq + 2 * Sk)
+    tb, to = nbytes / HBM_BYTES_PER_S, ops_n / BF16_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations"), ops_n
+
+
+def phase_lm(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
+             steps: int = 32, n_req: int = 8, req_len=(128, 1024),
+             max_new: int = 16, n_slots: int = 4) -> dict:
+    """Phase 5: GLM-4-9B served at full width (``cfg`` None) through the
+    ``Generator`` (``B`` prompts of ``S`` tokens, ``steps`` greedy steps)
+    and the ``ContinuousBatcher`` (``n_req`` prompts of ``req_len``
+    tokens, ``max_new`` each, ``n_slots`` slots), with checks (a)-(e)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import init_params, tree_bytes
+    from repro_torch.serve.serve_step import Generator
+
+    # the f32 reference in full f32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or get_config(LM_ARCH)
+    held_before = torch.cuda.memory_allocated(dev)      # earlier phases'
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_params(model.specs, gen, device=dev)
+    sync(dev)
+    weight_bytes = tree_bytes(params)
+    n_params = weight_bytes // 2                          # bf16
+    log(f"[lm] {card}: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}, head dim "
+        f"{cfg.resolved_head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+        f"{n_params:,} parameters, {weight_bytes:,} bytes in bf16, made "
+        f"from seed {seed} in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (B, S))
+    seen = []              # the logits the Generator's model returns
+    generator = Generator(recording(model, seen), params, max_seq=S + steps,
+                          device=dev)
+    generator.generate(prompts[:, :64], steps=2)          # warm-up
+    fa = ops.flash_attention
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path: the Generator's prefill and greedy decode, then the
+    # batcher, each with the kernel's count set to 0 just before
+    out = {}
+    seen.clear()
+    fa.launches = 0
+    total_ms = host_ms(lambda: out.update(toks=generator.generate(
+        prompts, steps)), dev)
+    gen_launches = fa.launches
+    toks = out.pop("toks")
+    served = torch.stack(seen, dim=1)           # [B, steps + 1, V]
+    seen.clear()
+    peak_serving = torch.cuda.max_memory_allocated(dev) - held_before
+    if gen_launches != cfg.n_layers:
+        raise SystemExit(f"(a) the Generator's prefill launched "
+                         f"flash_attention {gen_launches} times, expected "
+                         f"{cfg.n_layers}")
+    if tuple(served.shape) != (B, steps + 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(served[..., :cfg.vocab]).all()):
+        raise SystemExit(f"served logits {tuple(served.shape)} not finite "
+                         f"or not of the expected shape")
+
+    lens = rng.integers(req_len[0], req_len[1] + 1, n_req)
+    reqs = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+    max_seq_b = -(-(req_len[1] + max_new + 1) // 64) * 64
+    batcher, seen_b = recording_batcher(model, params, n_slots=n_slots,
+                                        max_seq=max_seq_b)
+    rids = [batcher.submit(p, max_new=max_new) for p in reqs]
+    fa.launches = 0
+    batch_ms = host_ms(batcher.run, dev)
+    batch_launches = fa.launches
+    if batch_launches != n_req * cfg.n_layers:
+        raise SystemExit(f"(a) the batcher launched flash_attention "
+                         f"{batch_launches} times for {n_req} prefills, "
+                         f"expected {n_req * cfg.n_layers}")
+    if any(len(batcher.finished[r].out) != max_new for r in rids):
+        raise SystemExit("the batcher ended a request early")
+    log(f"[lm] {card}: (a) flash_attention launched {gen_launches} times in "
+        f"the Generator's prefill and {batch_launches} in the batcher's "
+        f"{n_req} prefills ({cfg.n_layers} layers)")
+
+    # prefill alone, for the split of the Generator's time
+    fa.launches = 0
+    prefill_ms = host_ms(lambda: generator.generate(prompts, 0), dev)
+    seen.clear()
+    if fa.launches != cfg.n_layers:
+        raise SystemExit(f"(a) the prefill alone launched flash_attention "
+                         f"{fa.launches} times")
+    decode_ms = (total_ms - prefill_ms) / steps
+    kv_bytes = sum(int(np.prod(c.shape)) * 2 for c in model.init_cache(
+        B, S + steps).values())
+
+    # (b) the kernel against its plain version at every layer's q, k, v of
+    # the served prefill; the kernel's output goes on, so each layer sees
+    # what serving gives it.  Each layer's q and output are kept for (d),
+    # layer 0's k and v too, for the timing.
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    kept, err_b = [], []
+
+    def checked(q, k, v, causal=True):
+        o = fa(q, k, v, causal=causal)
+        err_b.append(require_close(
+            "flash_attention", o,
+            ref.flash_attention_ref(q, k, v, causal=causal),
+            FLASH_TOL["bfloat16"], f"layer {len(err_b)}'s served prefill"))
+        kept.append((q, o, k, v) if not kept else (q, o))
+        return o
+
+    with attention_as(checked):
+        generator.generate(prompts, 0)
+    seen.clear()
+    if len(err_b) != cfg.n_layers:
+        raise SystemExit(f"(b) the served prefill called attention "
+                         f"{len(err_b)} times, expected {cfg.n_layers}")
+    with torch.no_grad():
+        qh, _, kh, vh = kept[0]
+        kept[0] = kept[0][:2]
+        q4, k4, v4 = (t.view(B, H, S, Dh) for t in (qh, kh, vh))
+        k_ms = cuda_ms(lambda: fa(qh, kh, vh, causal=True), 5)
+        p_ms = cuda_ms(lambda: ref.flash_attention_ref(qh, kh, vh,
+                                                       causal=True), 3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 10)
+        del qh, kh, vh, q4, k4, v4
+    bms, bby, fl_ops = flash_bound(B * H, S, S, Dh, True, 2)
+    log(f"[lm] {card}: (b) flash_attention at each of the {cfg.n_layers} "
+        f"layers' q, k, v of the served prefill [BH={B * H}, S={S}, "
+        f"D={Dh}] bf16 causal: kernel == plain version within "
+        f"{FLASH_TOL['bfloat16']} (max abs err {max(err_b):.3g}, layer 0 "
+        f"{err_b[0]:.3g}); at layer 0's: {k_ms:.3f} ms vs bound "
+        f"{bms:.4f} ms ({bby}: {fl_ops:.3g} operations, "
+        f"{fl_ops / (k_ms * 1e9):.2f} TFLOP/s), plain version {p_ms:.3f} ms, "
+        f"SDPA {lib_ms:.3f} ms")
+
+    # (c) served logits against the f32 forward, and the fp8 control
+    seq = torch.cat([torch.as_tensor(prompts, device=dev),
+                     torch.as_tensor(toks, device=dev)], dim=1)
+    t0 = time.perf_counter()
+    want = reference_logits(params, cfg, seq, S - 1, lambda w: w.float())
+    ref_s = time.perf_counter() - t0
+    err_c = rel_err(served[..., :cfg.vocab], want[..., :cfg.vocab])
+    fp8 = reference_logits(params, cfg, seq, S - 1, fp8_round, fp8_round)
+    err_fp8 = rel_err(fp8[..., :cfg.vocab], want[..., :cfg.vocab])
+    del fp8
+    per_pos = [rel_err(served[:, j, :cfg.vocab], want[:, j, :cfg.vocab])
+               for j in range(steps + 1)]
+    log(f"[lm] {card}: (c) served bf16 logits vs the f32 forward at "
+        f"{B} x {steps + 1} positions: {err_c:.3e} of max |logit| "
+        f"{float(want[..., :cfg.vocab].abs().max()):.3f} (bound "
+        f"{SERVE_VS_F32_TOL}; prefill {per_pos[0]:.3e}, worst step "
+        f"{max(per_pos[1:] or [0.0]):.3e}); fp8 control (e4m3 weights "
+        f"and residual stream) {err_fp8:.3e}; "
+        f"the f32 forward took {ref_s:.1f} s")
+    del want
+
+    # (d) the served path with the plain attention in place of the kernel,
+    # fed the same tokens; at each layer of its prefill, how far q and the
+    # attention output have moved from the kernel run's
+    V = cfg.vocab
+    drift = []
+
+    def plain(q, k, v, causal=True):
+        o = ref.flash_attention_ref(q, k, v, causal=causal)
+        q0, o0 = kept[len(drift)]
+        drift.append((rel_err(q, q0), rms_err(q, q0), rel_err(o, o0)))
+        return o
+
+    lg_d = []
+    with attention_as(plain):
+        Generator(recording(model, lg_d, forced=toks), params,
+                  max_seq=S + steps, device=dev).generate(prompts, steps)
+    del kept
+    err_d = rel_err(torch.stack(lg_d, dim=1)[..., :V], served[..., :V])
+    del lg_d
+    if len(drift) != cfg.n_layers or drift[0][0] != 0.0:
+        raise SystemExit(f"(d) the plain run's prefill called attention "
+                         f"{len(drift)} times, and its layer 0 q differs "
+                         f"from the kernel run's by {drift[0][0]:.3e}")
+    # (e) each request's batcher logits against the Generator fed its
+    # prompt and tokens
+    err_e = teacher_forced_err(model, params, max_seq_b, batcher.finished,
+                               seen_b, rids, reqs, V, dev)
+    shown = sorted({1, 2, 4, 8, 16, 32, cfg.n_layers - 1} &
+                   set(range(1, cfg.n_layers)))
+    log(f"[lm] {card}: (d) plain attention in place of the kernel: "
+        f"{err_d:.3e} of max |logit|; its prefill against the kernel "
+        f"run's, q at layer " + ", ".join(
+            f"{i} {drift[i][0]:.2e} / {drift[i][1]:.2e}" for i in shown) +
+        f" (of max |q| / in the 2-norm); attention output at layer 0 "
+        f"{drift[0][2]:.2e}, {cfg.n_layers - 1} {drift[-1][2]:.2e} of max "
+        f"|o|; (e) "
+        f"batcher vs teacher-forced Generator over {n_req} requests x "
+        f"{max_new} tokens: {err_e:.3e} (bounds {SERVE_VS_F32_TOL})")
+
+    gen_tok_s = B * steps / ((total_ms - prefill_ms) / 1e3)
+    log(f"[lm] {card}: Generator B={B}: prefill {prefill_ms:.1f} ms "
+        f"({B * S / (prefill_ms / 1e3):.0f} tokens/s), decode "
+        f"{decode_ms:.2f} ms a step ({gen_tok_s:.1f} tokens/s), {steps} "
+        f"steps in {total_ms:.1f} ms; batcher {n_req} requests "
+        f"({int(lens.sum())} prompt tokens, {n_req * max_new} generated, "
+        f"{n_slots} slots) in {batch_ms:.1f} ms, "
+        f"{n_req / (batch_ms / 1e3):.2f} requests/s; weights "
+        f"{weight_bytes:,} bytes, KV cache {kv_bytes:,} bytes, peak "
+        f"allocated while serving {peak_serving:,} bytes (above the "
+        f"{held_before:,} that earlier phases still held)")
+    failed = [name for name, e in (("(c)", err_c), ("(d)", err_d),
+                                   ("(e)", err_e))
+              if not e <= SERVE_VS_F32_TOL]
+    if not err_fp8 > SERVE_VS_F32_TOL:
+        failed.append("(c) fp8 control inside the bound")
+    if failed:
+        raise SystemExit(f"phase 5 failed {failed}")
+    return dict(
+        arch=cfg.name, layers=cfg.n_layers, params=n_params,
+        weight_bytes=weight_bytes, kv_cache_bytes=kv_bytes,
+        peak_serving_bytes=peak_serving, prefill_ms=prefill_ms,
+        prefill_tokens_per_s=B * S / (prefill_ms / 1e3),
+        decode_ms_per_step=decode_ms, decode_tokens_per_s=gen_tok_s,
+        generate_ms=total_ms, batcher_ms=batch_ms,
+        requests_per_s=n_req / (batch_ms / 1e3),
+        batcher_prompt_tokens=int(lens.sum()),
+        err_served_vs_f32=err_c, err_fp8_control=err_fp8,
+        err_served_by_position=per_pos, err_plain_vs_kernel=err_d,
+        err_batcher_vs_generator=err_e, err_kernel_by_layer=err_b,
+        drift_q_by_layer=[d[0] for d in drift],
+        drift_q_rms_by_layer=[d[1] for d in drift],
+        drift_o_by_layer=[d[2] for d in drift],
+        reference_s=ref_s,
+        launches=dict(generator=gen_launches, batcher=batch_launches),
+        kernels={"flash_attention": dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bms,
+            bound_by=bby, max_abs_err=max(err_b),
+            launches=gen_launches + batch_launches,
+            shape=dict(BH=B * H, S=S, D=Dh, dtype="bfloat16", causal=True))})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1463,21 +2003,29 @@ def main() -> int:
     dev = torch.device("cuda")
     kv = phase_kernel_vs_plain(args.seed, dev)
     for name, r in kv.items():
+        how = (f"within rtol = atol = {FLASH_TOL['float32']} (f32), "
+               f"{FLASH_TOL['bfloat16']} (bf16) for D up to {r['max_p']}"
+               if name == "flash_attention"
+               else f"exactly up to P={r['max_p']}")
         log(f"[kernel] {card}: {name}: {r['cases']} cases, kernel == plain "
-            f"version exactly up to P={r['max_p']} (max abs err "
-            f"{r['max_abs_err']}) in {r['s']:.1f} s")
+            f"version {how} (max abs err {r['max_abs_err']}) in "
+            f"{r['s']:.1f} s")
 
     ctx, mp = phase_main_path(args.seed, args.batches, card, dev)
     t0 = time.perf_counter()
     pq = phase_per_query(ctx, card, dev)
     log(f"[per-query] {card}: phase 4 took {time.perf_counter() - t0:.1f} s")
     del ctx
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = phase_lm(args.seed, card, dev)
+    log(f"[lm] {card}: phase 5 took {time.perf_counter() - t0:.1f} s")
+    found = {**mp["kernels"], **pq["kernels"], **lm["kernels"]}
     log(f"[done] {card}: {time.perf_counter() - t_start:.1f} s in all")
 
     rows = []
     for name, (path, _stage, replaces) in KERNELS.items():
-        k = (pq["kernels"][name] if path == PER_QUERY
-             else mp["kernels"][path])
+        k = found[path if path in MAIN_KERNELS else name]
         rows.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1491,6 +2039,7 @@ def main() -> int:
         Path(args.json).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, build_s=build_s,
                  kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
+                 lm_serving=lm,
                  **kernels), indent=1))
     log(card)
     log(json.dumps(kernels))

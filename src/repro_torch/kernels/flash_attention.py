@@ -1,0 +1,63 @@
+"""Forward softmax attention (flash) over ``[BH, S, D]``.
+
+``flash_attention(q, k, v, causal)`` computes, for q [BH, Sq, D] and k, v
+[BH, Sk, D] in f32 or bf16, softmax(q k^T * D ** -0.5) v with f32 scores,
+running max, sum and accumulator, and returns q's dtype.  Under ``causal``
+key j is kept for query i iff ``j <= i``, with no offset, for any Sq and
+Sk; masked scores are -1e30, and the normaliser has a floor of 1e-30, as
+in the JAX package's Pallas kernel (``src/repro/kernels/flash_attention.py``).
+The model's prefill reaches it through ``models.layers.chunked_attention``.
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+``csrc/flash_attention.cu`` (built at first use, see ``build.py``); on a CPU
+tensor it runs the plain PyTorch version (``ref.flash_attention_ref``).
+There is no fallback between the two: a CUDA input either launches the
+kernel or raises ``KernelError``, as does any input the kernel does not
+take (another dtype, a head dim above 256).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .build import KernelError, check_tensor
+from .ref import flash_attention_ref
+
+KERNEL = "flash_attention"
+MAX_HEAD_DIM = 256          # the kernel's shared-memory tiles are sized for it
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention(
+    q: torch.Tensor,         # [BH, Sq, D]
+    k: torch.Tensor,         # [BH, Sk, D]
+    v: torch.Tensor,         # [BH, Sk, D]
+    causal: bool = True,
+) -> torch.Tensor:
+    """Returns o [BH, Sq, D] in q's dtype on q's device."""
+    if q.dim() != 3 or k.dim() != 3:
+        raise KernelError("q must be [BH, Sq, D] and k, v [BH, Sk, D]")
+    BH, Sq, D = q.shape
+    Sk = int(k.shape[1])
+    dev = q.device
+    if q.dtype not in DTYPES:
+        raise KernelError(f"q must be one of {DTYPES}, got {q.dtype}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise KernelError(f"head dim {D} outside [1, {MAX_HEAD_DIM}]")
+    for name, t, shape in (("q", q, (BH, Sq, D)), ("k", k, (BH, Sk, D)),
+                           ("v", v, (BH, Sk, D))):
+        check_tensor(name, t, q.dtype, shape, dev)
+    if not build.runs_kernel(dev):
+        return flash_attention_ref(q, k, v, causal=causal)
+    o = torch.empty_like(q)
+    if BH == 0 or Sq == 0:
+        return o                        # nothing to launch
+    build.launch(KERNEL, dev, q, k, v, o, BH, Sq, Sk, D, int(bool(causal)),
+                 int(q.dtype == torch.bfloat16), float(D) ** -0.5)
+    flash_attention.launches += 1
+    return o
+
+
+# launches of the CUDA kernel (CPU calls of the plain version not counted)
+flash_attention.launches = 0

@@ -44,6 +44,10 @@ planes; each raises on the other device.  The host rung
 also takes ``prefix``, the plain prefix-merge formulation on either
 device (the JAX package has no Pallas kernel for it).
 
+LM serving: ``flash_attention`` (``kernels/flash_attention.py``) is the
+attention of the model's prefill, reached through
+``models.layers.chunked_attention`` with q, k, v as [B*H, S, D].
+
 All f32 downcasts go through ``core.device_stats`` (widening + demotion;
 see its precision contract).  Integral columns (int / dictionary codes)
 get their query bounds snapped to integers first, so the f32 path stays
@@ -65,6 +69,7 @@ from ..core.metadata import PartitionStats
 from ..core.prune_join import BLOCK_WORDS
 from .bloom_probe import bloom_probe_batched
 from .build import KernelError, load_all
+from .flash_attention import flash_attention
 from .join_overlap import join_overlap, join_overlap_batched
 from .minmax_prune import minmax_prune
 from .minmax_prune_batched import minmax_prune_batched
@@ -72,10 +77,11 @@ from .ref import topk_boundary_prefix_ref
 from .topk_boundary import topk_boundary, topk_init_batched
 
 # the port's kernels (csrc/<name>.cu): the batched ones in the order of
-# the pipeline's stages, then the per-query ones
+# the pipeline's stages, then the per-query ones, then the LM prefill's
 KERNELS = ("minmax_prune_batched", "join_overlap_batched",
            "bloom_probe_batched", "topk_init_batched",
-           "minmax_prune", "join_overlap", "topk_boundary")
+           "minmax_prune", "join_overlap", "topk_boundary",
+           "flash_attention")
 
 MODES = ("auto", "cuda", "torch")
 TOPK_MODES = MODES + ("prefix",)

@@ -352,3 +352,20 @@ def topk_boundary_prefix_ref(rows, b_init: float) -> tuple:
                         torch.where(heap_full, h_kth, float("-inf")))
     skip = (bm < eff) | (heap_full & (bm <= h_kth))
     return skip.to(torch.int32), inc[-1].clone()
+
+
+def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Softmax attention over q [BH, Sq, D] and k, v [BH, Sk, D] in f32,
+    as the JAX package's ``ref.flash_attention_ref``: scale ``D ** -0.5``,
+    under ``causal`` key j is kept for query i iff ``j <= i`` (no offset),
+    masked scores are -1e30; the output has q's dtype.  It holds the whole
+    [BH, Sq, Sk] score tensor: a caller at long S runs it in blocks."""
+    D = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (D ** -0.5)
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        mask = (torch.arange(Sk, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = torch.where(mask[None], s, torch.tensor(-1e30, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)

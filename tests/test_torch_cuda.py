@@ -563,3 +563,124 @@ def test_per_query_ops_on_card_equal_cpu(cuda):
     assert (ops.minmax_prune.launches - launches[0] == 8
             and ops.join_overlap.launches - launches[1] == 8
             and ops.topk_boundary.launches - launches[2] == 1)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (the LM prefill): f32 and bf16, held to the JAX package's
+# bounds (2e-5 f32, 2e-2 bf16, rtol and atol): f32 sums in another order
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,D,causal", [
+    (1, 1, 1, 8, True), (3, 7, 7, 16, True), (2, 130, 130, 32, True),
+    (1, 256, 256, 64, True), (3, 128, 128, 128, True), (2, 130, 130, 256, True),
+    (3, 1, 2048, 128, False), (2, 130, 7, 64, False), (1, 256, 130, 256, False),
+    (4, 2048, 2048, 128, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_equals_plain_version(cuda, BH, Sq, Sk, D, causal,
+                                              dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(BH + Sq + Sk + D)
+    q, k, v = (torch.randn((BH, S, D), generator=gen, device=cuda).to(dtype)
+               for S in (Sq, Sk, Sk))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (BH, Sq, D)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_launch_failure_raises(cuda, monkeypatch):
+    from repro_torch.kernels.flash_attention import flash_attention
+    monkeypatch.setattr(build, "entry", lambda _name: lambda *_a: 1)
+    q = torch.zeros((2, 8, 64), device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(KernelError, match="cudaError 1"):
+        flash_attention(q, q, q)
+    assert flash_attention.launches == before
+    with pytest.raises(KernelError, match="head dim"):
+        flash_attention(*(torch.zeros((1, 4, 512), device=cuda),) * 3)
+
+
+def recording(model, logits, forced=None):
+    """``model`` with its prefill and decode steps appending the logits
+    they return to the list ``logits``; with ``forced`` [B, steps], decode
+    step i is fed ``forced[:, i]`` in place of the caller's token (teacher
+    forcing)."""
+    fed = []
+
+    def prefill(params, batch, max_seq):
+        out, cache = model.prefill_fn(params, batch, max_seq)
+        logits.append(out)
+        return out, cache
+
+    def decode(params, cache, tok, position):
+        if forced is not None:
+            tok = torch.as_tensor(np.asarray(forced)[:, len(fed):len(fed) + 1],
+                                  device=tok.device)
+            fed.append(tok)
+        out, cache = model.decode_fn(params, cache, tok, position)
+        logits.append(out)
+        return out, cache
+
+    return model._replace(prefill_fn=prefill, decode_fn=decode)
+
+
+def recording_batcher(model, params, **kw):
+    """A ``ContinuousBatcher`` and a dict that its model fills with, for
+    each request id, the logits [V] that chose each of its tokens: the k-th
+    prefill is request k (ids count up from 0 at submit and the queue is
+    first in, first out), and row s of a decode step is the request that
+    held slot s when the step ran."""
+    from repro_torch.serve.batcher import ContinuousBatcher
+    seen = {}
+
+    def prefill(params, batch, max_seq):
+        out, kv = model.prefill_fn(params, batch, max_seq)
+        seen[len(seen)] = [out[0]]
+        return out, kv
+
+    def decode(params, cache, tok, position):
+        out, cache = model.decode_fn(params, cache, tok, position)
+        for slot, req in enumerate(batcher.slot_req):
+            if req is not None:
+                seen[req.rid].append(out[slot])
+        return out, cache
+
+    batcher = ContinuousBatcher(
+        model._replace(prefill_fn=prefill, decode_fn=decode), params, **kw)
+    return batcher, seen
+
+
+def test_served_path_reaches_the_kernel_and_equals_cpu(cuda):
+    """The glm4 smoke model's prefill and decode on the card launch the
+    flash kernel once a layer per prefill and agree with the CPU run
+    (bf16: 2e-2 of max |logit|)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import init_params, tree_map
+    from repro_torch.serve.serve_step import Generator
+    cfg = get_smoke_config("glm4-9b")
+    cpu_model = build_model(cfg, device="cpu")
+    params = init_params(cpu_model.specs, torch.Generator().manual_seed(0),
+                         "cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))
+    want = []
+    want_toks = Generator(recording(cpu_model, want), params, max_seq=48,
+                          device="cpu").generate(prompts, steps=6)
+    got = []
+    before = flash_attention.launches
+    Generator(recording(build_model(cfg, device=cuda), got, forced=want_toks),
+              tree_map(lambda t: t.to(cuda), params), max_seq=48,
+              device=cuda).generate(prompts, steps=6)
+    assert flash_attention.launches == before + cfg.n_layers
+    want, got = torch.stack(want, dim=1), torch.stack(got, dim=1).cpu()
+    err = (got - want).abs().max() / want.abs().max()
+    assert float(err) <= 2e-2

@@ -1,0 +1,232 @@
+"""The port's dense decoder against the JAX package's, on the CPU.
+
+The JAX package's ``init_params(PRNGKey(0))`` is carried over with
+``convert.params_from_numpy``; both packages then run the same prefill and
+three teacher-forced decode steps on the same numpy-seeded tokens, at the
+four dense smoke configs (llama; qwen with ``qkv_bias``; glm4 with kv = 2;
+gemma with ``geglu``, tied embeddings and ``head_dim``).
+
+Tolerances, relative to max |logit|.  f32 (the parameters cast): 1e-4;
+the two packages differ only in the order of f32 sums.  bf16: 2e-2, the
+JAX package's own bf16 bound for attention
+(``tests/test_flash_attention.py``): the packages round products and
+activations to bf16 at the same places, but the f32 sums under them run
+in other orders, and a value near a rounding edge can land on the
+neighbouring bf16 value.  The cache is bf16 in both dtypes, so an element
+may land one bf16 step (2**-8 of it) away in f32 too: it is compared at
+2**-8 of its largest magnitude in f32, 2e-2 in bf16.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_smoke_config as r_smoke
+from repro.models import build_model as r_build
+from repro.models import layers as RL
+from repro.models.sharding import init_params as r_init
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import build_model
+from repro_torch.models import layers as TL
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.model import NOT_PORTED
+
+torch.set_num_threads(1)
+
+DENSE = ["llama3.2-3b", "qwen1.5-4b", "glm4-9b", "gemma-7b"]
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"f32": 1e-4, "bf16": 2e-2}          # relative to max |logit|
+CACHE_TOL = {"f32": 2.0 ** -8, "bf16": 2e-2}
+MAX_SEQ = 32
+
+
+def _rel_err(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _both(arch, dtype):
+    """(cfg, JAX model, JAX params, port model, port params) in ``dtype``."""
+    jdt, tdt = DTYPES[dtype]
+    rcfg = r_smoke(arch)
+    rmodel = r_build(rcfg)
+    rparams = r_init(rmodel.specs, jax.random.PRNGKey(0))
+    rparams = jax.tree.map(lambda a: a.astype(jdt), rparams)
+    tmodel = build_model(get_smoke_config(arch), device="cpu")
+    tparams = params_from_numpy(jax.tree.map(np.asarray, rparams), "cpu",
+                                dtype=tdt)
+    return rcfg, rmodel, rparams, tmodel, tparams
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_match_jax(arch, dtype):
+    cfg, rmodel, rparams, tmodel, tparams = _both(arch, dtype)
+    rng = np.random.default_rng(7)
+    B, S, steps = 2, 11, 3
+    tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab, (B, steps)).astype(np.int32)
+    tol = TOL[dtype]
+
+    r_logits, r_cache = rmodel.prefill_fn(rparams, {"tokens": jnp.asarray(tokens)},
+                                          MAX_SEQ)
+    t_logits, t_cache = tmodel.prefill_fn(tparams, {"tokens": tokens}, MAX_SEQ)
+    assert t_logits.dtype == torch.float32
+    assert _rel_err(t_logits, r_logits) <= tol
+    for name in ("k", "v"):
+        assert t_cache[name].dtype == torch.bfloat16
+        assert tuple(t_cache[name].shape) == tuple(r_cache[name].shape)
+        assert _rel_err(t_cache[name].float(),
+                        np.asarray(r_cache[name], np.float32)) <= CACHE_TOL[dtype]
+
+    for i in range(steps):
+        pos = np.full((B,), S + i, np.int32)
+        tok = forced[:, i:i + 1]
+        r_logits, r_cache = rmodel.decode_fn(rparams, r_cache, jnp.asarray(tok),
+                                             jnp.asarray(pos))
+        t_logits, t_cache = tmodel.decode_fn(tparams, t_cache, tok, pos)
+        assert _rel_err(t_logits, r_logits) <= tol, f"step {i}"
+    for name in ("k", "v"):
+        assert _rel_err(t_cache[name].float(),
+                        np.asarray(r_cache[name], np.float32)) <= CACHE_TOL[dtype]
+
+
+def test_padded_vocab_rows_are_masked():
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-3b"), pad_vocab_to=96)
+    assert cfg.padded_vocab == 288
+    model = build_model(cfg, device="cpu")
+    from repro_torch.models.sharding import init_params
+    params = init_params(model.specs, torch.Generator().manual_seed(0), "cpu")
+    logits, _ = model.prefill_fn(params, {"tokens": np.zeros((1, 3), np.int64)},
+                                 8)
+    assert logits.shape == (1, 288)
+    assert bool((logits[:, cfg.vocab:] == -1e30).all())
+    assert bool((logits[:, :cfg.vocab] > -1e29).all())
+
+
+def test_params_from_numpy_is_exact_for_bf16():
+    rcfg = r_smoke("glm4-9b")
+    rparams = r_init(r_build(rcfg).specs, jax.random.PRNGKey(3))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, rparams), "cpu")
+    leaves = jax.tree_util.tree_leaves_with_path(rparams)
+    for path, leaf in leaves:
+        t = tparams
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == torch.bfloat16
+        back = jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        assert bool(jnp.array_equal(back, leaf)), path
+
+
+@pytest.mark.parametrize("family_arch", ["qwen3-moe-30b-a3b", "mamba2-1.3b",
+                                         "zamba2-2.7b", "whisper-small",
+                                         "llava-next-34b"])
+def test_other_families_are_not_ported(family_arch):
+    cfg = get_smoke_config(family_arch)
+    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+        build_model(cfg, device="cpu")
+
+
+def test_loss_is_not_ported():
+    model = build_model(get_smoke_config("llama3.2-3b"), device="cpu")
+    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+        model.loss_fn({}, {})
+
+
+# ---------------------------------------------------------------------------
+# layers, one by one (f32 unless named)
+# ---------------------------------------------------------------------------
+
+def _pair(rng, shape, dtype=np.float32):
+    a = rng.normal(size=shape).astype(np.float32)
+    return jnp.asarray(a).astype(dtype), torch.from_numpy(a)
+
+
+def test_rmsnorm():
+    rng = np.random.default_rng(0)
+    jx, tx = _pair(rng, (2, 5, 64))
+    jw, tw = _pair(rng, (64,))
+    for jdt, tdt, tol in ((jnp.float32, torch.float32, 1e-6),
+                          (jnp.bfloat16, torch.bfloat16, 2e-2)):
+        got = TL.rmsnorm(tx.to(tdt), tw.to(tdt))
+        assert got.dtype == tdt
+        assert _rel_err(got.float(), RL.rmsnorm(jx.astype(jdt), jw.astype(jdt))
+                        .astype(jnp.float32)) <= tol
+
+
+def test_rope():
+    rng = np.random.default_rng(1)
+    jx, tx = _pair(rng, (2, 9, 4, 32))
+    pos = rng.integers(0, 4000, (2, 9)).astype(np.int32)
+    want = RL.rope(jx, jnp.asarray(pos), 500_000.0)
+    got = TL.rope(tx, torch.from_numpy(pos), 500_000.0)
+    assert _rel_err(got, want) <= 1e-5
+    gotb = TL.rope(tx.bfloat16(), torch.from_numpy(pos), 10_000.0)
+    assert gotb.dtype == torch.bfloat16
+    wantb = RL.rope(jx.astype(jnp.bfloat16), jnp.asarray(pos), 10_000.0)
+    assert _rel_err(gotb.float(), wantb.astype(jnp.float32)) <= 2e-2
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma-7b"])
+def test_mlp_both_activations(arch):
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(2)
+    jx, tx = _pair(rng, (2, 5, cfg.d_model))
+    jp, tp = {}, {}
+    for name, shape in (("wg", (cfg.d_model, cfg.d_ff)),
+                        ("wu", (cfg.d_model, cfg.d_ff)),
+                        ("wd", (cfg.d_ff, cfg.d_model))):
+        jp[name], tp[name] = _pair(rng, shape)
+    assert cfg.activation == ("geglu" if arch == "gemma-7b" else "swiglu")
+    assert _rel_err(TL.mlp(tp, tx, cfg), RL.mlp(jp, jx, r_smoke(arch))) <= 1e-5
+
+
+def test_expand_kv_matches_jnp_repeat():
+    rng = np.random.default_rng(3)
+    jk, tk = _pair(rng, (2, 6, 2, 8))
+    got = TL._expand_kv(tk, 8)
+    want = RL._expand_kv(jk, 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # head h reads KV head h // 4 (not h % 2, which Tensor.repeat would give)
+    np.testing.assert_array_equal(got[:, :, 3].numpy(), tk[:, :, 0].numpy())
+    np.testing.assert_array_equal(got[:, :, 4].numpy(), tk[:, :, 1].numpy())
+    assert TL._expand_kv(tk, 2) is tk
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen1.5-4b"])
+def test_decode_attention(arch):
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(4)
+    B, S = 3, 16
+    H, KV, Dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    jp, tp = {}, {}
+    for name, shape in (("wq", (d, H, Dh)), ("wk", (d, KV, Dh)),
+                        ("wv", (d, KV, Dh)), ("wo", (H, Dh, d)),
+                        ("bq", (H, Dh)), ("bk", (KV, Dh)), ("bv", (KV, Dh))):
+        jp[name], tp[name] = _pair(rng, shape)
+        tp[name] = tp[name] * 0.1
+        jp[name] = jp[name] * 0.1
+    jx, tx = _pair(rng, (B, 1, d))
+    ck = rng.normal(size=(B, S, KV, Dh)).astype(np.float32)
+    cv = rng.normal(size=(B, S, KV, Dh)).astype(np.float32)
+    position = np.array([0, 7, S - 1], np.int32)
+    jo, jck, jcv = RL.decode_attention(
+        jp, jx, r_smoke(arch), jnp.asarray(ck).astype(jnp.bfloat16),
+        jnp.asarray(cv).astype(jnp.bfloat16), jnp.asarray(position))
+    tck = torch.from_numpy(ck).bfloat16()
+    tcv = torch.from_numpy(cv).bfloat16()
+    to, tck2, tcv2 = TL.decode_attention(tp, tx, cfg, tck, tcv,
+                                         torch.from_numpy(position))
+    assert tck2 is tck and tcv2 is tcv        # written in place
+    assert _rel_err(to, jo) <= 2e-3
+    np.testing.assert_array_equal(tck.float().numpy(),
+                                  np.asarray(jck, np.float32))
+    np.testing.assert_array_equal(tcv.float().numpy(),
+                                  np.asarray(jcv, np.float32))
