@@ -7,7 +7,11 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
 
   1. environment: torch version, the card's name and power limit, and the
      build of all eight CUDA kernels from ``src/repro_torch/kernels/csrc``
-     (one ``nvcc`` per source, all started together);
+     (one ``nvcc`` per source, all started together), with ptxas's
+     registers and spills for ``flash_attention``'s and
+     ``topk_init_batched``'s kernel functions and the count of tensor-core
+     instructions (HMMA, HGMMA) in ``flash_attention``'s SASS, which must
+     not be 0;
   2. each kernel vs its plain version on the card, on
      the same inputs: exact equality of every output for the pruning
      kernels, the JAX package's bounds for ``flash_attention`` (rtol =
@@ -24,7 +28,10 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
          of 1, 8, 256 and 1024 blocks;
        * ``topk_init_batched`` with k in {1, 3, 64, 128}, queries with no
          candidate, ties, all -inf rows and candidate lists long enough to
-         need many slabs;
+         need many slabs; at k in {1, 2, 17, 100, 127, 128} every row head
+         equal, every value equal, mostly all -inf rows, all but one query
+         empty, lists that repeat ids, rows of at most 2 values, both
+         signed zeros; and 70,000 queries (past a grid's 65,535 in y);
        * the per-query kernels at P in {1, 7, 2047, 2048, 2049, 2**20,
          2**21}: ``minmax_prune`` with K in {1, 3} and, at the small P,
          {2049, 8192} (past its shared tile), empty intervals, bounds on a
@@ -36,9 +43,11 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
          rows, with and without an upfront boundary; P up to 2**21
          throughout;
        * ``flash_attention`` in f32 and bf16 at every head dim D in {8,
-         16, 32, 64, 128, 256}: Sq = Sk in {1, 7, 128, 130, 256} with and
-         without causal, Sk != Sq without it (up to 2048), 2048 causal,
-         and BH = 128 at 2048 causal for D in {128, 256};
+         16, 32, 64, 72, 100, 128, 200, 256}: Sq = Sk in {1, 7, 128, 130,
+         256} with and without causal, Sk != Sq without it (up to 2048)
+         and with it (130 x 300, 300 x 130), 2048 causal, BH = 128 at 2048
+         causal for D in {128, 256}, and views at an odd element offset
+         (a data_ptr off 16 bytes: the element-load path);
   3. the main path at full size: ``PruningService.run_batch`` over the
      production-like events table (2**24 rows in 1,048,576
      micro-partitions, 6 columns), a 600-row users dimension table and a
@@ -55,7 +64,8 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      init exactly for the join + ORDER BY queries.  Then the split of one
      batch's time by stage, with each kernel timed at the main path's
      shapes beside its plain version and, where one exists, a PyTorch
-     library call computing the same function.
+     library call computing the same function (top-k: and its bound with
+     each gathered row head a 32-byte sector).
   4. the per-query path of ``ops`` on phase 3's events table, with the
      three per-query kernels' launch counts set to 0 just before and read
      just after: each of the 128 filter-only queries through
@@ -92,8 +102,8 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      recorded by a model whose steps wrap the real ones, on the timed
      runs.  Then the prefill and decode times and
      tokens/s, the batcher's requests/s, weight, cache and peak bytes, and
-     the kernel at the prefill shape beside its bound, its plain version
-     and SDPA.
+     the kernel (its template and TFLOP/s) at the prefill shape beside its
+     bound, its plain version and SDPA.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -225,6 +235,60 @@ def require_equal(name: str, got, want, where: str) -> float:
         raise SystemExit(f"{name} kernel != plain version at {where}: "
                          f"max abs err {err}")
     return err
+
+
+def short_name(mangled: str) -> str:
+    """``flash_tc_kernel<128>`` from a kernel's mangled name in the
+    anonymous namespace of its source file."""
+    import re
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
+    if not m:
+        return mangled
+    n, rest = int(m.group(1)), m.group(2)
+    t = re.match(r"ILi(\d+)E", rest[n:])
+    return rest[:n] + (f"<{t.group(1)}>" if t else "")
+
+
+def build_report(card: str) -> dict:
+    """Phase 1's look at what was built: each kernel function's registers
+    and spill bytes as ptxas reported them, and the tensor-core
+    instructions in ``flash_attention``'s SASS (HMMA: mma.sync, HGMMA:
+    wgmma; ``cuobjdump -sass``), which must be more than none."""
+    import re
+
+    from repro_torch.kernels import build, ops
+
+    out = {}
+    for name in ops.KERNELS:
+        fns, cur = {}, None
+        for line in build.ptxas_log(name).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = fns.setdefault(short_name(m.group(1)), {})
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and cur is not None:
+                cur["spill_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        out[name] = fns
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    hmma = len(re.findall(r"\bHMMA\b", sass))
+    hgmma = len(re.findall(r"\bHGMMA\b", sass))
+    log(f"[env] {card}: flash_attention SASS: {hmma} HMMA (mma.sync), "
+        f"{hgmma} HGMMA (wgmma); ptxas: " + "; ".join(
+            f"{fn} {r.get('registers')} registers, {r.get('spill_bytes')} "
+            f"bytes spilled" for fn, r in out["flash_attention"].items()))
+    log(f"[env] {card}: topk_init_batched ptxas: " + "; ".join(
+        f"{fn} {r.get('registers')} registers, {r.get('spill_bytes')} "
+        f"bytes spilled" for fn, r in out["topk_init_batched"].items()))
+    if hmma + hgmma == 0:
+        raise SystemExit("flash_attention's SASS holds no tensor-core "
+                         "instruction")
+    return dict(ptxas=out, flash_hmma=hmma, flash_hgmma=hgmma)
 
 
 # ---------------------------------------------------------------------------
@@ -401,45 +465,106 @@ def bloom_cases(rng, dev, sizes, limit: int = 64) -> dict:
     return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
 
 
-def topk_cases(rng, dev, sizes, K: int = 64) -> dict:
+def topk_plane(rng, dev, P: int, K: int, edge: str = "random"):
+    """A [P, K] block-top-k plane on ``dev``, rows sorted descending and
+    each cut to its own count, -inf padded, 10% all -inf: small integers
+    (ties) or, at an ``edge``, every row head 7 ("equal_heads"), every
+    value 3 ("equal_values"), 80% all -inf rows ("neg_inf_rows"), at most
+    2 values a row ("few_values") or values of both signed zeros and +-1
+    ("signed_zeros")."""
     import torch
 
-    from repro_torch.core.device_stats import plane_capacity
+    if edge == "signed_zeros":
+        pick = np.array([0.0, -0.0, 1.0, -1.0], np.float32)
+        vals = torch.from_numpy(pick[rng.integers(0, 4, (P, K))]).to(dev)
+    else:
+        vals = torch.from_numpy(rng.integers(-60, 60, (P, K)).astype(
+            np.float32)).to(dev)
+    if edge == "equal_values":
+        vals.fill_(3.0)
+    plane = torch.sort(vals, dim=1, descending=True).values
+    if edge == "equal_heads":
+        plane = torch.minimum(plane, torch.tensor(6.0, device=dev))
+        plane[:, 0] = 7.0
+    n = rng.integers(0, K + 1, P)
+    n[rng.random(P) < (0.8 if edge == "neg_inf_rows" else 0.1)] = 0
+    if edge == "few_values":
+        n = np.minimum(n, 2)
+    cut = torch.arange(K, device=dev)[None, :] >= \
+        torch.from_numpy(n).to(dev)[:, None]
+    plane[cut] = float("-inf")
+    return plane
+
+
+TOPK_EDGES = ("equal_heads", "equal_values", "neg_inf_rows", "empty",
+              "duplicates", "few_values", "signed_zeros")
+
+
+def topk_check(plane, lists, ks, dev, where: str) -> int:
+    """``topk_init_batched`` on the card against its plain version, for
+    each k of ``ks``; returns the number of cases."""
+    import torch
+
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import topk_init_batched_ref
     from repro_torch.kernels.topk_boundary import topk_init_batched
 
+    offsets, ids = (torch.from_numpy(a).to(dev)
+                    for a in ops.pack_candidates(lists))
+    for k in ks:
+        got = topk_init_batched(plane, offsets, ids, k)
+        sync(dev)
+        want = topk_init_batched_ref(plane, offsets, ids, k)
+        require_equal("topk_init_batched", got, want,
+                      f"{where} Q={len(lists)} k={k} P={plane.shape[0]} "
+                      f"nnz={int(ids.numel())}")
+    return len(ks)
+
+
+def topk_cases(rng, dev, sizes, K: int = 64) -> dict:
+    """``topk_init_batched``: planes of small integers (ties, all -inf
+    rows) with 6 or 48 queries (one empty, one of every row, the rest
+    random subsets, long enough at P = 2**21 for many slabs) at k in {1,
+    3, 64, 128}; each of ``TOPK_EDGES`` at P = 4097 (lists that repeat
+    ids, all but one query empty) at k in {1, 2, 17, 100, 127, 128}; and
+    70,000 queries of at most 3 candidates (more than a grid's 65,535 in
+    y)."""
+    from repro_torch.core.device_stats import plane_capacity
+
     cases, max_p = 0, 0
     for P in sizes:
-        cap = plane_capacity(P)
-        # rows of small integers (ties), sorted descending on the card,
-        # each cut to its own count and -inf padded; 10% all -inf
-        vals = torch.from_numpy(rng.integers(-60, 60, (cap, K)).astype(
-            np.float32)).to(dev)
-        plane = torch.sort(vals, dim=1, descending=True).values
-        n = rng.integers(0, K + 1, cap)
-        n[rng.random(cap) < 0.1] = 0
-        n[P:] = 0
-        cut = torch.arange(K, device=dev)[None, :] >= \
-            torch.from_numpy(n).to(dev)[:, None]
-        plane[cut] = float("-inf")
-        del vals, cut
+        plane = topk_plane(rng, dev, plane_capacity(P), K)
+        plane[P:] = float("-inf")
         Q = 48 if P > 4096 else 6
         lists = [np.zeros(0, dtype=np.int32), np.arange(P, dtype=np.int32)]
         for _ in range(Q - 2):
             keep = rng.random(P) < rng.choice([0.001, 0.05, 0.5])
             lists.append(np.nonzero(keep)[0].astype(np.int32))
-        offsets, ids = (torch.from_numpy(a).to(dev)
-                        for a in ops.pack_candidates(lists))
-        for k in (1, 3, 64, 128):
-            got = topk_init_batched(plane, offsets, ids, k)
-            sync(dev)
-            want = topk_init_batched_ref(plane, offsets, ids, k)
-            require_equal("topk_init_batched", got, want,
-                          f"Q={Q} k={k} P={P} nnz={int(ids.numel())}")
-            max_p = max(max_p, P)
-            cases += 1
+        cases += topk_check(plane, lists, (1, 3, 64, 128), dev, "random")
+        max_p = max(max_p, P)
         del plane
+    P = 4097
+    for edge in TOPK_EDGES:
+        plane = topk_plane(rng, dev, P, K, edge)
+        lists = [np.zeros(0, dtype=np.int32), np.arange(P, dtype=np.int32)]
+        for _ in range(6):
+            if edge == "empty":
+                ids = np.zeros(0, dtype=np.int64)
+            elif edge == "duplicates":
+                ids = rng.integers(0, P, int(rng.integers(1, 3 * P)))
+            else:
+                ids = np.nonzero(rng.random(P) < rng.choice([0.01, 0.3,
+                                                             0.9]))[0]
+            lists.append(ids.astype(np.int32))
+        if edge == "empty":
+            lists[1] = lists[1][:0]
+            lists[-1] = np.arange(0, P, 3, dtype=np.int32)
+        cases += topk_check(plane, lists, (1, 2, 17, 100, 127, 128), dev,
+                            edge)
+    plane = topk_plane(rng, dev, P, K)
+    lists = [rng.integers(0, P, int(rng.integers(0, 4))).astype(np.int32)
+             for _ in range(70_000)]
+    cases += topk_check(plane, lists, (1, 5), dev, "many queries")
     return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
 
 
@@ -616,9 +741,11 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 def flash_cases(rng, dev, sizes) -> dict:
     """``flash_attention``, f32 and bf16, every head dim D in ``sizes``:
     BH = 3 at Sq = Sk in {1, 7, 128, 130, 256}, with and without causal;
-    Sk != Sq without causal (1 x 2048, 7 x 130, 130 x 7, 256 x 1, 128 x
-    256, 2048 x 130); BH = 1 at Sq = Sk = 2048 causal; BH = 128 at 2048
-    causal for D in {128, 256}, the serving prefill's shape."""
+    Sk != Sq without it (1 x 2048, 7 x 130, 130 x 7, 256 x 1, 128 x 256,
+    2048 x 130) and with it (130 x 300, 300 x 130); BH = 1 at Sq = Sk =
+    2048 causal; BH = 128 at 2048 causal for D in {128, 256}, the serving
+    prefill's shape; and q, k, v that are views at an odd element offset
+    (a data_ptr off 16 bytes) at 130 x 130 causal and 7 x 200."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -628,25 +755,36 @@ def flash_cases(rng, dev, sizes) -> dict:
     gen.manual_seed(int(rng.integers(0, 2 ** 31)))
     grid = []
     for D in sizes:
-        grid += [(3, S, S, c, D) for S in (1, 7, 128, 130, 256)
+        grid += [(3, S, S, c, D, False) for S in (1, 7, 128, 130, 256)
                  for c in (True, False)]
-        grid += [(3, sq, sk, False, D) for sq, sk in (
+        grid += [(3, sq, sk, False, D, False) for sq, sk in (
             (1, 2048), (7, 130), (130, 7), (256, 1), (128, 256), (2048, 130))]
-        grid.append((1, 2048, 2048, True, D))
-        if D >= 128:
-            grid.append((128, 2048, 2048, True, D))
+        grid += [(3, sq, sk, True, D, False) for sq, sk in ((130, 300),
+                                                             (300, 130))]
+        grid.append((1, 2048, 2048, True, D, False))
+        if D in (128, 256):
+            grid.append((128, 2048, 2048, True, D, False))
+        grid += [(2, 130, 130, True, D, True), (2, 7, 200, False, D, True)]
     cases, err = 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dtype).split(".")[1]]
-        for BH, Sq, Sk, causal, D in grid:
-            q, k, v = (torch.randn((BH, S, D), generator=gen, device=dev)
-                       .to(dtype) for S in (Sq, Sk, Sk))
+        for BH, Sq, Sk, causal, D, odd in grid:
+            shapes = [(BH, S, D) for S in (Sq, Sk, Sk)]
+            if odd:     # views one element into their buffers
+                q, k, v = (torch.randn(math.prod(sh) + 1, generator=gen,
+                                       device=dev).to(dtype)[1:].view(sh)
+                           for sh in shapes)
+                assert q.data_ptr() % 16
+            else:
+                q, k, v = (torch.randn(sh, generator=gen, device=dev)
+                           .to(dtype) for sh in shapes)
             got = flash_attention(q, k, v, causal=causal)
             sync(dev)
             want = flash_attention_ref(q, k, v, causal=causal)
             err = max(err, require_close(
                 "flash_attention", got, want, tol,
-                f"BH={BH} Sq={Sq} Sk={Sk} D={D} causal={causal} {dtype}"))
+                f"BH={BH} Sq={Sq} Sk={Sk} D={D} causal={causal} {dtype}"
+                f"{' at an odd offset' if odd else ''}"))
             cases += 1
             del q, k, v, got, want
     return dict(cases=cases, max_abs_err=err, max_p=max(sizes))
@@ -665,7 +803,8 @@ def phase_kernel_vs_plain(seed: int, dev, names=tuple(KERNELS)) -> dict:
             ("minmax_prune", minmax_single_cases, SINGLE_SIZES),
             ("join_overlap", join_single_cases, SINGLE_SIZES),
             ("topk_boundary", topk_scan_cases, SINGLE_SIZES),
-            ("flash_attention", flash_cases, (8, 16, 32, 64, 128, 256))):
+            ("flash_attention", flash_cases,
+             (8, 16, 32, 64, 72, 100, 128, 200, 256))):
         if name not in names:
             continue
         t0 = time.perf_counter()
@@ -1154,6 +1293,8 @@ def stage_split(svc, queries, events, card, dev):
                 Q = int(offsets.numel()) - 1
                 nnz = int(ids.numel())
                 nbytes = 8 * nnz + 8 * (Q + 1) + 4 * Q * k
+                # a gathered head really moves a 32-byte sector
+                sector_bytes = 36 * nnz + 8 * (Q + 1) + 4 * Q * k
                 ops_n = nnz
                 plain = lambda a=a: ref.topk_init_batched_ref(*a)
                 library = topk_library(plane, offsets, ids, k)
@@ -1168,6 +1309,8 @@ def stage_split(svc, queries, events, card, dev):
             if best is None or t_k > best["ms"]:
                 bms, bby = bound(nbytes, ops_n)
                 best = dict(ms=t_k, plain_ms=cuda_ms(plain, 2),
+                            bound_sector_ms=(bound(sector_bytes, ops_n)[0]
+                                             if tech == "topk" else None),
                             library_ms=(None if library is None
                                         else cuda_ms(library, 3)),
                             bound_ms=bms, bound_by=bby, bound_bytes=nbytes,
@@ -1188,10 +1331,13 @@ def stage_split(svc, queries, events, card, dev):
     for tech, k in kern.items():
         lib = ("none" if k["library_ms"] is None
                else f"{k['library_ms']:.3f} ms")
+        sector = ("" if k["bound_sector_ms"] is None else
+                  f"; {k['bound_sector_ms']:.4f} ms with each gathered head "
+                  f"a 32-byte sector")
         log(f"[split] {card}: {tech} kernel at {k['shape']}: {k['ms']:.4f} ms "
             f"vs bound {k['bound_ms']:.4f} ms ({k['bound_by']}: "
-            f"{k['bound_bytes'] / 1e6:.1f} MB, {k['bound_ops']:.3g} ops), "
-            f"plain version {k['plain_ms']:.3f} ms, library {lib}")
+            f"{k['bound_bytes'] / 1e6:.1f} MB, {k['bound_ops']:.3g} ops"
+            f"{sector}), plain version {k['plain_ms']:.3f} ms, library {lib}")
     return split, kern
 
 
@@ -1749,6 +1895,7 @@ def phase_lm(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import template
     from repro_torch.models import build_model
     from repro_torch.models.sharding import init_params, tree_bytes
     from repro_torch.serve.serve_step import Generator
@@ -1865,9 +2012,10 @@ def phase_lm(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
             q4, k4, v4, is_causal=True), 10)
         del qh, kh, vh, q4, k4, v4
     bms, bby, fl_ops = flash_bound(B * H, S, S, Dh, True, 2)
-    log(f"[lm] {card}: (b) flash_attention at each of the {cfg.n_layers} "
-        f"layers' q, k, v of the served prefill [BH={B * H}, S={S}, "
-        f"D={Dh}] bf16 causal: kernel == plain version within "
+    used = template(torch.bfloat16, Dh)
+    log(f"[lm] {card}: (b) flash_attention ({used}) at each of the "
+        f"{cfg.n_layers} layers' q, k, v of the served prefill [BH={B * H}, "
+        f"S={S}, D={Dh}] bf16 causal: kernel == plain version within "
         f"{FLASH_TOL['bfloat16']} (max abs err {max(err_b):.3g}, layer 0 "
         f"{err_b[0]:.3g}); at layer 0's: {k_ms:.3f} ms vs bound "
         f"{bms:.4f} ms ({bby}: {fl_ops:.3g} operations, "
@@ -1972,7 +2120,8 @@ def phase_lm(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
         kernels={"flash_attention": dict(
             ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bms,
             bound_by=bby, max_abs_err=max(err_b),
-            launches=gen_launches + batch_launches,
+            launches=gen_launches + batch_launches, template=used,
+            tflop_s=fl_ops / (k_ms * 1e9),
             shape=dict(BH=B * H, S=S, D=Dh, dtype="bfloat16", causal=True))})
 
 
@@ -1999,6 +2148,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"[env] {card}: {len(ops.KERNELS)} kernels built and loaded "
         f"in {build_s:.2f} s")
+    built = build_report(card)
 
     dev = torch.device("cuda")
     kv = phase_kernel_vs_plain(args.seed, dev)
@@ -2038,7 +2188,7 @@ def main() -> int:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, build_s=build_s,
-                 kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
+                 build=built, kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
                  lm_serving=lm,
                  **kernels), indent=1))
     log(card)

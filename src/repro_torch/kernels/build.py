@@ -9,7 +9,8 @@ source rebuilds and an unchanged one loads from disk.
 
 Flags: ``sm_90a`` for Hopper, ``-O3``, and no ``--use_fast_math`` /
 ``-ftz=true`` — the pruning kernels compare IEEE f32 values, denormals
-included.
+included.  ``-Xptxas -v``: each kernel's registers, shared memory and
+spills, kept beside the library (``ptxas_log``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _entries: Dict[str, Callable] = {}          # name -> bound C entry point
@@ -100,9 +101,15 @@ def _compile(names) -> None:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
         else:
+            out.with_suffix(".ptxas").write_text(log)
             os.replace(tmp, out)         # atomic: a reader never sees half
     if failed:
         raise KernelError("\n".join(failed))
+
+
+def ptxas_log(name: str) -> str:
+    """What ``ptxas -v`` said when ``csrc/<name>.cu`` was built."""
+    return library_path(name).with_suffix(".ptxas").read_text()
 
 
 def load_all(names) -> None:

@@ -9,8 +9,10 @@ in the JAX package's Pallas kernel (``src/repro/kernels/flash_attention.py``).
 The model's prefill reaches it through ``models.layers.chunked_attention``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/flash_attention.cu`` (built at first use, see ``build.py``); on a CPU
-tensor it runs the plain PyTorch version (``ref.flash_attention_ref``).
+``csrc/flash_attention.cu`` (built at first use, see ``build.py``): bf16 on
+the tensor cores (``mma.sync``, P rounded to bf16 before P V), f32 on the
+CUDA cores (``template`` names the one a call runs); on a CPU tensor it
+runs the plain PyTorch version (``ref.flash_attention_ref``).
 There is no fallback between the two: a CUDA input either launches the
 kernel or raises ``KernelError``, as does any input the kernel does not
 take (another dtype, a head dim above 256).
@@ -27,6 +29,18 @@ from .ref import flash_attention_ref
 KERNEL = "flash_attention"
 MAX_HEAD_DIM = 256          # the kernel's shared-memory tiles are sized for it
 DTYPES = (torch.float32, torch.bfloat16)
+# padded head dims of the bf16 tensor-core template and of the f32 one
+TC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
+F32_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def template(dtype: torch.dtype, D: int) -> str:
+    """The kernel template a CUDA call with this dtype and head dim runs,
+    as ``csrc/flash_attention.cu`` dispatches it."""
+    tc = dtype == torch.bfloat16
+    DP = next(p for p in (TC_HEAD_DIMS if tc else F32_HEAD_DIMS) if D <= p)
+    return (f"bf16 tensor cores (mma.sync m16n8k16), DP={DP}" if tc
+            else f"f32 CUDA cores, DP={DP}")
 
 
 def flash_attention(

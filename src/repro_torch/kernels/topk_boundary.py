@@ -34,13 +34,17 @@ from .ref import topk_boundary_ref, topk_init_batched_ref
 
 KERNEL = "topk_init_batched"
 KERNEL_SCAN = "topk_boundary"
-# Largest heap the kernel keeps (its per-thread lists live in shared
-# memory: k * 128 threads * 4 bytes, 64 KB at 128).
+# Largest heap the kernel keeps: its last launch sorts the values above
+# the threshold of at most k - 1 rows, (k - 1) * min(K, k) floats in
+# shared memory (64 KB at 128).
 MAX_K = 128
-# Candidate rows per block the launch aims for; a query's list is cut
-# into at most MAX_SLABS slabs, one block each.
+# Candidate rows per block of the scan passes the launch aims for; a
+# query's list is cut into at most MAX_SLABS slabs, one block each.
 SLAB_ROWS = 4096
-MAX_SLABS = 128
+MAX_SLABS = 4096
+# int32 words of a query's workspace besides its k gathered rows: a
+# 256-bin histogram and 8 words of select state (csrc/topk_init_batched.cu)
+WORK_HEADER = 264
 
 
 def slabs(Q: int, nnz: int) -> int:
@@ -106,11 +110,11 @@ def launch_checked(plane: torch.Tensor, offsets: torch.Tensor,
     heap = torch.empty((Q, k), dtype=torch.float32, device=dev)
     if Q == 0:
         return heap
-    S = slabs(Q, int(ids.shape[0]))
-    scratch = torch.empty((Q, S, k), dtype=torch.float32, device=dev)
-    tickets = torch.zeros(Q, dtype=torch.int32, device=dev)
-    build.launch(KERNEL, dev, plane, offsets, ids, heap, scratch, tickets,
-                 Q, K, k, S)
+    nnz = int(ids.shape[0])
+    keys = torch.empty(nnz, dtype=torch.int32, device=dev)
+    work = torch.zeros((Q, WORK_HEADER + k), dtype=torch.int32, device=dev)
+    build.launch(KERNEL, dev, plane, offsets, ids, heap, keys, work,
+                 Q, K, k, slabs(Q, nnz))
     topk_init_batched.launches += 1
     return heap
 

@@ -55,10 +55,10 @@ from ..core.prune_filter import eval_tv, extract_ranges
 from ..core.prune_join import DEFAULT_ENUM_LIMIT, BuildSummary
 from ..kernels import ops as kops
 from ..kernels.build import KernelError
-# Boundary-init k cap: the kernel keeps per-thread top-k lists in shared
-# memory.  Larger k also gains little from the plane (each partition
-# contributes at most KPLANE=64 witnessed rows); such queries keep the
-# host-only init.
+# Boundary-init k cap: the kernel sorts the values above its threshold of
+# at most k - 1 rows in shared memory.  Larger k also gains little from
+# the plane (each partition contributes at most KPLANE=64 witnessed
+# rows); such queries keep the host-only init.
 from ..kernels.topk_boundary import MAX_K as TOPK_INIT_MAX_K
 from .resilience import (DegradationLadder, new_resilience_counters,
                          resilience_delta, resilience_snapshot)

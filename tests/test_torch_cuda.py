@@ -126,6 +126,46 @@ def topk_inputs(rng, Q, P, cap, K=TD.KPLANE):
     return plane, lists
 
 
+TOPK_EDGES = ("equal_heads", "equal_values", "neg_inf_rows", "empty",
+              "duplicates", "few_values", "signed_zeros")
+
+
+def topk_edge_inputs(rng, edge, P, Q=6, K=TD.KPLANE):
+    """A [P, K] block-top-k plane and Q candidate lists (the first empty,
+    the second all of [0, P)) at one of ``TOPK_EDGES``: every row head
+    equal, every finite value equal, mostly all -inf rows, all but one
+    query empty, lists that repeat ids, rows of at most 2 values (a query
+    holds fewer than k), values of both signed zeros."""
+    plane = np.full((P, K), -np.inf, dtype=np.float32)
+    for p in range(P):
+        n = int(rng.integers(0, K + 1))
+        if edge == "few_values":
+            n = int(rng.integers(0, 3))
+        vals = rng.integers(-60, 60, n).astype(np.float32)
+        if edge == "equal_heads" and n:
+            vals = np.append(np.float32(7.0), np.minimum(vals[1:], 6.0))
+        elif edge == "equal_values":
+            vals[:] = 3.0
+        elif edge == "neg_inf_rows" and rng.random() < 0.8:
+            vals = vals[:0]
+        elif edge == "signed_zeros":
+            vals = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32), n)
+        plane[p, :len(vals)] = -np.sort(-vals)
+    lists = [np.zeros(0, dtype=np.int32), np.arange(P, dtype=np.int32)]
+    for _ in range(Q - 2):
+        if edge == "empty":
+            ids = np.zeros(0, dtype=np.int64)
+        elif edge == "duplicates":
+            ids = rng.integers(0, P, int(rng.integers(1, 3 * P)))
+        else:
+            ids = np.nonzero(rng.random(P) < rng.choice([0.01, 0.3, 0.9]))[0]
+        lists.append(ids.astype(np.int32))
+    if edge == "empty":
+        lists[1] = lists[1][:0]
+        lists[-1] = np.arange(0, P, 3, dtype=np.int32)
+    return plane, lists
+
+
 def range_problem(rng, K, P, edges=False, denormals=False):
     """One conjunction of K ranges over [K, P] pre-gathered stats, as the
     JAX suite draws them (``tests/test_kernels.py`` ``range_problems``:
@@ -326,7 +366,7 @@ def test_bloom_probe_equals_plain_version(cuda, Q, P, n_blocks):
 
 @pytest.mark.parametrize("Q,P,k", [
     (3, 1, 1), (6, 700, 3), (9, 5000, 64), (5, 20_000, 128),
-    # long candidate lists: many slabs per query, merged by the last block
+    # long candidate lists: many slabs per query, one histogram a query
     (3, 600_000, 128),
 ])
 def test_topk_init_equals_plain_version(cuda, Q, P, k):
@@ -594,6 +634,66 @@ def test_flash_attention_equals_plain_version(cuda, BH, Sq, Sk, D, causal,
     want = flash_attention_ref(q, k, v, causal=causal)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("D", [8, 72, 100, 128, 200, 256])
+@pytest.mark.parametrize("BH,Sq,Sk,causal", [
+    (2, 130, 300, True), (2, 300, 130, True), (3, 1, 77, False),
+    (1, 1, 1, True), (2, 65, 65, True), (1, 200, 129, False)])
+@pytest.mark.parametrize("odd", [False, True])
+def test_flash_attention_bf16_template_edges(cuda, D, BH, Sq, Sk, causal,
+                                             odd):
+    """The tensor-core template at head dims padded to a multiple of 16
+    (72, 100, 200 too), Sq != Sk, Sq = 1 and lengths that are not
+    multiples of 64; ``odd`` makes q, k, v views one element into their
+    buffers, so their data_ptr is off 16 bytes (the element-load path)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(D + Sq + Sk)
+    shapes = [(BH, S, D) for S in (Sq, Sk, Sk)]
+    q, k, v = (torch.randn(int(np.prod(sh)) + odd, generator=gen,
+                           device=cuda).bfloat16()[int(odd):].view(sh)
+               for sh in shapes)
+    assert (q.data_ptr() % 16 != 0) == odd
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("edge", TOPK_EDGES)
+@pytest.mark.parametrize("k", [1, 2, 17, 100, 127, 128])
+def test_topk_init_edges_equal_plain_version(cuda, edge, k):
+    """The query-wide threshold under ties (equal heads, equal values,
+    signed zeros), all -inf rows, empty queries, repeated ids and queries
+    with fewer than k values."""
+    rng = np.random.default_rng(TOPK_EDGES.index(edge) * 1000 + k)
+    plane, lists = topk_edge_inputs(rng, edge, 3000)
+    offsets, ids = ops.pack_candidates(lists)
+    args = (torch.from_numpy(plane).to(cuda),
+            torch.from_numpy(offsets).to(cuda), torch.from_numpy(ids).to(cuda))
+    got = topk_init_batched(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, topk_init_batched_ref(*args, k))
+
+
+def test_topk_init_more_queries_than_a_grid_row(cuda):
+    """70,000 queries: more than the 65,535 blocks a grid holds in y."""
+    rng = np.random.default_rng(70)
+    P = 500
+    plane, _ = topk_inputs(rng, 1, P, P)
+    lists = [rng.integers(0, P, int(rng.integers(0, 4))).astype(np.int32)
+             for _ in range(70_000)]
+    offsets, ids = ops.pack_candidates(lists)
+    args = (torch.from_numpy(plane).to(cuda),
+            torch.from_numpy(offsets).to(cuda), torch.from_numpy(ids).to(cuda))
+    got = topk_init_batched(*args, 3)
+    torch.cuda.synchronize()
+    want = topk_init_batched_ref(*(a.cpu() for a in args), 3)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_flash_attention_launch_failure_raises(cuda, monkeypatch):

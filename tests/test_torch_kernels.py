@@ -38,7 +38,8 @@ from repro_torch.kernels.join_overlap import join_overlap_batched
 from repro_torch.kernels.minmax_prune_batched import minmax_prune_batched
 from repro_torch.kernels.topk_boundary import topk_init_batched
 
-from test_torch_cuda import bloom_inputs, join_inputs, topk_inputs
+from test_torch_cuda import (TOPK_EDGES, bloom_inputs, join_inputs,
+                             topk_edge_inputs, topk_inputs)
 
 torch.set_num_threads(1)
 
@@ -418,6 +419,47 @@ def test_topk_service_path_equals_reference(k):
     want = rops.topk_init_batched_device(
         jnp.asarray(plane), _dense_mask(lists, P).T, k, mode="ref")
     np.testing.assert_array_equal(got, want)
+    assert (got[0] == -np.inf).all()            # the query with no candidate
+
+
+def threshold_topk(plane, lists, k):
+    """The argument the card's kernel rests on, in numpy: t is the k-th
+    largest row head of a query's candidates (-inf with fewer than k);
+    only the rows whose head is above t hold values above t, fewer than k
+    of them; the heap is their values above t, descending, then t (each
+    value equal to t is counted, never gathered)."""
+    heap = np.full((len(lists), k), -np.inf, dtype=np.float32)
+    for q, ids in enumerate(lists):
+        heads = plane[ids, 0]
+        t = np.sort(heads)[::-1][k - 1] if len(ids) >= k else np.float32(
+            -np.inf)
+        rows = plane[ids[heads > t]]
+        assert len(rows) < k
+        vals = np.sort(rows[rows > t])[::-1][:k]
+        heap[q] = t
+        heap[q, :len(vals)] = vals
+    return heap
+
+
+@pytest.mark.parametrize("edge", TOPK_EDGES)
+@pytest.mark.parametrize("k", [1, 3, 64, 128])
+def test_topk_threshold_argument_equals_reference(edge, k):
+    """The threshold argument, exactly against the JAX oracle (the CSR
+    lists as its dense [P, Q] mask, which cannot repeat an id) and the
+    port's plain version (which counts a repeated id twice).  Exactly:
+    every value equal, with -0.0 equal to 0.0 (which of the two a sort
+    puts first is not defined, on either side)."""
+    rng = np.random.default_rng(TOPK_EDGES.index(edge) * 1000 + k)
+    P = 150
+    plane, lists = topk_edge_inputs(rng, edge, P)
+    got = threshold_topk(plane, lists, k)
+    offsets, ids = tops.pack_candidates(lists)
+    plain = tref.topk_init_batched_ref(*_t(plane, offsets, ids), k).numpy()
+    np.testing.assert_array_equal(got, plain)
+    if edge != "duplicates":
+        oracle = np.asarray(rref.topk_init_batched_ref(
+            jnp.asarray(plane), jnp.asarray(_dense_mask(lists, P)), k))
+        np.testing.assert_array_equal(got, oracle)
     assert (got[0] == -np.inf).all()            # the query with no candidate
 
 
