@@ -8,24 +8,31 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
   1. environment: torch version, the card's name and power limit, and the
      build of all eight CUDA kernels from ``src/repro_torch/kernels/csrc``
      (one ``nvcc`` per source, all started together), with ptxas's
-     registers and spills for ``flash_attention``'s and
-     ``topk_init_batched``'s kernel functions and the count of tensor-core
-     instructions (HMMA, HGMMA) in ``flash_attention``'s SASS, which must
-     not be 0;
+     registers, spills and static shared memory for the kernel functions
+     of ``flash_attention``, ``topk_init_batched``,
+     ``minmax_prune_batched`` and ``bloom_probe_batched``, and the count
+     of tensor-core instructions (HMMA, HGMMA) in ``flash_attention``'s
+     SASS, which must not be 0;
   2. each kernel vs its plain version on the card, on
      the same inputs: exact equality of every output for the pruning
      kernels, the JAX package's bounds for ``flash_attention`` (rtol =
      atol = 2e-5 in f32, 2e-2 in bf16):
        * ``minmax_prune_batched`` over Q x Kb x C x P grids with drop
          sentinels inside P and in the capacity tail, (-inf, +inf) no-op
-         slots, bounds equal to a stat, denormal bounds and stats, and
-         conjunctions of up to 8192 ranges;
+         slots, bounds equal to a stat, denormal bounds and stats,
+         conjunctions of up to 8192 ranges, P = 1, 3, 15 mod 16,
+         capacities P + 3, planes at storage offsets that differ mod 16
+         bytes, more slots than the kernel's slot tile, more columns than
+         its shared tile and than its column map (C = 1100), and phase
+         3's largest group at P = 2**20 - 1;
        * ``join_overlap_batched`` with +inf key padding, drop and capacity
          sentinels (+f32max, -f32max), keys on a partition's bounds and
          key rows longer than the kernel's shared-memory tile;
        * ``bloom_probe_batched`` with widths 0 and above the enumeration
          limit, negative candidates and both ends of int32, and filters
-         of 1, 8, 256 and 1024 blocks;
+         of 1, 8, 256 and 1024 blocks; at Q in {1, 16, 32, 33, 70} and
+         64 and 256 blocks too, all widths 0, and one partition 20,000
+         wide among narrow ones in a warp;
        * ``topk_init_batched`` with k in {1, 3, 64, 128}, queries with no
          candidate, ties, all -inf rows and candidate lists long enough to
          need many slabs; at k in {1, 2, 17, 100, 127, 128} every row head
@@ -271,6 +278,9 @@ def build_report(card: str) -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m and cur is not None:
                 cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m and cur is not None:
+                cur["static_smem_bytes"] = int(m.group(1))
         out[name] = fns
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run(
@@ -282,9 +292,12 @@ def build_report(card: str) -> dict:
         f"{hgmma} HGMMA (wgmma); ptxas: " + "; ".join(
             f"{fn} {r.get('registers')} registers, {r.get('spill_bytes')} "
             f"bytes spilled" for fn, r in out["flash_attention"].items()))
-    log(f"[env] {card}: topk_init_batched ptxas: " + "; ".join(
-        f"{fn} {r.get('registers')} registers, {r.get('spill_bytes')} "
-        f"bytes spilled" for fn, r in out["topk_init_batched"].items()))
+    for name in ("topk_init_batched", "minmax_prune_batched",
+                 "bloom_probe_batched"):
+        log(f"[env] {card}: {name} ptxas: " + "; ".join(
+            f"{fn} {r.get('registers')} registers, {r.get('spill_bytes')} "
+            f"bytes spilled, {r.get('static_smem_bytes')} bytes static "
+            f"shared" for fn, r in out[name].items()))
     if hmma + hgmma == 0:
         raise SystemExit("flash_attention's SASS holds no tensor-core "
                          "instruction")
@@ -382,7 +395,61 @@ def minmax_cases(rng, dev, sizes) -> dict:
         require_equal("minmax_prune_batched", got, want,
                       f"Q={Q} Kb={Kb} C={C} P={P}")
         cases += 1
+    # the kernel's edges: P = 1, 3, 15 mod 16 (rows of tv that start off
+    # a 4-byte boundary), capacities P + 3 (plane rows off a 16-byte
+    # boundary), more slots than its 1024-slot tile, more referenced
+    # columns than its 4-column shared tile (C = 33) and than its
+    # 1024-column map (C = 1100: every slot read from global memory), and
+    # phase 3's largest group at P = 2**20 - 1
+    for Q, Kb, C, P, cap in ((5, 2, 6, 4097, None), (64, 3, 6, 4099, None),
+                             (300, 2, 33, 4111, None), (7, 4, 6, 4097, 4100),
+                             (40, 8, 33, 2049, 2052), (1100, 1, 6, 1000, None),
+                             (3, 5, 1100, 37, 40),
+                             (176, 2, 6, (1 << 20) - 1, (1 << 20) + 2)):
+        mins, maxs, demote = random_planes(rng, C, P,
+                                           cap or plane_capacity(P))
+        cids, lo, hi = random_constraints(rng, Q, Kb, C, mins, maxs, P)
+        args = [torch.from_numpy(a).to(dev)
+                for a in (cids, lo, hi, mins, maxs, demote)]
+        got = minmax_prune_batched(*args, num_partitions=P)
+        sync(dev)
+        want = minmax_prune_batched_ref(*args, num_partitions=P)
+        require_equal("minmax_prune_batched", got, want,
+                      f"Q={Q} Kb={Kb} C={C} P={P} capacity={mins.shape[1]}")
+        cases += 1
+        del args, got, want
+    # the planes as views of one tensor at storage offsets that differ mod
+    # 16 bytes: mins aligned and maxs not, staged and read from global
+    for Q, Kb, C, P, cap, gaps in ((64, 3, 6, 4096, None, (0, 1, 3)),
+                                   (7, 2, 3, 4096, 4099, (0, 0, 0)),
+                                   (40, 8, 33, 2049, None, (0, 2, 1))):
+        planes = random_planes(rng, C, P, cap or plane_capacity(P))
+        cids, lo, hi = random_constraints(rng, Q, Kb, C, *planes[:2], P)
+        cq = [torch.from_numpy(a).to(dev) for a in (cids, lo, hi)]
+        views = packed_planes(planes, gaps, dev)
+        got = minmax_prune_batched(*cq, *views, num_partitions=P)
+        sync(dev)
+        want = minmax_prune_batched_ref(*cq, *views, num_partitions=P)
+        require_equal("minmax_prune_batched", got, want,
+                      f"Q={Q} Kb={Kb} C={C} P={P} plane gaps {gaps}")
+        cases += 1
     return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+
+
+def packed_planes(planes, gaps, dev):
+    """The three [C, Pc] planes as contiguous views of one flat tensor on
+    ``dev``, plane i starting gaps[i] elements after the end of plane
+    i - 1."""
+    import torch
+    n = planes[0].size
+    flat = torch.empty(sum(gaps) + 3 * n, dtype=torch.float32, device=dev)
+    out, at = [], 0
+    for a, gap in zip(planes, gaps):
+        at += gap
+        out.append(flat[at:at + n].view(a.shape))
+        out[-1].copy_(torch.from_numpy(a))
+        at += n
+    return out
 
 
 def join_cases(rng, dev, sizes) -> dict:
@@ -461,6 +528,40 @@ def bloom_cases(rng, dev, sizes, limit: int = 64) -> dict:
                 require_equal("bloom_probe_batched", got, want,
                               f"Q={Q} blocks={n_blocks} P={P}")
                 max_p = max(max_p, P)
+                cases += 1
+    # the kernel's edges: Q across its 8-, 16- and 32-query chunks, tables
+    # of 1 to 1024 blocks, all widths 0, one very wide partition among
+    # narrow ones in a warp, and the ends of int32
+    P = 4097
+    cap = plane_capacity(P)
+    for Q in (1, 16, 32, 33, 70):
+        for nb in (1, 64, 256, 1024):
+            for edge in ("random", "zero", "wide"):
+                pmin = rng.integers(-3000, 3000, cap).astype(np.int32)
+                width = rng.integers(0, 40, cap).astype(np.int32)
+                width[rng.random(cap) < 0.1] = 0
+                pmin[0], width[0] = np.iinfo(np.int32).min, 7
+                pmin[1], width[1] = np.iinfo(np.int32).max - 9, 10
+                if edge == "zero":
+                    width[:] = 0
+                elif edge == "wide":
+                    width[32:64] = rng.integers(0, 3, 32)
+                    width[45] = 20_000
+                    pmin[45] = -10_000
+                width[P:] = 0
+                blooms = []
+                for _ in range(Q):
+                    b = BlockedBloom(nb * 32)
+                    b.add(rng.integers(-3000, 3000, nb * 32))
+                    blooms.append(b)
+                words = torch.from_numpy(ops.pack_blooms(blooms)).to(dev)
+                plane = [torch.from_numpy(a).to(dev) for a in (pmin, width)]
+                got = bloom_probe_batched(words, *plane, num_partitions=P)
+                sync(dev)
+                want = bloom_probe_batched_ref(words, *plane,
+                                               num_partitions=P)
+                require_equal("bloom_probe_batched", got, want,
+                              f"Q={Q} blocks={nb} P={P} widths {edge}")
                 cases += 1
     return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
 
@@ -1022,24 +1123,16 @@ def minmax_need(lo, hi, mins, maxs, nullable):
     return nbytes, nops
 
 
-def phase_main_path(seed: int, n_batches: int, card: str, dev,
-                    n_rows: int = 2 ** 24):
-    """Phase 3; returns (the tables, query lists and service that phase 4
-    reuses, the phase's numbers)."""
+def main_path_traffic(seed: int, card: str, n_rows: int = 2 ** 24):
+    """Phase 3's tables and batch: (the batch of 256 queries in its
+    shuffled order, the tables and query lists phase 4 reuses)."""
     import types
 
-    import torch
-
     from repro_torch.core import expr as E
-    from repro_torch.core.device_stats import plane_checksum
-    from repro_torch.core.flow import (JoinSpec, PruningPipeline, Query,
-                                       TableScanSpec)
-    from repro_torch.core.prune_filter import extract_ranges
+    from repro_torch.core.flow import JoinSpec, Query, TableScanSpec
     from repro_torch.data.generator import (make_events_table,
                                             make_users_table, sample_limit_k)
     from repro_torch.data.table import Table
-    from repro_torch.kernels import ops, ref
-    from repro_torch.serve.prune_service import PruningService
 
     m = types.SimpleNamespace(E=E, Query=Query, TableScanSpec=TableScanSpec,
                               JoinSpec=JoinSpec, sample_limit_k=sample_limit_k)
@@ -1069,7 +1162,22 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
     # the per-query path (phase 4) takes the filter, top-k and join queries
     ctx = dict(events=events, build=build, filter_queries=queries[:128],
                topk_queries=queries[176:224], join_queries=queries[224:])
-    queries = [queries[i] for i in rng.permutation(len(queries))]
+    return [queries[i] for i in rng.permutation(len(queries))], ctx
+
+
+def phase_main_path(seed: int, n_batches: int, card: str, dev,
+                    n_rows: int = 2 ** 24):
+    """Phase 3; returns (the tables, query lists and service that phase 4
+    reuses, the phase's numbers)."""
+    from repro_torch.core import expr as E
+    from repro_torch.core.device_stats import plane_checksum
+    from repro_torch.core.flow import PruningPipeline
+    from repro_torch.core.prune_filter import extract_ranges
+    from repro_torch.kernels import ops
+    from repro_torch.serve.prune_service import PruningService
+
+    queries, ctx = main_path_traffic(seed, card, n_rows)
+    events = ctx["events"]
     n_join_topk = sum(1 for q in queries if q.is_topk and q.join is not None)
 
     # table groups with lowered predicates: one filter launch each per batch
@@ -1252,6 +1360,7 @@ def stage_split(svc, queries, events, card, dev):
         best = None
         for a, kw, out in calls:
             fn = timed = real[tech]
+            work = None
             if tech == "filter":
                 queries_in = a[:3]
                 planes, P = a[3:6], kw["num_partitions"]
@@ -1281,10 +1390,15 @@ def stage_split(svc, queries, events, card, dev):
                 Q, W = words.shape
                 hashed, tested = bloom_work(words, pmin, width, P)
                 nbytes = 8 * P + Q * P + 4 * Q * W
-                # a candidate: 3 mixes (8 ops each) and its add; a test:
-                # 4 probes of a shift-mask pair for the word, one for the
-                # bit, the load's address and the bit test
-                ops_n = 25 * hashed + 28 * tested
+                # a candidate: 3 mixes (8 ops each) and its add, then, in
+                # a bit-sliced table, 4 probes (the word's and the bit's
+                # shift-mask, the address, the load, the AND) that serve
+                # 32 queries at once
+                ops_n = (25 + 20 * -(-Q // 32)) * hashed
+                # the count the first port was held to: 28 ops a
+                # (candidate, query) test, each query probed on its own
+                test_ops = 25 * hashed + 28 * tested
+                work = dict(hashed=hashed, tested=tested)
                 plain = lambda a=a, kw=kw: ref.bloom_probe_batched_ref(*a, **kw)
                 library = None
             else:
@@ -1311,8 +1425,12 @@ def stage_split(svc, queries, events, card, dev):
                 best = dict(ms=t_k, plain_ms=cuda_ms(plain, 2),
                             bound_sector_ms=(bound(sector_bytes, ops_n)[0]
                                              if tech == "topk" else None),
+                            bound_per_test_ms=(bound(nbytes, test_ops)[0]
+                                               if tech == "join_bloom"
+                                               else None),
                             library_ms=(None if library is None
                                         else cuda_ms(library, 3)),
+                            work=work,
                             bound_ms=bms, bound_by=bby, bound_bytes=nbytes,
                             bound_ops=ops_n, max_abs_err=err,
                             shape=shape_of(tech, a, kw))
@@ -1334,6 +1452,11 @@ def stage_split(svc, queries, events, card, dev):
         sector = ("" if k["bound_sector_ms"] is None else
                   f"; {k['bound_sector_ms']:.4f} ms with each gathered head "
                   f"a 32-byte sector")
+        if k["bound_per_test_ms"] is not None:
+            sector = (f"; {k['bound_per_test_ms']:.4f} ms counting 28 "
+                      f"operations a (candidate, query) test; "
+                      f"{k['work']['hashed']} candidates hashed, "
+                      f"{k['work']['tested']} tests")
         log(f"[split] {card}: {tech} kernel at {k['shape']}: {k['ms']:.4f} ms "
             f"vs bound {k['bound_ms']:.4f} ms ({k['bound_by']}: "
             f"{k['bound_bytes'] / 1e6:.1f} MB, {k['bound_ops']:.3g} ops"

@@ -9,7 +9,10 @@ uint32 words, tiled to a common power-of-two block count Bb
 (``ops.pack_blooms``); the hash is ``core.prune_join``'s bit for bit.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/bloom_probe_batched.cu`` (built at first use, see ``build.py``);
+``csrc/bloom_probe_batched.cu`` (built at first use, see ``build.py``):
+the filters are first transposed on the card into a bit-sliced table
+(``ref.bloom_bitslice_ref`` is its plain version; ``table_plan`` picks
+its entry width), then probed;
 on a CPU tensor it runs the plain PyTorch version
 (``ref.bloom_probe_batched_ref``).  There is no fallback between the two:
 a CUDA input either launches the kernel or raises ``KernelError``, as
@@ -28,6 +31,15 @@ from .build import KernelError, check_tensor
 from .ref import bloom_probe_batched_ref
 
 KERNEL = "bloom_probe_batched"
+
+
+def table_plan(Q: int, n_blocks: int) -> tuple:
+    """(bits, nbytes): the bit-sliced table's entry width, 8, 16 or 32
+    queries a chunk (the narrowest that covers min(Q, 32) queries: a
+    second chunk hashes every candidate again), and the table's bytes,
+    ``ceil(Q / bits)`` chunks of ``n_blocks * 512`` entries."""
+    bits = 8 if Q <= 8 else 16 if Q <= 16 else 32
+    return bits, -(-Q // bits) * n_blocks * 512 * bits // 8
 
 
 def bloom_probe_batched(
@@ -58,7 +70,10 @@ def bloom_probe_batched(
     hit = torch.empty((Q, P), dtype=torch.int8, device=dev)
     if Q == 0 or P == 0:
         return hit
-    build.launch(KERNEL, dev, words, pmin, width, hit, Q, n_blocks, P)
+    bits, nbytes = table_plan(Q, n_blocks)
+    table = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    build.launch(KERNEL, dev, words, pmin, width, hit, table, Q, n_blocks, P,
+                 bits)
     bloom_probe_batched.launches += 1
     return hit
 

@@ -26,18 +26,9 @@ from .build import KernelError, check_tensor
 from .ref import minmax_prune_batched_ref
 
 KERNEL = "minmax_prune_batched"
-# Queries per block.  The kernel stages a block's (cid, lo, hi) slots
-# through a 2048-slot shared-memory tile (kSlots in the .cu), in chunks
-# when there are more; up to 2048 slots a block stages them all at once.
-MAX_BLOCK_SLOTS = 2048
-BLOCK_Q = 32
 # Peak elements per [Q, P_slab] intermediate of the plain version on the
 # CPU; keeps it memory-bounded for huge P.
 _REF_SLAB_ELEMS = 1 << 25
-
-
-def block_q(kb: int) -> int:
-    return max(1, min(BLOCK_Q, MAX_BLOCK_SLOTS // max(kb, 1)))
 
 
 def _plain_slabbed(cids, lo, hi, mins, maxs, demote, P: int) -> torch.Tensor:
@@ -86,7 +77,7 @@ def minmax_prune_batched(
     if Kb == 0:
         return tv.fill_(2)              # empty conjunction: all FULL
     build.launch(KERNEL, dev, cids, lo, hi, mins, maxs, demote, tv,
-                 Q, Kb, P, Pc, block_q(Kb))
+                 Q, Kb, P, Pc, C)
     minmax_prune_batched.launches += 1
     return tv
 

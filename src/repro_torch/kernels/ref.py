@@ -229,6 +229,22 @@ def bloom_probe_batched_ref(words, pmin, width,
     return hit
 
 
+def bloom_bitslice_ref(words, bits: int) -> torch.Tensor:
+    """The bit-sliced table of ``csrc/bloom_probe_batched.cu``'s transpose:
+    [ceil(Q / bits), Bb * 16 * 32] int64, entry ``[chunk, pos * 32 + bit]``
+    the mask of the chunk's queries (bit qi for query chunk * bits + qi)
+    whose filter word ``pos`` (``block * 16 + w``) has ``bit`` set."""
+    Q, W = words.shape
+    table = torch.zeros((-(-Q // bits), W * 32), dtype=torch.int64,
+                        device=words.device)
+    shifts = torch.arange(32, device=words.device)
+    w64 = words.to(torch.int64) & U32
+    for q in range(Q):
+        table[q // bits] |= (((w64[q, :, None] >> shifts) & 1).reshape(-1)
+                             << (q % bits))
+    return table
+
+
 # ---------------------------------------------------------------------------
 # top-k: boundary initialisation over the block-top-k plane
 # ---------------------------------------------------------------------------

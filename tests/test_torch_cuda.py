@@ -253,14 +253,24 @@ def topk_problem(rng, P, k, valid_binit=False, order="random", lo=-1000,
     return np.ascontiguousarray(rows, dtype=np.float32), np.float32(binit)
 
 
-@pytest.mark.parametrize("Q,Kb,C,P", [
-    (1, 1, 1, 1), (7, 2, 6, 31), (64, 4, 6, 4097), (300, 8, 33, 5000),
-    # conjunctions longer than the kernel's 2048-slot shared tile
-    (3, 3000, 6, 700), (2, 8192, 6, 4097),
+@pytest.mark.parametrize("Q,Kb,C,P,cap", [
+    (1, 1, 1, 1, None), (7, 2, 6, 31, None), (64, 4, 6, 4097, None),
+    (300, 8, 33, 5000, None),
+    # conjunctions longer than the kernel's 1024-slot shared tile
+    (3, 3000, 6, 700, None), (2, 8192, 6, 4097, None),
+    # P = 1, 3, 15 mod 16: rows of tv off a 4-byte boundary
+    (5, 2, 6, 4097, None), (9, 3, 6, 4099, None), (64, 2, 6, 4111, None),
+    # capacities P + 3: plane rows off a 16-byte boundary
+    (7, 4, 6, 4097, 4100), (33, 2, 6, 100_000, 100_003),
+    # more slots than the tile, in single-range queries
+    (1100, 1, 6, 1000, None),
+    # more referenced columns than the 4-column shared tile, and than the
+    # 1024-column map (every slot from global memory)
+    (40, 8, 33, 2049, 2052), (3, 5, 1100, 37, 40),
 ])
-def test_kernel_equals_plain_version(cuda, Q, Kb, C, P):
+def test_kernel_equals_plain_version(cuda, Q, Kb, C, P, cap):
     rng = np.random.default_rng(P)
-    cap = TD.plane_capacity(P)
+    cap = cap or TD.plane_capacity(P)
     args = [torch.from_numpy(a).to(cuda)
             for a in _inputs(rng, Q, Kb, C, P, cap)]
     before = minmax_prune_batched.launches
@@ -269,6 +279,45 @@ def test_kernel_equals_plain_version(cuda, Q, Kb, C, P):
     assert minmax_prune_batched.launches == before + 1
     want = minmax_prune_batched_ref(*args, num_partitions=P)
     assert got.dtype == torch.int8 and tuple(got.shape) == (Q, P)
+    assert torch.equal(got, want)
+
+
+def packed_planes(planes, gaps, dev):
+    """The three [C, Pc] planes as contiguous views of one flat tensor,
+    plane i starting gaps[i] elements after the end of plane i - 1: storage
+    offsets that differ mod 16 bytes, as for views of one [3, C, Pc]
+    tensor with C * Pc odd."""
+    n = planes[0].size
+    flat = torch.empty(sum(gaps) + 3 * n, dtype=torch.float32, device=dev)
+    out, at = [], 0
+    for a, gap in zip(planes, gaps):
+        at += gap
+        out.append(flat[at:at + n].view(a.shape))
+        out[-1].copy_(torch.from_numpy(a))
+        at += n
+    return out
+
+
+@pytest.mark.parametrize("Q,Kb,C,P,cap,gaps", [
+    # mins 16-byte aligned, maxs and demote not: staged columns
+    (64, 3, 6, 4096, None, (0, 1, 3)),
+    # views of one [3, C, Pc] tensor with C * Pc odd
+    (7, 2, 3, 4096, 4099, (0, 0, 0)),
+    # more referenced columns than the shared tile: read from global
+    (40, 8, 33, 2049, None, (0, 2, 1)),
+])
+def test_kernel_equals_plain_version_at_plane_offsets(cuda, Q, Kb, C, P,
+                                                      cap, gaps):
+    rng = np.random.default_rng(P + sum(gaps))
+    cap = cap or TD.plane_capacity(P)
+    cids, lo, hi, *planes = _inputs(rng, Q, Kb, C, P, cap)
+    mins, maxs, demote = packed_planes(planes, gaps, cuda)
+    assert len({t.data_ptr() % 16 for t in (mins, maxs, demote)}) > 1
+    cq = [torch.from_numpy(a).to(cuda) for a in (cids, lo, hi)]
+    got = minmax_prune_batched(*cq, mins, maxs, demote, num_partitions=P)
+    torch.cuda.synchronize()
+    want = minmax_prune_batched_ref(*cq, mins, maxs, demote,
+                                    num_partitions=P)
     assert torch.equal(got, want)
 
 
@@ -344,14 +393,26 @@ def test_join_overlap_equals_plain_version(cuda, Q, max_keys, P):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("Q,P,n_blocks", [
-    (1, 1, (1,)), (4, 3000, (1, 8, 256, 1024)), (33, 20_000, (8, 1024)),
-    (70, 5000, (256,)),
+@pytest.mark.parametrize("Q,P,n_blocks,edge", [
+    (1, 1, (1,), None), (4, 3000, (1, 8, 256, 1024), None),
+    (33, 20_000, (8, 1024), None), (70, 5000, (256,), None),
+    # 8-, 16- and 32-query tables at 64, 256 and 1024 blocks
+    (8, 3000, (256,), None), (32, 3000, (64,), None),
+    (16, 5000, (256,), None), (16, 3000, (1024,), None),
+    (1, 3000, (1024,), None), (32, 3000, (256,), None),
+    # every width 0; one very wide partition among narrow ones in a warp
+    (16, 3000, (256,), "zero"), (33, 3000, (64,), "wide"),
+    (16, 3000, (1024,), "wide"),
 ])
-def test_bloom_probe_equals_plain_version(cuda, Q, P, n_blocks):
+def test_bloom_probe_equals_plain_version(cuda, Q, P, n_blocks, edge):
     rng = np.random.default_rng(P + Q)
     cap = TD.plane_capacity(P)
     blooms, pmin, _width, width_eff = bloom_inputs(rng, Q, P, cap, n_blocks)
+    if edge == "zero":
+        width_eff[:] = 0
+    elif edge == "wide":
+        width_eff[32:64] = rng.integers(0, 3, 32)
+        width_eff[45], pmin[45] = 20_000, -10_000
     words = torch.from_numpy(ops.pack_blooms(blooms)).to(cuda)
     pmin_d, width_d = (torch.from_numpy(a).to(cuda)
                        for a in (pmin, width_eff))

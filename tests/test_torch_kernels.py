@@ -368,6 +368,82 @@ def test_bloom_plain_version_equals_jnp_oracle_and_pallas_interpret(
                                         mode="ref"))
 
 
+def bitsliced_probe(table, bits, Q, n_blocks, pmin, width, P):
+    """hit [Q, P] through a ``bloom_bitslice_ref`` table, as the card's
+    kernel probes it: every candidate hashed once, a chunk's hits the AND
+    of its four entries."""
+    hit = torch.ones((Q, P), dtype=torch.int8)
+    w = width[:P].to(torch.int64).clamp(min=0)
+    total = int(w.sum())
+    if total == 0:
+        return hit
+    seg = torch.repeat_interleave(torch.arange(P), w)
+    c = pmin[:P].to(torch.int64)[seg] + torch.arange(total) \
+        - (torch.cumsum(w, 0) - w)[seg]
+    h0 = tref.mix32((c & tref.U32) ^ tref.mix32(torch.where(c < 0, tref.U32,
+                                                            0)))
+    h1 = tref.mix32(h0 ^ tref.H1_SALT)
+    h2 = tref.mix32(h1 ^ tref.H2_SALT)
+    base = (h0 & (n_blocks - 1)) * 512
+    masks = torch.full((table.shape[0], total), -1, dtype=torch.int64)
+    for i in range(4):
+        masks &= table[:, base + ((h1 >> (8 * i)) & 15) * 32
+                       + ((h2 >> (8 * i)) & 31)]
+    for q in range(Q):
+        any_hit = torch.zeros(P, dtype=torch.int64).index_add_(
+            0, seg, (masks[q // bits] >> (q % bits)) & 1)
+        hit[q] = torch.where(w > 0, any_hit > 0, True).to(torch.int8)
+    return hit
+
+
+@pytest.mark.parametrize("Q,P,n_blocks,bits", [
+    (1, 40, (1,), 8), (16, 300, (256,), 8), (16, 300, (256,), 16),
+    (33, 200, (1, 8, 64), 32), (70, 129, (8,), 8), (5, 100, (1, 1024), 32),
+])
+def test_bloom_bitsliced_table_equals_plain_version_and_oracle(
+        Q, P, n_blocks, bits):
+    """The card's bit-sliced layout, built by its plain transpose and
+    probed in plain torch, against the port's plain version and the JAX
+    oracle: a layout error shows here, on the CPU."""
+    rng = np.random.default_rng(Q * 1000 + P + bits)
+    cap = TD.plane_capacity(P)
+    blooms, pmin, width, width_eff = bloom_inputs(rng, Q, P, cap, n_blocks)
+    words = tops.pack_blooms(blooms)
+    nb = words.shape[1] // 16
+    table = tref.bloom_bitslice_ref(torch.from_numpy(words), bits)
+    assert tuple(table.shape) == (-(-Q // bits), nb * 512)
+    q, pos, bit = Q - 1, 7 % (nb * 16), 5            # one entry by hand
+    assert int(table[q // bits, pos * 32 + bit] >> (q % bits)) & 1 == \
+        int(words.view(np.uint32)[q, pos] >> bit) & 1
+    got = bitsliced_probe(table, bits, Q, nb, *_t(pmin, width_eff), P)
+    plain = tref.bloom_probe_batched_ref(*_t(words, pmin, width_eff),
+                                         num_partitions=P)
+    assert torch.equal(got, plain)
+    lo, hi = rops.pack_blooms(blooms)
+    eb = rops.enum_bucket(max(1, min(int(width[:P].max()), 64)))
+    oracle = np.asarray(rref.bloom_probe_batched_ref(
+        jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(pmin[:P]),
+        jnp.asarray(width_eff[:P]), eb))[:Q]
+    np.testing.assert_array_equal(got.numpy(), oracle)
+
+
+@pytest.mark.parametrize("Q,n_blocks,plan", [
+    (1, 1, (8, 512)), (16, 256, (16, 262_144)), (16, 128, (16, 131_072)),
+    (32, 64, (32, 131_072)), (70, 256, (32, 3 * 524_288)),
+    (8, 256, (8, 131_072)), (8, 1024, (8, 524_288)),
+    (33, 1024, (32, 2 * 2_097_152)),
+])
+def test_bloom_table_plan(Q, n_blocks, plan):
+    """The narrowest entry that covers min(Q, 32) queries, and a table of
+    ceil(Q / bits) chunks that the plain transpose fills exactly."""
+    from repro_torch.kernels.bloom_probe import table_plan
+    assert table_plan(Q, n_blocks) == plan
+    bits, nbytes = plan
+    words = torch.zeros((Q, n_blocks * 16), dtype=torch.int32)
+    table = tref.bloom_bitslice_ref(words, bits)
+    assert table.numel() * bits // 8 == nbytes
+
+
 def test_bloom_plain_version_slabs_over_p(monkeypatch):
     rng = np.random.default_rng(4)
     P = 2000

@@ -18,11 +18,10 @@ limit and one line a (variant, D) with both times.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import subprocess
 import sys
 from pathlib import Path
+
+from kernel_variants import compile_all, edited, time_in_turns, write_json
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -50,36 +49,6 @@ VARIANTS = {
 }
 
 
-def build_all(out: Path) -> dict:
-    """Compile every variant (one nvcc each, all at once); name -> the
-    loaded C entry point."""
-    from repro_torch.kernels import build
-
-    src = (build.CSRC / "flash_attention.cu").read_text()
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, (_what, subs)) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"{name}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        cu, so = out / f"variant{i}.cu", out / f"variant{i}.so"
-        cu.write_text(text)
-        procs[name] = (so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    entries = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"{name}: nvcc exit {proc.returncode}\n{log}")
-        fn = ctypes.CDLL(str(so)).flash_attention_launch
-        fn.restype = ctypes.c_int
-        entries[name] = fn
-    return entries
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None, help="also write the times here")
@@ -95,8 +64,11 @@ def main() -> int:
 
     card = cs.card_line()
     dev = torch.device("cuda")
-    for name, fn in build_all(ROOT / "build" / "flash_variants").items():
-        build._entries[f"variant: {name}"] = fn
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    compile_all({f"variant: {name}": ("flash_attention",
+                                      edited(src, subs, name))
+                 for name, (_what, subs) in VARIANTS.items()},
+                ROOT / "build" / "flash_variants")
 
     def run(name, q, k, v, causal=True):
         o = torch.empty_like(q)
@@ -117,21 +89,17 @@ def main() -> int:
         q, k, v = (torch.randn((128, 2048, D), generator=gen, device=dev)
                    .bfloat16() for _ in range(3))
         _ms, _by, ops_n = cs.flash_bound(128, 2048, 2048, D, True, 2)
-        order = list(VARIANTS) + list(VARIANTS)[::-1]
-        for name in order:
-            ms = cs.cuda_ms(lambda: run(name, q, k, v), 10)
-            times.setdefault(f"{name}, D={D}", []).append(ms)
-        for name in VARIANTS:
-            t = times[f"{name}, D={D}"]
+        got = time_in_turns({name: lambda name=name: run(name, q, k, v)
+                             for name in VARIANTS}, 10)
+        for name, t in got.items():
+            times[f"{name}, D={D}"] = t
             print(f"[variants] {card}: D={D} {name} ({VARIANTS[name][0]}): "
                   f"{t[0]:.4f} / {t[1]:.4f} ms, "
                   f"{ops_n / (min(t) * 1e9):.1f} TFLOP/s at the faster",
                   flush=True)
     print(card)
     if args.json:
-        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.json).write_text(json.dumps(dict(card=card, ms=times),
-                                              indent=1))
+        write_json(args.json, dict(card=card, ms=times))
     return 0
 
 
