@@ -10,7 +10,8 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      (one ``nvcc`` per source, all started together), with ptxas's
      registers, spills and static shared memory for the kernel functions
      of ``flash_attention``, ``topk_init_batched``,
-     ``minmax_prune_batched`` and ``bloom_probe_batched``, and the count
+     ``minmax_prune_batched``, ``bloom_probe_batched``, ``minmax_prune``
+     and ``topk_boundary``, and the count
      of tensor-core instructions (HMMA, HGMMA) in ``flash_attention``'s
      SASS, which must not be 0;
   2. each kernel vs its plain version on the card, on
@@ -47,8 +48,9 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
          denormals, keys at both infinities and empty partitions;
          ``topk_boundary`` with k in {1, 8, 64} and its largest k, random,
          descending and (P <= 2049) ascending row orders, ties, all -inf
-         rows, with and without an upfront boundary; P up to 2**21
-         throughout;
+         rows, with and without an upfront boundary, and k in {1, 8, 25}
+         at the edges of its tiles (P = 4095-4097, 2**20 +- 1); P up to
+         2**21 throughout;
        * ``flash_attention`` in f32 and bf16 at every head dim D in {8,
          16, 32, 64, 72, 100, 128, 200, 256}: Sq = Sk in {1, 7, 128, 130,
          256} with and without causal, Sk != Sq without it (up to 2048)
@@ -90,7 +92,9 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      ``topk_boundary`` launch, and each kernel at this path's shapes
      beside its plain version, bound and library call (``minmax_prune``
      at the widest conjunction and at the one whose data needs the most
-     bytes, each bound counted from what its data needs).
+     bytes, each bound counted from what its data needs); for
+     ``minmax_prune`` and ``topk_boundary`` the wrapper (the row's time)
+     and the launch alone, and the scan's tiles and grid.
   5. LM serving at full width: GLM-4-9B (``get_config("glm4-9b")``, all 40
      layers, bf16, parameters from the port's ``init_params`` seeded by
      ``--seed``), the ``Generator`` on 4 prompts of 2,048 tokens and 32
@@ -293,7 +297,7 @@ def build_report(card: str) -> dict:
             f"{fn} {r.get('registers')} registers, {r.get('spill_bytes')} "
             f"bytes spilled" for fn, r in out["flash_attention"].items()))
     for name in ("topk_init_batched", "minmax_prune_batched",
-                 "bloom_probe_batched"):
+                 "bloom_probe_batched", "minmax_prune", "topk_boundary"):
         log(f"[env] {card}: {name} ptxas: " + "; ".join(
             f"{fn} {r.get('registers')} registers, {r.get('spill_bytes')} "
             f"bytes spilled, {r.get('static_smem_bytes')} bytes static "
@@ -776,11 +780,18 @@ def topk_rows(gen, dev, P: int, k: int, order: str, lo: int, hi: int):
     return rows.contiguous()
 
 
+# P at the edges of the boundary scan's tiles on an H100 (132 SMs): tiles
+# of 2,048 rows up to P = 540,672 (P = 2047-2049 are in SINGLE_SIZES), of
+# 4,096 at P = 2**20 (256 tiles), each edge and one row either side
+SCAN_EDGE_SIZES = (4095, 4096, 4097, (1 << 20) - 1, (1 << 20) + 1)
+
+
 def topk_scan_cases(rng, dev, sizes) -> dict:
     """``topk_boundary``: k in {1, 8} at every P and 64 up to 2**20, the
-    largest k the kernel takes at the small P; random and descending row
-    orders, ascending (every row merges) up to P = 2049; ties, all -inf
-    rows; no upfront boundary and one at the median head."""
+    largest k the kernel takes at the small P; k in {1, 8, 25} at the
+    tiles' edges (``SCAN_EDGE_SIZES``); random and descending row orders,
+    ascending (every row merges) up to P = 2049; ties, all -inf rows; no
+    upfront boundary and one at the median head."""
     import torch
 
     from repro_torch.kernels.ref import topk_boundary_ref
@@ -798,6 +809,8 @@ def topk_scan_cases(rng, dev, sizes) -> dict:
                     (("ascending",) if P <= 2049 and k <= 64 else ()):
                 grid.append((P, k, order))
     grid.append((40, MAX_K_SCAN, "random"))
+    grid += [(P, k, order) for P in SCAN_EDGE_SIZES for k in (1, 8, 25)
+             for order in ("random", "descending")]
     for P, k, order in grid:
         lo, hi = (-20, 20) if (P + k) % 2 else (-100_000, 100_000)
         rows = topk_rows(gen, dev, P, k, order, lo, hi)
@@ -1503,6 +1516,62 @@ def topk_library(plane, offsets, ids, k):
 # Phase 4: the per-query device path
 # ---------------------------------------------------------------------------
 
+def lowered_filters(ctx: dict) -> list:
+    """(query index, ranges) of the filter-only queries whose predicates
+    lower to ranges over the events table."""
+    from repro_torch.core.prune_filter import extract_ranges
+    stats = ctx["events"].stats
+    return [(i, r) for i, r in (
+        (i, extract_ranges(q.scans["events"].pred, stats))
+        for i, q in enumerate(ctx["filter_queries"])) if r is not None]
+
+
+def minmax_roles(lowered, stats, dev):
+    """(need, widest, heaviest): each conjunction's ``minmax_need`` with
+    its query index, the index of the widest conjunction and of the one
+    whose data needs the most bytes."""
+    from repro_torch.kernels import ops
+    need = [(minmax_need(*ops._stage_ranges(r, stats, dev)[0]), i)
+            for i, r in lowered if r]
+    widest = max(lowered, key=lambda ir: len(ir[1]))[0]
+    return need, widest, max(need)[1]
+
+
+def picked_topk(ctx: dict) -> list:
+    """Four unfiltered top-k queries of the traffic, two in each direction
+    where there are: the per-query path's top-k scans."""
+    from repro_torch.core import expr as E
+    plain_topk = [q for q in ctx["topk_queries"]
+                  if isinstance(q.scans["events"].pred, E.TruePred)]
+    picked = [q for q in plain_topk if q.order_by[2]][:2] + \
+        [q for q in plain_topk if not q.order_by[2]][:2]
+    picked += [q for q in plain_topk if q not in picked][:4 - len(picked)]
+    if len(picked) < 4 or len({q.order_by[2] for q in picked}) < 2:
+        raise SystemExit(f"traffic: {len(plain_topk)} unfiltered top-k "
+                         f"queries, need 4 in both directions")
+    return picked
+
+
+def ordered_topk_rows(events, picked) -> dict:
+    """direction -> (block-top-k rows of ``num_sightings`` [P, kmax] in the
+    host scan's order, that order) for each direction of ``picked``, kmax
+    the largest k of the direction's picked queries."""
+    from repro_torch.kernels import ops
+    stats = events.stats
+    vals, vnull = events.global_ctx().col("num_sightings")
+    out = {}
+    for desc in sorted({q.order_by[2] for q in picked}, reverse=True):
+        kmax = max(q.limit for q in picked if q.order_by[2] == desc)
+        sign = 1.0 if desc else -1.0
+        rows = ops.build_block_topk(sign * vals, events.part_bounds, kmax,
+                                    mask=~vnull)
+        bmax = stats.col_max("num_sightings") if desc \
+            else -stats.col_min("num_sightings")
+        order = np.argsort(-bmax, kind="stable")
+        out[desc] = (rows[order], order)
+    return out
+
+
 def phase_per_query(ctx: dict, card: str, dev) -> dict:
     """The per-query path of ``ops`` on phase 3's events table: every
     filter-only query through ``prune_ranges_device`` (held to the batched
@@ -1517,14 +1586,14 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
     path's shapes beside its plain version and bound."""
     import torch
 
-    from repro_torch.core import expr as E
     from repro_torch.core.flow import PruningPipeline
     from repro_torch.core.metadata import ScanSet
-    from repro_torch.core.prune_filter import extract_ranges
     from repro_torch.core.prune_topk import run_topk, topk_oracle
     from repro_torch.core.rowval import matches
     from repro_torch.kernels import join_overlap as join_overlap_mod
+    from repro_torch.kernels import minmax_prune as minmax_mod
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import topk_boundary as topk_mod
 
     events, build, svc = ctx["events"], ctx["build"], ctx["svc"]
     stats = events.stats
@@ -1534,34 +1603,15 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
                  if path == PER_QUERY}
 
     # inputs of the path, prepared before the counts start
-    lowered = [(i, r) for i, r in (
-        (i, extract_ranges(q.scans["events"].pred, stats))
-        for i, q in enumerate(ctx["filter_queries"])) if r is not None]
+    lowered = lowered_filters(ctx)
     bctx = build.global_ctx()
     ids, id_nulls = bctx.col("id")
     join_keys = [np.unique(ids[matches(q.scans["users"].pred, bctx)
                                & ~id_nulls]) for q in ctx["join_queries"]]
     ndv_limit = PruningPipeline(filter_mode="host").join_ndv_limit
-    plain_topk = [q for q in ctx["topk_queries"]
-                  if isinstance(q.scans["events"].pred, E.TruePred)]
-    picked = [q for q in plain_topk if q.order_by[2]][:2] + \
-        [q for q in plain_topk if not q.order_by[2]][:2]
-    picked += [q for q in plain_topk if q not in picked][:4 - len(picked)]
-    if len(picked) < 4 or len({q.order_by[2] for q in picked}) < 2:
-        raise SystemExit(f"traffic: {len(plain_topk)} unfiltered top-k "
-                         f"queries, need 4 in both directions")
-    vals, vnull = events.global_ctx().col("num_sightings")
+    picked = picked_topk(ctx)
     t0 = time.perf_counter()
-    topk_rows_of = {}                    # direction -> ordered rows, order
-    for desc in (True, False):
-        kmax = max(q.limit for q in picked if q.order_by[2] == desc)
-        sign = 1.0 if desc else -1.0
-        rows = ops.build_block_topk(sign * vals, events.part_bounds, kmax,
-                                    mask=~vnull)
-        bmax = stats.col_max("num_sightings") if desc \
-            else -stats.col_min("num_sightings")
-        order = np.argsort(-bmax, kind="stable")
-        topk_rows_of[desc] = (rows[order], order)
+    topk_rows_of = ordered_topk_rows(events, picked)
     prep_s = time.perf_counter() - t0
     log(f"[per-query] {card} host: {len(lowered)} of "
         f"{len(ctx['filter_queries'])} filter queries lower to ranges; "
@@ -1696,11 +1746,8 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
     # minmax_prune: what each conjunction's data needs (its bound), then
     # the kernel at the path's widest conjunction (the row) and at the one
     # that needs the most bytes
-    need = [(minmax_need(*ops._stage_ranges(r, stats, dev)[0]), i)
-            for i, r in lowered if r]
+    need, widest, heaviest = minmax_roles(lowered, stats, dev)
     by_q = dict(lowered)
-    widest = max(lowered, key=lambda ir: len(ir[1]))[0]
-    heaviest = max(need)[1]
     mb = sorted(b / 1e6 for (b, _), _ in need)
     log(f"[per-query] {card}: minmax_prune data needed per conjunction: "
         f"{mb[0]:.2f} / {statistics.median(mb):.2f} / {mb[-1]:.2f} MB "
@@ -1715,6 +1762,7 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
         bms, bby = bound(nbytes, nops)
         timed = dict(
             ms=cuda_ms(lambda: ops.minmax_prune(*args), 10),
+            launch_ms=cuda_ms(lambda: minmax_mod.launch_checked(*args), 10),
             plain_ms=cuda_ms(lambda: ref.minmax_prune_ref(*args), 3),
             library_ms=None, bound_ms=bms, bound_by=bby, bound_bytes=nbytes,
             bound_ops=nops, max_abs_err=err,
@@ -1761,11 +1809,16 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
     # the row heads (one 32-byte sector each), the merged rows, the skips
     bms, bby = bound(32 * P + 4 * k * merged + 4 * P + 4 * k,
                      P + 2 * k * merged * max(1.0, math.log2(k)))
+    tile = topk_mod.scan_tile(P, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     kern["topk_boundary"] = dict(
         ms=cuda_ms(lambda: ops.topk_boundary(rows, b), 10),
+        launch_ms=cuda_ms(lambda: topk_mod.scan_launch_checked(rows, b),
+                          10),
         plain_ms=cuda_ms(lambda: ref.topk_boundary_ref(rows, b), 2),
         library_ms=None, bound_ms=bms, bound_by=bby, max_abs_err=err,
-        shape=dict(P=P, k=k, merged=merged), host_run_topk_ms=next(
+        shape=dict(P=P, k=k, merged=merged, tile=tile,
+                   tiles=-(-P // tile)), host_run_topk_ms=next(
             t["host_run_topk_ms"] for t in topk if t["k"] == k
             and t["desc"] == q.order_by[2]))
     del rows
@@ -1779,9 +1832,22 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
     for role, mm in (("widest", kern["minmax_prune"]),
                      ("heaviest", kern["minmax_prune"]["heaviest"])):
         log(f"[per-query] {card}: minmax_prune at the {role} conjunction "
-            f"{mm['shape']}: {mm['ms']:.4f} ms vs bound {mm['bound_ms']:.5f} "
+            f"{mm['shape']}: wrapper {mm['ms']:.4f} ms, launch alone "
+            f"{mm['launch_ms']:.4f} ms vs bound {mm['bound_ms']:.5f} "
             f"ms ({mm['bound_bytes'] / 1e6:.2f} MB needed, "
-            f"{mm['bound_ops']:.3g} ops; {mm['ms'] / mm['bound_ms']:.1f}x)")
+            f"{mm['bound_ops']:.3g} ops; {mm['launch_ms'] / mm['bound_ms']:.1f}"
+            f"x)")
+    tb = kern["topk_boundary"]
+    n = tb["shape"]["tiles"]
+    groups = -(-(n - 1) // ref.scan_group(n - 1)) if n > 2 else 0
+    grid = ("pass C alone, one block of 256 threads" if n == 1 else
+            f"pass A {n} blocks of 256 threads (the first also writes tile "
+            f"0's skips), pass C {n - 1}"
+            + (f", pass B {groups} blocks of 1,024 threads"
+               + (" then one" if groups > 1 else "") if n > 2 else ""))
+    log(f"[per-query] {card}: topk_boundary at {tb['shape']}: wrapper "
+        f"{tb['ms']:.4f} ms, launch alone {tb['launch_ms']:.4f} ms; {n} "
+        f"tiles of {tb['shape']['tile']} rows: {grid}")
     jo = kern["join_overlap"]
     log(f"[per-query] {card}: join_overlap wrapper (key check + launch) "
         f"{jo['wrapper_ms']:.4f} ms; launch alone at D={jo['tile_D']} (keys "

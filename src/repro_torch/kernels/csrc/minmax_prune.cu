@@ -10,20 +10,26 @@
 //   1 = PARTIAL  otherwise
 // combined over the K constraints by min (AND).  Unlike the batched
 // kernel there is no padding slot: every row is a real constraint, and
-// P needs no padding either (threads past P store nothing).
+// P needs no padding either.
 //
-// What bounds it on the card: memory.  The least traffic is the three
-// [K, P] f32 stat rows (12 bytes per constraint and partition) plus one
-// int32 verdict per partition.  The design:
-//   * one thread per partition, a loop over K; row i is read at
-//     i * P + p, so a warp's loads are 32 consecutive floats (coalesced);
-//   * lo / hi go through a fixed kSlots-slot static shared-memory tile,
-//     in chunks when K is larger, so shared memory stays at 16 KB for any
-//     K (a tile sized by K failed to launch at K = 8192 in the batched
-//     kernel);
-//   * AND is a min, so a thread whose verdict reached NO reads no more
-//     rows, and a block whose threads all reached NO stops staging
-//     chunks (__syncthreads_or at each chunk).
+// What bounds it on the card: memory.  The least traffic is what the data
+// needs: constraint i's min and max where no earlier constraint made the
+// verdict NO, its nullable flag only where the verdict can still be FULL,
+// and one int32 verdict a partition.  The design streams that:
+//   * a thread takes kV consecutive partitions and reads each row with one
+//     16-byte load (kV = 4) where the row's address allows it; a row off
+//     16 bytes (P % 4 != 0, or a view at another storage offset) and the
+//     last partial group are read 4 bytes at a time;
+//   * lo[i] and hi[i] are the same for every thread: read through the
+//     read-only cache, with no shared staging and no barrier for any K;
+//   * a constraint's nullable flags are loaded only when one of the
+//     thread's partitions can still be FULL (2 so far and its interval
+//     inside [lo, hi]);
+//   * AND is a min, so a thread whose verdicts all reached NO reads no
+//     more rows;
+//   * the verdicts go out with one 16-byte store;
+//   * the grid covers P with kV * kThreads partitions a block, up to the
+//     blocks the card holds at once, and strides over the rest.
 //
 // Float semantics: build without --use_fast_math and without -ftz=true;
 // the compares are IEEE f32, denormals included.
@@ -33,10 +39,53 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // partitions per block
-constexpr int kSlots = 2048;    // (lo, hi) pairs in shared memory
+constexpr int kThreads = 256;   // threads a block
+constexpr int kV = 4;           // consecutive partitions a thread
+constexpr int kBlocksPerSM = 2048 / kThreads;   // resident at most
+static_assert(kV == 2 || kV == 4, "kV is 2 or 4");
 
-__global__ void minmax_prune_kernel(
+__device__ __forceinline__ bool vec_aligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * kV - 1)) == 0;
+}
+
+// x[e] = a[e] for e < n (n in [1, kV]), one vector load where it can.
+__device__ __forceinline__ void load_v(const float* __restrict__ a, int n,
+                                       float (&x)[kV]) {
+  if (n == kV && vec_aligned(a)) {
+    if constexpr (kV == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(a));
+      x[0] = t.x;
+      x[1] = t.y;
+      x[2] = t.z;
+      x[3] = t.w;
+    } else {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(a));
+      x[0] = t.x;
+      x[1] = t.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < kV; ++e) x[e] = e < n ? __ldg(a + e) : 0.0f;
+}
+
+// a[e] = v[e] for e < n, one vector store where it can.
+__device__ __forceinline__ void store_v(int32_t* __restrict__ a, int n,
+                                        const int (&v)[kV]) {
+  if (n == kV && vec_aligned(a)) {
+    if constexpr (kV == 4) {
+      *reinterpret_cast<int4*>(a) = make_int4(v[0], v[1], v[2], v[3]);
+    } else {
+      *reinterpret_cast<int2*>(a) = make_int2(v[0], v[1]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < kV; ++e)
+    if (e < n) a[e] = v[e];
+}
+
+__global__ void __launch_bounds__(kThreads) minmax_prune_kernel(
     const float* __restrict__ lo,         // [K]
     const float* __restrict__ hi,         // [K]
     const float* __restrict__ mins,       // [K, P]
@@ -44,38 +93,44 @@ __global__ void minmax_prune_kernel(
     const float* __restrict__ nullable,   // [K, P]
     int32_t* __restrict__ tv,             // [P]
     int K, int P) {
-  __shared__ float s_lo[kSlots];
-  __shared__ float s_hi[kSlots];
-  const int64_t p64 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  // threads past P stage slots and meet every barrier, but store nothing
-  const bool active = p64 < P;
-  const int64_t p = active ? p64 : 0;
-  int v = active ? 2 : 0;
-  for (int c0 = 0; c0 < K; c0 += kSlots) {
-    // a barrier before restaging: the previous chunk has been read; and
-    // the whole block stops once every verdict is NO
-    if (!__syncthreads_or(v > 0)) break;
-    const int m = K - c0 < kSlots ? K - c0 : kSlots;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      s_lo[i] = lo[c0 + i];
-      s_hi[i] = hi[c0 + i];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads * kV;
+  for (int64_t p = (static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x) * kV;
+       p < P; p += stride) {
+    const int n = P - p < kV ? static_cast<int>(P - p) : kV;
+    int v[kV];
+#pragma unroll
+    for (int e = 0; e < kV; ++e) v[e] = e < n ? 2 : 0;
+    for (int i = 0; i < K; ++i) {
+      bool live = false;
+#pragma unroll
+      for (int e = 0; e < kV; ++e) live |= v[e] > 0;
+      if (!live) break;
+      const float l = __ldg(lo + i);
+      const float h = __ldg(hi + i);
+      const int64_t off = static_cast<int64_t>(i) * P + p;
+      float mn[kV], mx[kV], nl[kV];
+      load_v(mins + off, n, mn);
+      load_v(maxs + off, n, mx);
+      bool no[kV], inside[kV];
+      bool need = false;              // can some verdict still be FULL?
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const bool empty = mn[e] > mx[e];
+        no[e] = (mx[e] < l) | (mn[e] > h) | empty;
+        inside[e] = (mn[e] >= l) & (mx[e] <= h) & !empty;
+        need |= (v[e] == 2) & inside[e];
+        nl[e] = 1.0f;                 // read only where FULL can be kept
+      }
+      if (need) load_v(nullable + off, n, nl);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const int t = no[e] ? 0 : ((inside[e] & (nl[e] == 0.0f)) ? 2 : 1);
+        v[e] = v[e] < t ? v[e] : t;
+      }
     }
-    __syncthreads();
-    for (int i = 0; i < m && v > 0; ++i) {
-      const int64_t off = static_cast<int64_t>(c0 + i) * P + p;
-      const float l = s_lo[i];
-      const float h = s_hi[i];
-      const float pmin = __ldg(mins + off);
-      const float pmax = __ldg(maxs + off);
-      const float pnull = __ldg(nullable + off);
-      const bool empty = pmin > pmax;
-      const bool no = (pmax < l) | (pmin > h) | empty;
-      const bool full = (pmin >= l) & (pmax <= h) & (pnull == 0.0f) & !empty;
-      v = min(v, no ? 0 : (full ? 2 : 1));
-    }
+    store_v(tv + p, n, v);
   }
-  if (active) tv[p] = v;
 }
 
 }  // namespace
@@ -88,9 +143,16 @@ extern "C" int minmax_prune_launch(
     const void* nullable, void* tv, int K, int P, void* stream) {
   if (P <= 0) return static_cast<int>(cudaSuccess);
   if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kV;
+  const int64_t need = (static_cast<int64_t>(P) + per_block - 1) / per_block;
+  const int64_t most = static_cast<int64_t>(sms) * kBlocksPerSM;
   const unsigned int blocks =
-      static_cast<unsigned int>((static_cast<int64_t>(P) + kThreads - 1) /
-                                kThreads);
+      static_cast<unsigned int>(need < most ? need : most);
   minmax_prune_kernel<<<blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lo), static_cast<const float*>(hi),

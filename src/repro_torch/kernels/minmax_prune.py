@@ -44,12 +44,20 @@ def minmax_prune(
         check_tensor(name, t, torch.float32, shape, dev)
     if not build.runs_kernel(dev):
         return minmax_prune_ref(lo, hi, mins, maxs, nullable)
-    tv = torch.empty(P, dtype=torch.int32, device=dev)
+    return launch_checked(lo, hi, mins, maxs, nullable)
+
+
+def launch_checked(lo: torch.Tensor, hi: torch.Tensor, mins: torch.Tensor,
+                   maxs: torch.Tensor, nullable: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch alone, on CUDA inputs that ``minmax_prune`` has
+    checked: tv [P].  ``chip_smoke.py`` times this beside the wrapper."""
+    K, P = mins.shape
+    tv = torch.empty(P, dtype=torch.int32, device=mins.device)
     if P == 0:
         return tv                       # nothing to launch
     if K == 0:
         return tv.fill_(2)              # empty conjunction: all FULL
-    build.launch(KERNEL, dev, lo, hi, mins, maxs, nullable, tv, K, P)
+    build.launch(KERNEL, mins.device, lo, hi, mins, maxs, nullable, tv, K, P)
     minmax_prune.launches += 1
     return tv
 

@@ -370,6 +370,109 @@ def topk_boundary_prefix_ref(rows, b_init: float) -> tuple:
     return skip.to(torch.int32), inc[-1].clone()
 
 
+def merge_topk_stable(a, b):
+    """Top-k of lists ``a`` [..., k] and ``b`` [..., k], each descending,
+    by a stable sort of ``a`` then ``b``: equal values keep their order
+    and ``a``'s come first (-0.0 and +0.0 are equal values), as every
+    merge of ``csrc/topk_boundary.cu`` does."""
+    k = a.shape[-1]
+    return torch.sort(torch.cat([a, b], dim=-1), dim=-1, descending=True,
+                      stable=True).values[..., :k]
+
+
+def _topk_walk(rows, b: float, heap):
+    """(skip, heap): the sequential boundary scan of ``topk_boundary_ref``
+    started from ``heap``, with stable merges (``merge_topk_stable``)."""
+    P, k = rows.shape
+    skip = torch.ones(P, dtype=torch.int32, device=rows.device)
+    heads = rows[:, 0]
+    neg = float("-inf")
+    pos = 0
+    while pos < P:
+        h_kth = float(heap[k - 1])
+        full = h_kth > neg
+        seg = heads[pos:]
+        skipped = seg < max(b, h_kth if full else neg)
+        if full:
+            skipped |= seg <= h_kth
+        merging = torch.nonzero(~skipped)
+        if not merging.numel():
+            break
+        j = pos + int(merging[0, 0])
+        skip[j] = 0
+        heap = merge_topk_stable(heap, rows[j])
+        pos = j + 1
+    return skip, heap
+
+
+def scan_group(m: int) -> int:
+    """Heaps a group of the tiled scan's pass B for m heaps: about
+    sqrt(m) (``csrc/topk_boundary.cu``)."""
+    g = 1
+    while g * g < m:
+        g += 1
+    return -(-m // g)
+
+
+def _inclusive_scan(lists):
+    """Inclusive Hillis-Steele scan of [m, k] heaps, the earlier list
+    first in every merge."""
+    d = 1
+    while d < len(lists):
+        lists = torch.cat([lists[:d], merge_topk_stable(lists[:-d],
+                                                        lists[d:])])
+        d *= 2
+    return lists
+
+
+def topk_boundary_tiled_ref(rows, b_init: float, tile: int) -> tuple:
+    """(skip [P] int32, heap [k] f32): the boundary scan as
+    ``csrc/topk_boundary.cu`` runs it on tiles of ``tile`` rows, in plain
+    torch; equal to ``topk_boundary_ref``.
+
+    A row the scan skips while the heap is full holds only values <= the
+    heap's k-th, so merging it would change no value of the heap, and a
+    row whose head is below ``b_init`` is always skipped.  Hence the heap
+    before row j is the top-k of the rows i < j with ``rows[i, 0] >=
+    b_init``, equal values in row order.  Pass A scans each tile from an
+    empty heap (its final heap is that top-k over the tile); pass B scans
+    the first n - 1 tile heaps in groups of ``scan_group(n - 1)``, then
+    the groups' totals (inclusive Hillis-Steele scans, each pair merged
+    with the earlier list first); pass C scans each tile again from the
+    heap before it (its group's scanned heap behind the scanned totals of
+    the groups before), where the skips are the sequential scan's.  The
+    final heap is the last tile's.  Every merge is stable, so the heap's
+    -0.0 and +0.0 stand where the sequential scan's stable merge puts them
+    (``topk_boundary_ref``'s sort is stable up to 16 values, k <= 8, on
+    the CPU)."""
+    P, k = rows.shape
+    dev = rows.device
+    b = float(b_init)
+    empty = torch.full((k,), float("-inf"), dtype=torch.float32, device=dev)
+    if P == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev), empty
+    tiles = [rows[s:s + tile] for s in range(0, P, tile)]
+    heaps = torch.stack([_topk_walk(t, b, empty)[1] for t in tiles[:-1]]
+                        + [empty])
+    m = len(tiles) - 1
+    group = scan_group(m) if m > 1 else 1
+    local = torch.cat([_inclusive_scan(heaps[s:min(s + group, m)])
+                       for s in range(0, m, group)] + [heaps[m:]])
+    totals = _inclusive_scan(local[group - 1:m:group] if m % group == 0
+                             else torch.cat([local[group - 1:m:group],
+                                             local[m - 1:m]]))
+    skips, heap = [], empty
+    for t, rows_t in enumerate(tiles):
+        start = empty
+        if t:
+            g = (t - 1) // group
+            start = local[t - 1] if g == 0 else \
+                merge_topk_stable(totals[g - 1], local[t - 1])
+        s, heap = _topk_walk(rows_t, b, start)
+        skips.append(s)
+    return torch.cat(skips), heap
+
+
 def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     """Softmax attention over q [BH, Sq, D] and k, v [BH, Sk, D] in f32,
     as the JAX package's ``ref.flash_attention_ref``: scale ``D ** -0.5``,

@@ -14,7 +14,8 @@ signed f32 rows, descending, -inf padded): heap [Q, k], descending,
 block-top-k rows [P, k] (``ops.build_block_topk``, in processing order)
 walked one after another with the global heap carried along; it returns
 each row's skip flag and the final heap (``ref.topk_boundary_ref`` states
-the rule).
+the rule).  The kernel runs it on tiles of rows, on every SM, with the
+same result (``ref.topk_boundary_tiled_ref``).
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/topk_init_batched.cu``, ``csrc/topk_boundary.cu``, built at first
@@ -123,10 +124,26 @@ def launch_checked(plane: torch.Tensor, offsets: torch.Tensor,
 topk_init_batched.launches = 0
 
 
-# Largest heap of the boundary scan: the kernel keeps the heap, the row
-# being merged and the merge target in dynamic shared memory, 3 * k * 4
+# Largest heap of the boundary scan: a block keeps the heap, the merge
+# target and at least one staged row in dynamic shared memory, 3 * k * 4
 # bytes (192 KB at 16384, under the 227 KB a block can opt in to).
 MAX_K_SCAN = 16384
+# The scan's tiles (csrc/topk_boundary.cu): a block walks SCAN_SUB rows at
+# a time, the launch aims at TILES_PER_SM tiles an SM, and pass B scans the
+# first n - 1 of the n tile heaps, at most SCAN_FLOATS floats.
+SCAN_SUB = 2048
+TILES_PER_SM = 2
+SCAN_FLOATS = 24576
+
+
+def scan_tile(P: int, k: int, sms: int) -> int:
+    """Rows a tile of the boundary scan: about TILES_PER_SM * sms tiles,
+    fewer where their heaps would pass SCAN_FLOATS, a multiple of
+    SCAN_SUB and at least k rows (the tile heaps then take no more room
+    than the rows' heads)."""
+    tiles = max(1, min(TILES_PER_SM * sms, SCAN_FLOATS // k))
+    T = max(-(-P // tiles), k, SCAN_SUB)
+    return -(-T // SCAN_SUB) * SCAN_SUB
 
 
 def topk_boundary(
@@ -150,11 +167,33 @@ def topk_boundary(
     check_tensor("rows", rows, torch.float32, (P, k), dev)
     if not build.runs_kernel(dev):
         return topk_boundary_ref(rows, b32)
+    return scan_launch_checked(rows, b32)
+
+
+def scan_launch_checked(rows: torch.Tensor, b32: float, tile=None):
+    """The boundary scan's launches alone, on CUDA inputs that
+    ``topk_boundary`` has checked and an f32 ``b32``: (skip, heap), one
+    count however many launches.  ``tile`` rows a tile (default
+    ``scan_tile``); ``chip_smoke.py`` times this beside the wrapper."""
+    P, k = rows.shape
+    dev = rows.device
     skip = torch.empty(P, dtype=torch.int32, device=dev)
-    heap = torch.full((k,), float("-inf"), dtype=torch.float32, device=dev)
-    if P == 0:
-        return skip, heap               # nothing to scan
-    build.launch(KERNEL_SCAN, dev, rows, b32, skip, heap, P, k)
+    if P == 0:                          # nothing to scan: an empty heap
+        return skip, torch.full((k,), float("-inf"), dtype=torch.float32,
+                                device=dev)
+    heap = torch.empty(k, dtype=torch.float32, device=dev)  # written whole
+    if tile is None:
+        tile = scan_tile(P, k, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    n = -(-P // tile)
+    if (n - 1) * k > SCAN_FLOATS:
+        raise KernelError(f"{n} tiles of k = {k}: their heaps pass "
+                          f"{SCAN_FLOATS} floats")
+    # tile heaps and pass B's group totals, then the row heads pass A
+    # copies for pass C
+    work = torch.empty(2 * n * k + (P if n > 1 else 0), dtype=torch.float32,
+                       device=dev)
+    build.launch(KERNEL_SCAN, dev, rows, b32, skip, heap, work, P, k, tile)
     topk_boundary.launches += 1
     return skip, heap
 

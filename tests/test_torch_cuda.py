@@ -29,9 +29,12 @@ from repro_torch.kernels.ref import (bloom_probe_batched_ref,
                                     topk_init_batched_ref)
 from repro_torch.kernels.topk_boundary import topk_init_batched
 from repro_torch.kernels.join_overlap import join_overlap
+from repro_torch.kernels import minmax_prune as minmax_mod
+from repro_torch.kernels import topk_boundary as topk_mod
 from repro_torch.kernels.minmax_prune import minmax_prune
 from repro_torch.kernels.ref import (join_overlap_ref, minmax_prune_ref,
-                                    topk_boundary_ref)
+                                    topk_boundary_ref,
+                                    topk_boundary_tiled_ref)
 from repro_torch.kernels.topk_boundary import MAX_K_SCAN, topk_boundary
 
 F32_MAX = np.float32(np.finfo(np.float32).max)
@@ -551,6 +554,36 @@ def test_minmax_prune_equals_plain_version(cuda, K, P):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("K,P,offset", [
+    (1, 4097, 0), (2, 4098, 0), (3, 4099, 0),     # P = 1, 2, 3 mod 4
+    (2, 100_000, 1), (3, 4096, 2), (1, 4096, 3),  # rows off 16 bytes
+    (2049, 1001, 1), (2, 1 << 20, 0), (2, (1 << 20) + 3, 2),
+])
+def test_minmax_prune_alignment_equals_plain_version(cuda, K, P, offset):
+    """The 16-byte loads and stores against the plain version where the
+    stat rows are not 16-byte aligned: P not a multiple of 4 (rows after
+    the first start off 16 bytes) and the three planes as views of one
+    tensor at ``offset`` floats; ``launch_checked`` (the launch alone)
+    equals the wrapper."""
+    rng = np.random.default_rng(K * 13 + P + offset)
+    lo, hi, *planes = range_problem(rng, K, P, edges=True, denormals=True)
+    buf = torch.zeros(offset + 3 * K * P, device=cuda)
+    stats = [buf[offset + i * K * P:offset + (i + 1) * K * P].view(K, P)
+             for i in range(3)]
+    for view, a in zip(stats, planes):
+        view.copy_(torch.from_numpy(a))
+    assert (stats[0].data_ptr() % 16 != 0) == (offset != 0)
+    args = [torch.from_numpy(lo).to(cuda), torch.from_numpy(hi).to(cuda),
+            *stats]
+    before = minmax_prune.launches
+    got = minmax_prune(*args)
+    alone = minmax_mod.launch_checked(*args)
+    torch.cuda.synchronize()
+    assert minmax_prune.launches == before + 2
+    want = minmax_prune_ref(*args)
+    assert torch.equal(got, want) and torch.equal(alone, want)
+
+
 @pytest.mark.parametrize("P,D", [
     (1, 1), (7, 60), (2049, 4096), (100_000, 4097),
     # key lists longer than the kernel's shared-memory tile: in place
@@ -592,6 +625,92 @@ def test_topk_boundary_equals_plain_version(cuda, P, k, order, lo, hi):
         assert torch.equal(skip, want_skip) and torch.equal(heap, want_heap)
     if order == "ascending":
         assert not skip.any()
+
+
+def signed_zero_rows(rng, P, k):
+    """[P, k] rows of small integers with -0.0 beside +0.0 (equal
+    values the merges must keep in order), 10% all -inf."""
+    rows, _ = topk_problem(rng, P, k, lo=-3, hi=3)
+    rows[(rows == 0) & (rng.random(rows.shape) < 0.5)] = -0.0
+    rows[rng.random(P) < 0.1] = -np.inf
+    return np.ascontiguousarray(-np.sort(-rows, axis=1))
+
+
+@pytest.mark.parametrize("P,k,order,tile", [
+    # tile edges at the wrapper's tile (2048 rows up to P = 264 x 2048 on
+    # 132 SMs; 4096 at P = 2**20)
+    (2047, 8, "random", None), (2048, 8, "random", None),
+    (2049, 8, "random", None), (4095, 25, "descending", None),
+    (4096, 25, "random", None), (4097, 25, "random", None),
+    ((1 << 20) - 1, 25, "descending", None),
+    ((1 << 20) + 1, 25, "random", None),
+    # phase 4's k at P = 2**20, and a heap of 200
+    (1 << 20, 25, "random", None), (1 << 20, 200, "random", None),
+    (1 << 20, 200, "descending", None),
+    # tiles of a few rows, and k above the tile at a small P
+    (3000, 8, "random", 1), (5000, 8, "ascending", 7),
+    (3000, 25, "random", 64), (40, 3000, "random", 7),
+    (60, 2048, "descending", 7),
+])
+def test_topk_boundary_tiles_equal_plain_version(cuda, P, k, order, tile):
+    """The tiled scan (passes A-C) against the sequential plain version
+    at the tile edges, at P = 2**20 and with tiles given by hand through
+    ``scan_launch_checked``, which equals the wrapper; one count a call."""
+    rng = np.random.default_rng(P + 31 * k)
+    rows, b_init = topk_problem(rng, P, k, order=order, lo=-1000, hi=1000)
+    if order != "ascending":
+        rows[rng.random(P) < 0.1] = -np.inf
+    rows_d = torch.from_numpy(rows).to(cuda)
+    for b in (float("-inf"), float(b_init),
+              float(np.median(rows[:, 0]))):
+        before = topk_boundary.launches
+        if tile is None:
+            skip, heap = topk_boundary(rows_d, b)
+            alone = topk_mod.scan_launch_checked(rows_d, b)
+        else:
+            skip, heap = topk_mod.scan_launch_checked(rows_d, b, tile)
+            alone = topk_boundary(rows_d, b)
+        torch.cuda.synchronize()
+        assert topk_boundary.launches == before + 2
+        want_skip, want_heap = topk_boundary_ref(rows_d, b)
+        assert torch.equal(skip, want_skip) and torch.equal(heap, want_heap)
+        assert torch.equal(alone[0], skip) and torch.equal(alone[1], heap)
+
+
+@pytest.mark.parametrize("k", [4, 25])
+def test_topk_boundary_every_row_merges_at_p_2_20(cuda, k):
+    """Strictly rising heads at P = 2**20: every row merges, so no row is
+    skipped and the heap is the top-k of all values (the sequential plain
+    version would take a million sorts)."""
+    P = 1 << 20
+    rows = (2.0 * torch.arange(P, device=cuda, dtype=torch.float32))[:, None] \
+        - torch.arange(k, device=cuda, dtype=torch.float32)[None, :]
+    skip, heap = topk_boundary(rows.contiguous())
+    torch.cuda.synchronize()
+    assert not skip.any()
+    assert torch.equal(heap, torch.topk(rows.flatten(), k).values)
+
+
+@pytest.mark.parametrize("P,k,tile", [
+    (3000, 8, None), (3000, 8, 7), (5000, 25, 64), (300, 3, 1),
+])
+def test_topk_boundary_keeps_signed_zeros_in_order(cuda, P, k, tile):
+    """-0.0 beside +0.0: the heap's bits equal the stable tiled plain
+    version's (equal values in row order), its values the sequential plain
+    version's, and the skips both."""
+    rng = np.random.default_rng(P + k)
+    rows = signed_zero_rows(rng, P, k)
+    rows_d = torch.from_numpy(rows).to(cuda)
+    for b in (float("-inf"), 0.0, -0.0, 1.0):
+        skip, heap = topk_mod.scan_launch_checked(rows_d, b, tile)
+        torch.cuda.synchronize()
+        want_skip, want_heap = topk_boundary_tiled_ref(
+            torch.from_numpy(rows), b, 97)
+        assert torch.equal(skip.cpu(), want_skip)
+        assert torch.equal(heap.cpu().view(torch.int32),
+                           want_heap.view(torch.int32))
+        seq_skip, seq_heap = topk_boundary_ref(rows_d, b)
+        assert torch.equal(skip, seq_skip) and torch.equal(heap, seq_heap)
 
 
 def test_per_query_kernels_reject_inputs_on_the_card(cuda):

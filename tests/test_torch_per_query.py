@@ -3,7 +3,8 @@
 ``ops.prune_ranges_device``, ``ops.join_overlap_device`` and
 ``ops.topk_boundary_device`` with their kernels' plain versions
 (``ref.minmax_prune_ref``, ``ref.join_overlap_ref``,
-``ref.topk_boundary_ref`` and ``ref.topk_boundary_prefix_ref``) against
+``ref.topk_boundary_ref`` and ``ref.topk_boundary_prefix_ref``, and the
+CUDA scan's tiled formulation ``ref.topk_boundary_tiled_ref``) against
 the JAX package's jnp oracles and its Pallas kernels in interpret mode,
 the f64 host engine and the port's batched path (row q of a batched
 launch equals the per-query call for query q).  Verdicts, hits, skips and
@@ -35,6 +36,7 @@ from repro_torch.core.prune_topk import run_topk, topk_oracle
 from repro_torch.data.table import Table as TTable
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import topk_boundary as tb
 from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.join_overlap import join_overlap
 from repro_torch.kernels.minmax_prune import minmax_prune
@@ -393,6 +395,86 @@ def test_topk_boundary_device_matches_host_engine(k, desc):
     r_skip, r_heap = rops.topk_boundary_device(rows[order], mode="interpret")
     np.testing.assert_array_equal(skip, np.asarray(r_skip))
     np.testing.assert_array_equal(heap, np.asarray(r_heap))
+
+
+# ---------------------------------------------------------------------------
+# the tiled boundary scan of csrc/topk_boundary.cu (ref.topk_boundary_tiled_ref)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("P,k,order,tile,b_kind,zeros,seed", [
+    (1, 1, "random", 1, "none", False, 0),
+    (50, 4, "random", 1, "none", False, 1),          # a row a tile
+    (50, 4, "random", 2, "median", False, 2),
+    (120, 8, "random", 7, "none", False, 3),
+    (120, 8, "descending", 7, "median", False, 4),
+    (120, 8, "random", 120, "median", False, 5),     # one tile
+    (77, 3, "ascending", 7, "none", False, 6),       # every row merges
+    (77, 3, "ascending", 2, "median", False, 7),
+    (200, 16, "random", 7, "above", False, 8),       # every row skipped
+    (200, 16, "descending", 1, "none", False, 9),
+    (300, 2, "random", 400, "none", False, 10),      # a tile past P
+    (40, 8, "random", 7, "all_neg_inf", False, 11),
+    (60, 6, "random", 2, "none", True, 12),          # -0.0 beside +0.0
+    (60, 6, "descending", 7, "median", True, 13),
+])
+def test_tiled_scan_equals_sequential_scan_and_pallas_interpret(
+        P, k, order, tile, b_kind, zeros, seed):
+    """Passes A-C of the CUDA scan in plain torch against the sequential
+    plain version (skips and heap bits, -0.0 and +0.0 told apart) and the
+    JAX package's Pallas kernel in interpret mode (skips; heap values, and
+    bits where a value is not zero: the Pallas merge's one-hot sum returns
+    +0.0 for a selected -0.0).  Heads from a narrow integer range tie; 15%
+    of the rows are all -inf.  Up to 16 values (k <= 8) the plain
+    version's sort is stable on the CPU, so it places signed zeros as the
+    stable merges do."""
+    rng = np.random.default_rng(seed)
+    rows, _ = topk_problem(rng, P, k, order=order, lo=-6, hi=6)
+    if order != "ascending":
+        rows[rng.random(P) < 0.15] = -np.inf
+    if b_kind == "all_neg_inf":
+        rows[:] = -np.inf
+    if zeros:
+        flip = (rows == 0) & (rng.random(rows.shape) < 0.5)
+        rows[flip] = -0.0
+        rows = np.ascontiguousarray(-np.sort(-rows, axis=1))
+        assert flip.any() and (rows == 0).sum() > flip.sum()
+    b_init = {"none": NEG, "all_neg_inf": NEG,
+              "median": float(np.median(rows[:, 0])),
+              "above": float(np.nanmax(rows[:, 0])) + 1.0}[b_kind]
+    skip, heap = tref.topk_boundary_tiled_ref(*_t(rows), b_init, tile)
+    want_skip, want_heap = tref.topk_boundary_ref(*_t(rows), b_init)
+    assert skip.dtype == torch.int32 and torch.equal(skip, want_skip)
+    assert torch.equal(heap.view(torch.int32), want_heap.view(torch.int32))
+    skip_p, heap_p = pallas_topk_boundary(jnp.asarray(rows),
+                                          jnp.float32(b_init), interpret=True)
+    np.testing.assert_array_equal(skip.numpy(), np.asarray(skip_p))
+    got, pallas = heap.numpy(), np.asarray(heap_p)
+    np.testing.assert_array_equal(got, pallas)
+    nz = got != 0
+    np.testing.assert_array_equal(got[nz].view(np.int32),
+                                  pallas[nz].view(np.int32))
+    if b_kind == "above":
+        assert skip.all()
+    if order == "ascending" and b_init == NEG:
+        assert not skip.any()
+
+
+@pytest.mark.parametrize("P,k,sms", [
+    (1, 1, 132), (2049, 8, 132), (1 << 20, 25, 132), (1 << 20, 200, 132),
+    ((1 << 20) + 1, 25, 132), (1 << 21, 1, 132), (40, MAX_K_SCAN, 132),
+    (100_000, 3000, 132), (1 << 20, 25, 1),
+])
+def test_scan_tile_fills_the_card_within_shared_memory(P, k, sms):
+    """The scan's tile: a multiple of the walk's sub-tile, at least k rows,
+    about two tiles an SM, and pass B's n - 1 heaps within its shared
+    memory; phase 4's shape (P = 2**20, k = 25) runs on many blocks."""
+    T = tb.scan_tile(P, k, sms)
+    n = -(-P // T)
+    assert T % tb.SCAN_SUB == 0 and T >= k
+    assert n <= max(1, tb.TILES_PER_SM * sms)
+    assert (n - 1) * k <= tb.SCAN_FLOATS
+    if (P, k, sms) == (1 << 20, 25, 132):
+        assert (T, n) == (4096, 256)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """What the variant-timing tools share: edited copies of a kernel's source,
 built side by side, and times taken in turns.
 
-``tools/flash_variants.py`` and ``tools/prune_variants.py`` import it.
+``tools/flash_variants.py``, ``tools/prune_variants.py`` and
+``tools/per_query_variants.py`` import it.
 Every helper that builds or times needs a CUDA card and ``nvcc``.
 """
 
@@ -53,15 +54,43 @@ def compile_all(jobs: dict, out: Path) -> dict:
     return regs
 
 
-def time_in_turns(calls: dict, reps: int) -> dict:
-    """name -> [ms forward, ms backward]: ``chip_smoke.cuda_ms`` of each
-    call over ``reps`` runs, the calls taken in order and then in reverse,
-    so that a drift of the card's clock favours none of them."""
+# Cycles of the device-side spin ``spin_ms`` queues ahead of each run:
+# ~0.5 ms at the H100's clock, longer than a wrapper's host enqueue.
+SPIN_CYCLES = 1_000_000
+
+
+def spin_ms(fn, reps: int) -> float:
+    """``chip_smoke.cuda_ms`` with a device-side spin (``torch.cuda._sleep``)
+    between the L2 flush and the start event: the card is busy while the
+    host enqueues the events and ``fn``'s launches, so the events time the
+    device alone, not the enqueue."""
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for e0, e1 in zip(starts, ends):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / reps
+
+
+def time_in_turns(calls: dict, reps: int, timer=None) -> dict:
+    """name -> [ms forward, ms backward]: ``timer`` (``chip_smoke.cuda_ms``
+    unless given) of each call over ``reps`` runs, the calls taken in order
+    and then in reverse, so that a drift of the card's clock favours none
+    of them."""
     import chip_smoke as cs
 
+    timer = timer or cs.cuda_ms
     times = {}
     for name in list(calls) + list(calls)[::-1]:
-        times.setdefault(name, []).append(cs.cuda_ms(calls[name], reps))
+        times.setdefault(name, []).append(timer(calls[name], reps))
     return times
 
 
