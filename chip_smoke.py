@@ -28,7 +28,13 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
          3's largest group at P = 2**20 - 1;
        * ``join_overlap_batched`` with +inf key padding, drop and capacity
          sentinels (+f32max, -f32max), keys on a partition's bounds and
-         key rows longer than the kernel's shared-memory tile;
+         key rows longer than the kernel's staged capacity, on random
+         planes and on clustered ones (narrow, nearly sorted intervals
+         as in the events plane, all-empty tiles, Q up to 70, past a
+         block's query chunk), and tiles whose key windows take each of
+         the kernel's paths (empty, in a warp's lanes, staged, in place;
+         the count of (query, tile) windows on each is logged and none
+         may be 0);
        * ``bloom_probe_batched`` with widths 0 and above the enumeration
          limit, negative candidates and both ends of int32, and filters
          of 1, 8, 256 and 1024 blocks; at Q in {1, 16, 32, 33, 70} and
@@ -44,8 +50,10 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
          2**21}: ``minmax_prune`` with K in {1, 3} and, at the small P,
          {2049, 8192} (past its shared tile), empty intervals, bounds on a
          stat, denormals; ``join_overlap`` with D in {1, 64, 4096, 4097,
-         9000} (past its shared tile), keys on a partition's bounds,
-         denormals, keys at both infinities and empty partitions;
+         9000} (past its staged capacity), keys on a partition's bounds,
+         denormals, keys at both infinities and empty partitions, and
+         clustered intervals with -0.0 and infinite keys and each window
+         path taken, as for the batched kernel;
          ``topk_boundary`` with k in {1, 8, 64} and its largest k, random,
          descending and (P <= 2049) ascending row orders, ties, all -inf
          rows, with and without an upfront boundary, and k in {1, 8, 25}
@@ -460,11 +468,11 @@ def join_cases(rng, dev, sizes) -> dict:
     import torch
 
     from repro_torch.core.device_stats import plane_capacity
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.join_overlap import join_overlap_batched
     from repro_torch.kernels.ref import join_overlap_batched_ref
 
-    cases, max_p = 0, 0
+    cases, max_p, paths = 0, 0, {}
     grid = [(P, Q, D) for P in sizes for Q in (1, 7, 48)
             for D in (1, 64, 4096)] + [(4097, 3, 9000)]
     for P, Q, max_keys in grid:
@@ -489,9 +497,123 @@ def join_cases(rng, dev, sizes) -> dict:
         want = join_overlap_batched_ref(dist, *plane, num_partitions=P)
         require_equal("join_overlap_batched", got, want,
                       f"Q={Q} Db={dist.shape[1]} P={P}")
+        add_paths(paths, dist, *plane, ref.JOIN_TILE_BATCHED, P)
         max_p = max(max_p, P)
         cases += 1
-    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+    # clustered planes (the events plane's shape: narrow, nearly sorted
+    # intervals, all-empty tiles) with sparse and dense key rows, and
+    # tiles whose windows take each path of the kernel
+    for P, Q, n_keys in [(P, Q, n) for P in sizes for Q in (1, 16, 70)
+                         for n in (40, 3000)] + [(None, 3, None),
+                                                 (None, 70, None)]:
+        if P is None:
+            pmin, pmax, keys = window_plane(rng, WINDOW_SIZES,
+                                            ref.JOIN_TILE_BATCHED, F32_MAX)
+            P = pmin.size
+            cap = plane_capacity(P)
+            pmin = np.concatenate([pmin, np.full(cap - P, F32_MAX)])
+            pmax = np.concatenate([pmax, np.full(cap - P, -F32_MAX)])
+            lists = [keys[int(rng.integers(0, 3)):][::int(rng.integers(1, 3))]
+                     for _ in range(Q - 1)] + [keys]
+        else:
+            cap = plane_capacity(P)
+            pmin, pmax = clustered_join_plane(rng, P, cap, F32_MAX,
+                                              ref.JOIN_TILE_BATCHED)
+            lists = [clustered_join_keys(rng, pmin, pmax, P, n_keys,
+                                         ref.JOIN_TILE_BATCHED)
+                     for _ in range(Q)]
+        dist = torch.from_numpy(ops.pack_distinct(lists)).to(dev)
+        plane = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in (pmin, pmax)]
+        got = join_overlap_batched(dist, *plane, num_partitions=P)
+        sync(dev)
+        want = join_overlap_batched_ref(dist, *plane, num_partitions=P)
+        require_equal("join_overlap_batched", got, want,
+                      f"clustered Q={Q} Db={dist.shape[1]} P={P}")
+        add_paths(paths, dist, *plane, ref.JOIN_TILE_BATCHED, P)
+        max_p = max(max_p, P)
+        cases += 1
+    log_paths("join_overlap_batched", paths)
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p, paths=paths)
+
+
+# Key windows a tile of window_plane holds: empty, 1 and 32 (held in a
+# warp's lanes), 1,024 and 4,096 (staged), 33, 1,023, 4,097 and 9,000 (in
+# place)
+WINDOW_SIZES = (0, 1, 32, 33, 1023, 1024, 4096, 4097, 9000, 0)
+
+
+def clustered_join_plane(rng, P, cap, sentinel, tile):
+    """Join-key intervals like the events table's ``user_id`` ones: at most
+    40 ids wide over a running sum of small steps (nearly sorted), 5% and
+    two whole tiles of ``tile`` partitions empty (``sentinel``,
+    -``sentinel``), the capacity tail too."""
+    start = np.cumsum(rng.integers(0, 4, cap)) + rng.integers(-2, 3, cap)
+    pmin = start.astype(np.float32)
+    pmax = (start + rng.integers(0, 41, cap)).astype(np.float32)
+    gone = rng.random(cap) < 0.05
+    t0 = (P // 3) // tile * tile
+    if 4 * tile <= P:
+        gone[t0:t0 + 2 * tile] = True
+    gone[P:] = True
+    pmin[gone], pmax[gone] = sentinel, -sentinel
+    return pmin, pmax
+
+
+def clustered_join_keys(rng, pmin, pmax, P, n, tile):
+    """At most n distinct ids over the live range of the first P intervals,
+    sorted, with one tile's min pmin and max pmax among them."""
+    live = pmin[:P] <= pmax[:P]
+    if not live.any():
+        return np.array([1.0], np.float32)
+    lo, hi = float(pmin[:P][live].min()), float(pmax[:P][live].max())
+    keys = rng.integers(int(lo) - 50, int(hi) + 50, n)
+    t = int(rng.integers(0, -(-P // tile)))
+    s = slice(t * tile, min((t + 1) * tile, P))
+    if live[s].any():
+        keys = np.append(keys, [pmin[s][live[s]].min(),
+                                pmax[s][live[s]].max()])
+    return np.unique(keys).astype(np.float32)
+
+
+def window_plane(rng, sizes, tile, sentinel):
+    """Intervals [len(sizes) * tile] and the keys 0, 1, 2, ... such that
+    tile i's key window holds exactly sizes[i] keys (its first partition
+    spans the window, the others lie inside, 10% empty)."""
+    pmin = np.empty(len(sizes) * tile, np.float32)
+    pmax = np.empty_like(pmin)
+    at = 0
+    for i, w in enumerate(sizes):
+        s = slice(i * tile, (i + 1) * tile)
+        if w == 0:
+            pmin[s], pmax[s] = at + 0.25, at + 0.75
+        else:
+            lo = at + rng.integers(0, w, tile)
+            pmin[s] = lo
+            pmax[s] = np.minimum(lo + rng.integers(0, 40, tile), at + w - 1)
+            pmin[i * tile], pmax[i * tile] = at, at + w - 1
+            empty = rng.random(tile) < 0.1
+            empty[0] = False
+            pmin[s][empty], pmax[s][empty] = sentinel, -sentinel
+        at += w + 1
+    return pmin, pmax, np.arange(at, dtype=np.float32)
+
+
+def add_paths(paths: dict, keys, pmin, pmax, tile: int, P: int) -> None:
+    """Add to ``paths`` the (query, tile) windows of these inputs by the
+    kernel path each takes (``ref.window_paths``)."""
+    from repro_torch.kernels import ref
+    rows = keys if keys.dim() == 2 else keys[None]
+    for k, v in ref.window_paths(*ref.join_windows(rows, pmin, pmax, tile,
+                                                   P)).items():
+        paths[k] = paths.get(k, 0) + v
+
+
+def log_paths(name: str, paths: dict) -> None:
+    log(f"[kernels] {name}: (query, tile) windows by path: " + ", ".join(
+        f"{k} {v}" for k, v in paths.items()))
+    if min(paths.values()) == 0:
+        raise SystemExit(f"{name}: a window path was never taken: {paths}")
 
 
 def bloom_cases(rng, dev, sizes, limit: int = 64) -> dict:
@@ -723,14 +845,17 @@ def minmax_single_cases(rng, dev, sizes) -> dict:
 
 def join_single_cases(rng, dev, sizes) -> dict:
     """``join_overlap``: key lists of D from 1 past the kernel's
-    4096-key shared tile, keys on a partition's bounds, denormal intervals
-    and keys, keys at both infinities and empty partitions (+inf, -inf)."""
+    4096-key staged capacity, keys on a partition's bounds, denormal
+    intervals and keys, keys at both infinities and empty partitions
+    (+inf, -inf); then clustered intervals and tiles whose windows take
+    each of the kernel's paths."""
     import torch
 
+    from repro_torch.kernels import ref
     from repro_torch.kernels.join_overlap import join_overlap
     from repro_torch.kernels.ref import join_overlap_ref
 
-    cases, max_p = 0, 0
+    cases, max_p, paths = 0, 0, {}
     for P in sizes:
         pmin = rng.integers(-5000, 10_000, P).astype(np.float32)
         pmax = pmin + rng.integers(0, 100, P).astype(np.float32)
@@ -755,9 +880,40 @@ def join_single_cases(rng, dev, sizes) -> dict:
             sync(dev)
             require_equal("join_overlap", got, join_overlap_ref(*plane, d),
                           f"P={P} D={int(d.numel())}")
+            add_paths(paths, d, *plane, ref.JOIN_TILE_SINGLE, P)
             max_p = max(max_p, P)
             cases += 1
-    return dict(cases=cases, max_abs_err=0.0, max_p=max_p)
+    # clustered intervals with all-empty tiles, keys at both infinities and
+    # -0.0, intervals that are a zero or reach +inf, and tiles whose
+    # windows take each path of the kernel
+    inf = np.float32(np.inf)
+    for P, n_keys in [(P, n) for P in sizes for n in (40, 7132)] + [
+            (None, None)]:
+        if P is None:
+            pmin, pmax, keys = window_plane(rng, WINDOW_SIZES,
+                                            ref.JOIN_TILE_SINGLE, inf)
+            P = pmin.size
+        else:
+            pmin, pmax = clustered_join_plane(rng, P, P, inf,
+                                              ref.JOIN_TILE_SINGLE)
+            keys = clustered_join_keys(rng, pmin, pmax, P, n_keys,
+                                       ref.JOIN_TILE_SINGLE)
+            keys = np.unique(np.concatenate([keys, [-inf, inf, 0.0]])
+                             ).astype(np.float32)
+            keys[keys == 0] = np.float32(-0.0)
+            if P >= 4:
+                pmin[1:4], pmax[1:4] = [0.0, 7.0, inf], [0.0, inf, inf]
+        plane = [torch.from_numpy(a).to(dev) for a in (pmin, pmax)]
+        d = torch.from_numpy(keys).to(dev)
+        got = join_overlap(*plane, d)
+        sync(dev)
+        require_equal("join_overlap", got, join_overlap_ref(*plane, d),
+                      f"clustered P={P} D={int(d.numel())}")
+        add_paths(paths, d, *plane, ref.JOIN_TILE_SINGLE, P)
+        max_p = max(max_p, P)
+        cases += 1
+    log_paths("join_overlap", paths)
+    return dict(cases=cases, max_abs_err=0.0, max_p=max_p, paths=paths)
 
 
 def topk_rows(gen, dev, P: int, k: int, order: str, lo: int, hi: int):
@@ -1391,6 +1547,8 @@ def stage_split(svc, queries, events, card, dev):
                 nbytes = 8 * P + Q * P + 4 * Q * Db
                 ops_n = Q * P * (int(math.log2(Db)) + 2)
                 plain = lambda a=a, kw=kw: ref.join_overlap_batched_ref(*a, **kw)
+                work = ref.window_paths(*ref.join_windows(
+                    dist, pmin, pmax, ref.JOIN_TILE_BATCHED, P))
                 lo_e = pmin[:P].expand(Q, P).contiguous()
                 hi_e = pmax[:P].expand(Q, P).contiguous()
                 library = lambda d=dist, lo=lo_e, hi=hi_e: (
@@ -1465,6 +1623,9 @@ def stage_split(svc, queries, events, card, dev):
         sector = ("" if k["bound_sector_ms"] is None else
                   f"; {k['bound_sector_ms']:.4f} ms with each gathered head "
                   f"a 32-byte sector")
+        if tech == "join":
+            sector = (f"; (query, tile) windows by path: " + ", ".join(
+                f"{p} {n}" for p, n in k["work"].items()))
         if k["bound_per_test_ms"] is not None:
             sector = (f"; {k['bound_per_test_ms']:.4f} ms counting 28 "
                       f"operations a (candidate, query) test; "
@@ -1537,6 +1698,17 @@ def minmax_roles(lowered, stats, dev):
     return need, widest, max(need)[1]
 
 
+def join_key_lists(ctx: dict) -> list:
+    """Each join query's distinct build keys (the ids of the users_20k
+    rows its predicate keeps), sorted: the per-query path's key lists."""
+    from repro_torch.core.rowval import matches
+    build = ctx["build"]
+    bctx = build.global_ctx()
+    ids, id_nulls = bctx.col("id")
+    return [np.unique(ids[matches(q.scans["users"].pred, bctx) & ~id_nulls])
+            for q in ctx["join_queries"]]
+
+
 def picked_topk(ctx: dict) -> list:
     """Four unfiltered top-k queries of the traffic, two in each direction
     where there are: the per-query path's top-k scans."""
@@ -1589,13 +1761,12 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
     from repro_torch.core.flow import PruningPipeline
     from repro_torch.core.metadata import ScanSet
     from repro_torch.core.prune_topk import run_topk, topk_oracle
-    from repro_torch.core.rowval import matches
     from repro_torch.kernels import join_overlap as join_overlap_mod
     from repro_torch.kernels import minmax_prune as minmax_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import topk_boundary as topk_mod
 
-    events, build, svc = ctx["events"], ctx["build"], ctx["svc"]
+    events, svc = ctx["events"], ctx["svc"]
     stats = events.stats
     P = events.num_partitions
     cpu = torch.device("cpu")
@@ -1604,10 +1775,7 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
 
     # inputs of the path, prepared before the counts start
     lowered = lowered_filters(ctx)
-    bctx = build.global_ctx()
-    ids, id_nulls = bctx.col("id")
-    join_keys = [np.unique(ids[matches(q.scans["users"].pred, bctx)
-                               & ~id_nulls]) for q in ctx["join_queries"]]
+    join_keys = join_key_lists(ctx)
     ndv_limit = PruningPipeline(filter_mode="host").join_ndv_limit
     picked = picked_topk(ctx)
     t0 = time.perf_counter()
@@ -1772,15 +1940,19 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
             kern["minmax_prune"] = timed
         else:
             kern["minmax_prune"]["heaviest"] = timed
-    # join_overlap at the longest key list (past the kernel's shared
-    # tile: searched in place), the launch alone; beside it the wrapper
-    # with its sortedness / NaN check, and the launch at the longest list
-    # that fits the tile (the distinct summaries')
+    # join_overlap at the longest key list, the launch alone; beside it
+    # the wrapper with its sortedness / NaN check, and the launch at the
+    # longest distinct summary's list; the (tile, query) windows of both by
+    # the kernel's path
     pmin, pmax, d = ops._stage_join(stats, "user_id",
                                     max(join_keys, key=len), dev)
     d_tile = ops._stage_join(stats, "user_id", max(
         (join_keys[i] for i in small), key=len), dev)[2]
     D = int(d.numel())
+    join_paths = {}
+    for x in (d, d_tile):
+        add_paths(join_paths.setdefault(int(x.numel()), {}), x, pmin, pmax,
+                  ref.JOIN_TILE_SINGLE, P)
     err = max(require_equal("join_overlap", ops.join_overlap(pmin, pmax, x),
                             ref.join_overlap_ref(pmin, pmax, x),
                             "the per-query path") for x in (d, d_tile))
@@ -1794,7 +1966,8 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
         bound_ms=bms, bound_by=bby, max_abs_err=err, shape=dict(D=D, P=P),
         wrapper_ms=cuda_ms(lambda: ops.join_overlap(pmin, pmax, d), 10),
         tile_ms=cuda_ms(lambda: join_overlap_mod.launch_checked(
-            pmin, pmax, d_tile), 10), tile_D=int(d_tile.numel()))
+            pmin, pmax, d_tile), 10), tile_D=int(d_tile.numel()),
+        paths=join_paths)
     # topk_boundary at the first picked query's shape, launch alone
     q = picked[0]
     k = q.limit
@@ -1850,8 +2023,11 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
         f"tiles of {tb['shape']['tile']} rows: {grid}")
     jo = kern["join_overlap"]
     log(f"[per-query] {card}: join_overlap wrapper (key check + launch) "
-        f"{jo['wrapper_ms']:.4f} ms; launch alone at D={jo['tile_D']} (keys "
-        f"in the shared tile) {jo['tile_ms']:.4f} ms")
+        f"{jo['wrapper_ms']:.4f} ms; launch alone at D={jo['tile_D']} (the "
+        f"longest distinct summary) {jo['tile_ms']:.4f} ms; tiles of "
+        f"{ref.JOIN_TILE_SINGLE} partitions, windows by path: " + "; ".join(
+            f"D={n}: " + ", ".join(f"{k} {v}" for k, v in c.items())
+            for n, c in jo["paths"].items()))
     log(f"[per-query] {card}: top-k host run_topk "
         f"{kern['topk_boundary']['host_run_topk_ms']:.1f} ms vs the "
         f"topk_boundary launch {kern['topk_boundary']['ms']:.4f} ms for the "

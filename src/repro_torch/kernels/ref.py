@@ -103,9 +103,10 @@ def join_overlap_batched_ref(dist, pmin, pmax,
     ``dist`` is [Q, Db] f32, each row sorted non-decreasing and +inf
     padded; ``pmin``/``pmax`` are the [Pc] join-key plane rows (finite),
     of which the first ``num_partitions`` (default: all) are evaluated.
-    The kernel's arithmetic in plain tensor ops: a binary search (binary
-    lifting over all partitions at once) for the number of keys below
-    ``pmin``, then that next key against ``pmax``.
+    The searchsorted formulation in plain tensor ops: a binary search
+    (binary lifting over all partitions at once) for the number of keys
+    below ``pmin``, then that next key against ``pmax``.  The CUDA
+    kernel's windowed form of it is ``join_overlap_windowed_ref``.
     """
     Q, Db = dist.shape
     P = int(pmin.shape[0]) if num_partitions is None else int(num_partitions)
@@ -127,6 +128,106 @@ def join_overlap_batched_ref(dist, pmin, pmax,
         key = torch.gather(dist, 1, first.clamp(max=Db - 1))
         hit[:, s:e] = ((first < Db) & (key <= pmax[s:e])).to(torch.int8)
     return hit
+
+
+# Partitions a tile of the CUDA join kernels (``csrc/join_overlap*.cu``:
+# kThreads * kV), and the keys of a window they stage in shared memory:
+# at least kStageMin, at most kStageKeys.
+JOIN_TILE_BATCHED = 2048
+JOIN_TILE_SINGLE = 1024
+JOIN_STAGE_MIN = 1024
+JOIN_STAGE_KEYS = 4096
+
+
+def _group_bounds(pmin, pmax, group: int):
+    """Each group of ``group`` consecutive partitions' [min pmin, max
+    pmax], the last group padded with the empty interval (+inf, -inf); a
+    NaN bound widens its group to (-inf, +inf)."""
+    P = int(pmin.shape[0])
+    pad = -P % group
+    nan = torch.isnan(pmin) | torch.isnan(pmax)
+    lo = torch.where(nan, float("-inf"), pmin)
+    hi = torch.where(nan, float("inf"), pmax)
+    lo = torch.nn.functional.pad(lo, (0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(hi, (0, pad), value=float("-inf"))
+    return lo.view(-1, group).amin(1), hi.view(-1, group).amax(1)
+
+
+def join_windows(keys, pmin, pmax, tile: int,
+                 num_partitions: Optional[int] = None):
+    """(a, b) [Q, tiles] int64: the key window of each (query, tile) --
+    a = #keys < the tile's min pmin, b = #keys <= its max pmax -- for
+    sorted key rows ``keys`` [Q, D] against the first ``num_partitions``
+    of the interval rows.  Only keys[a:b] can hit a partition of the
+    tile; b <= a is an empty window."""
+    P = int(pmin.shape[0]) if num_partitions is None else int(num_partitions)
+    tlo, thi = _group_bounds(pmin[:P], pmax[:P], tile)
+    Q = keys.shape[0]
+    a = torch.searchsorted(keys, tlo.unsqueeze(0).expand(Q, -1).contiguous())
+    b = torch.searchsorted(keys, thi.unsqueeze(0).expand(Q, -1).contiguous(),
+                           right=True)
+    return a, b
+
+
+def window_paths(a, b) -> dict:
+    """How many (query, tile) windows each path of the CUDA join kernels
+    takes: empty (zeros stored, no search), at most 32 keys (held in a
+    warp's lanes), staged in shared memory (``JOIN_STAGE_MIN`` to
+    ``JOIN_STAGE_KEYS`` keys), searched in place (the rest)."""
+    m = b - a
+    staged = (m >= JOIN_STAGE_MIN) & (m <= JOIN_STAGE_KEYS)
+    return dict(empty=int((m <= 0).sum()),
+                lanes=int(((m > 0) & (m <= 32)).sum()),
+                staged=int(staged.sum()),
+                in_place=int(((m > 32) & ~staged).sum()))
+
+
+def join_overlap_windowed_ref(keys, pmin, pmax, tile: int,
+                              warp: Optional[int] = None,
+                              num_partitions: Optional[int] = None
+                              ) -> torch.Tensor:
+    """The CUDA join kernels' arithmetic in plain tensor ops: for sorted
+    key rows ``keys`` [Q, D] (the batched kernel; hit [Q, P] int8) or one
+    sorted list [D] (the single-query kernel; hit [P] int32), each tile of
+    ``tile`` partitions searches only its key window (``join_windows``),
+    narrowed where ``warp`` is given and the window holds fewer than
+    ``JOIN_STAGE_MIN`` keys to each run of ``warp`` partitions' own
+    window, by binary lifting from the window's start (the kernels' other
+    searches find the same count); the first key at or above pmin is then
+    tested against pmax.  Equal to
+    ``join_overlap_batched_ref`` / ``join_overlap_ref`` on sorted keys
+    (a key outside a group's [min pmin, max pmax] lies in no interval of
+    the group); the tests hold it to both."""
+    single = keys.dim() == 1
+    rows = keys.unsqueeze(0) if single else keys
+    Q, D = rows.shape
+    P = int(pmin.shape[0]) if num_partitions is None else int(num_partitions)
+    out_dtype = torch.int32 if single else torch.int8
+    if Q == 0 or P == 0 or D == 0:
+        return torch.zeros((P,) if single else (Q, P), dtype=out_dtype,
+                           device=pmin.device)
+    lo_p, hi_p = pmin[:P], pmax[:P]
+    a, b = join_windows(rows, lo_p, hi_p, tile)
+    # each partition's window: its tile's, narrowed to its warp's
+    at = torch.arange(P, device=pmin.device)
+    aw, bw = a[:, at // tile], b[:, at // tile]
+    if warp is not None:
+        wa, wb = join_windows(rows, lo_p, hi_p, warp)
+        narrow = bw - aw < JOIN_STAGE_MIN
+        aw, bw = (torch.where(narrow, wa[:, at // warp].clamp(aw, bw), aw),
+                  torch.where(narrow, wb[:, at // warp].clamp(aw, bw), bw))
+    cnt = (bw - aw).clamp(min=0)
+    first = torch.zeros_like(cnt)
+    lo = lo_p.unsqueeze(0).expand(Q, P)
+    step = 1 << max(int(cnt.max()).bit_length() - 1, 0)
+    while step:
+        nxt = first + step
+        key = torch.gather(rows, 1, (aw + nxt - 1).clamp(0, D - 1))
+        first = torch.where((nxt <= cnt) & (key < lo), nxt, first)
+        step >>= 1
+    key = torch.gather(rows, 1, (aw + first).clamp(0, D - 1))
+    hit = ((first < cnt) & (key <= hi_p.unsqueeze(0))).to(out_dtype)
+    return hit[0] if single else hit
 
 
 MIX_C1 = 0x85EBCA6B

@@ -29,7 +29,9 @@ from repro_torch.kernels.ref import (bloom_probe_batched_ref,
                                     topk_init_batched_ref)
 from repro_torch.kernels.topk_boundary import topk_init_batched
 from repro_torch.kernels.join_overlap import join_overlap
+from repro_torch.kernels import join_overlap as join_mod
 from repro_torch.kernels import minmax_prune as minmax_mod
+from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels import topk_boundary as topk_mod
 from repro_torch.kernels.minmax_prune import minmax_prune
 from repro_torch.kernels.ref import (join_overlap_ref, minmax_prune_ref,
@@ -229,6 +231,66 @@ def overlap_problem(rng, P, D, edges=False, denormals=False):
     return pmin, pmax, np.unique(keys)[:max(D, 1)].astype(np.float32)
 
 
+def clustered_plane(rng, P, cap, sentinel, empty_run=(0, 0), drop=0.05):
+    """A join-key plane like the events table's ``user_id`` one: nearly
+    sorted intervals at most 40 ids wide over a running sum of small
+    steps, a ``drop`` share and the partitions of ``empty_run`` (a
+    [start, stop) range: all-empty tiles) set to the empty interval
+    (``sentinel``, -``sentinel``), and the capacity tail too."""
+    start = np.cumsum(rng.integers(0, 4, cap)) + rng.integers(-2, 3, cap)
+    pmin = start.astype(np.float32)
+    pmax = (start + rng.integers(0, 41, cap)).astype(np.float32)
+    gone = rng.random(cap) < drop
+    gone[empty_run[0]:empty_run[1]] = True
+    gone[P:] = True
+    pmin[gone], pmax[gone] = sentinel, -sentinel
+    return pmin, pmax
+
+
+def clustered_keys(rng, pmin, pmax, P, n, tile=None):
+    """A sorted distinct key list of at most ``n`` ids drawn over the live
+    range of the first P intervals, plus, with ``tile``, the min pmin and
+    max pmax of a tile of that many partitions (keys on its window's
+    edges)."""
+    live = pmin[:P] <= pmax[:P]
+    if not live.any():
+        return np.array([1.0], np.float32)
+    lo, hi = float(pmin[:P][live].min()), float(pmax[:P][live].max())
+    keys = rng.integers(int(lo) - 50, int(hi) + 50, n)
+    if tile:
+        t = int(rng.integers(0, -(-P // tile)))
+        s = slice(t * tile, min((t + 1) * tile, P))
+        if live[s].any():
+            keys = np.append(keys, [pmin[s][live[s]].min(),
+                                    pmax[s][live[s]].max()])
+    return np.unique(keys).astype(np.float32)
+
+
+def window_problem(rng, sizes, tile, sentinel):
+    """Intervals [len(sizes) * tile] and the sorted keys 0, 1, 2, ... such
+    that tile i's key window (the keys inside its [min pmin, max pmax])
+    holds exactly sizes[i] keys: its first partition spans the window,
+    the others lie inside it, 10% are empty (``sentinel``); a window of 0
+    lies between two keys."""
+    pmin = np.empty(len(sizes) * tile, np.float32)
+    pmax = np.empty_like(pmin)
+    at = 0
+    for i, w in enumerate(sizes):
+        s = slice(i * tile, (i + 1) * tile)
+        if w == 0:
+            pmin[s], pmax[s] = at + 0.25, at + 0.75
+        else:
+            lo = at + rng.integers(0, w, tile)
+            pmin[s] = lo
+            pmax[s] = np.minimum(lo + rng.integers(0, 40, tile), at + w - 1)
+            pmin[i * tile], pmax[i * tile] = at, at + w - 1
+            empty = rng.random(tile) < 0.1
+            empty[0] = False
+            pmin[s][empty], pmax[s][empty] = sentinel, -sentinel
+        at += w + 1
+    return pmin, pmax, np.arange(at, dtype=np.float32)
+
+
 def topk_problem(rng, P, k, valid_binit=False, order="random", lo=-1000,
                  hi=1000):
     """(rows [P, k], b_init) as the JAX suite draws them
@@ -378,7 +440,7 @@ def test_launch_failure_raises_out_of_run_batch(cuda, monkeypatch):
 
 @pytest.mark.parametrize("Q,max_keys,P", [
     (1, 1, 1), (7, 60, 1000), (32, 4096, 100_000),
-    # key rows longer than the kernel's shared-memory tile: searched in place
+    # key rows longer than the kernel's staged capacity: searched in place
     (3, 9000, 5000),
 ])
 def test_join_overlap_equals_plain_version(cuda, Q, max_keys, P):
@@ -394,6 +456,107 @@ def test_join_overlap_equals_plain_version(cuda, Q, max_keys, P):
     want = join_overlap_batched_ref(dist, pmin_d, pmax_d, num_partitions=P)
     assert got.dtype == torch.int8 and tuple(got.shape) == (Q, P)
     assert torch.equal(got, want)
+
+
+def _views(arrays, offset, dev):
+    """The 1-D arrays as consecutive views of one device buffer, the first
+    starting ``offset`` floats in (off 16 bytes for offset 1-3)."""
+    n = sum(a.size for a in arrays)
+    buf = torch.zeros(offset + n, device=dev)
+    out, at = [], offset
+    for a in arrays:
+        out.append(buf[at:at + a.size])
+        out[-1].copy_(torch.from_numpy(a))
+        at += a.size
+    return out
+
+
+@pytest.mark.parametrize("Q,P,cap,offset,n_keys", [
+    (5, 4097, None, 0, 60), (5, 4098, None, 0, 60),    # P = 1, 2 mod 4
+    (5, 4099, None, 0, 60),                             # P = 3 mod 4
+    (4, 100_000, None, 1, 400), (3, 5000, None, 2, 40),  # rows off 16 bytes
+    (6, 5001, 8192, 3, 200),    # num_partitions < Pc, not a multiple of 4
+    (70, 20_000, None, 0, 80),  # more queries than a block's chunk
+    (16, 1 << 20, None, 0, 3000),   # phase 3's shape
+])
+def test_join_overlap_batched_clustered_alignment(cuda, Q, P, cap, offset,
+                                                  n_keys):
+    """The windowed kernel on clustered planes (mostly empty windows, an
+    all-empty run of tiles) where the rows are not 16-byte aligned: P not
+    a multiple of 4 (the output rows after the first start off 4 and 16
+    bytes), the plane rows as views at an odd offset, a logical P inside
+    a larger capacity, and more queries than a block holds at once;
+    equal to the plain version and to the windowed one."""
+    rng = np.random.default_rng(Q * 31 + P + offset)
+    cap = cap or TD.plane_capacity(P)
+    tile = ref_mod.JOIN_TILE_BATCHED
+    t0 = (P // 3) // tile * tile
+    pmin, pmax = clustered_plane(rng, P, cap, F32_MAX,
+                                 empty_run=(t0, t0 + 2 * tile))
+    lists = [clustered_keys(rng, pmin, pmax, P, n_keys, tile)
+             for _ in range(Q)]
+    dist = torch.from_numpy(ops.pack_distinct(lists)).to(cuda)
+    pmin_d, pmax_d = _views((pmin, pmax), offset, cuda)
+    assert (pmin_d.data_ptr() % 16 != 0) == (offset != 0)
+    got = join_overlap_batched(dist, pmin_d, pmax_d, num_partitions=P)
+    torch.cuda.synchronize()
+    want = join_overlap_batched_ref(dist, pmin_d, pmax_d, num_partitions=P)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref_mod.join_overlap_windowed_ref(
+        dist, pmin_d, pmax_d, tile, num_partitions=P))
+    a, b = ref_mod.join_windows(dist, pmin_d, pmax_d, tile, P)
+    assert (b <= a).any()
+
+
+@pytest.mark.parametrize("sizes,Q", [
+    ((0, 1, 32, 33, 1023, 1024, 4096, 4097), 3),
+    ((5000, 0, 4096, 64, 1, 0, 2000, 40), 70),   # Q over the chunk
+])
+def test_join_overlap_batched_window_paths(cuda, sizes, Q):
+    """Tiles whose key windows take each path of the kernel: empty (zeros,
+    no search), held in a warp's lanes, staged in shared memory, and
+    searched in place (below the least staged window and past the
+    capacity); keys on every tile's min and max."""
+    rng = np.random.default_rng(len(sizes) + Q)
+    tile = ref_mod.JOIN_TILE_BATCHED
+    pmin, pmax, keys = window_problem(rng, sizes, tile, F32_MAX)
+    P = pmin.size
+    cap = TD.plane_capacity(P)
+    pmin = np.concatenate([pmin, np.full(cap - P, F32_MAX, np.float32)])
+    pmax = np.concatenate([pmax, np.full(cap - P, -F32_MAX, np.float32)])
+    lists = [keys[int(rng.integers(0, 3)):][::int(rng.integers(1, 3))]
+             for _ in range(Q - 1)] + [keys]
+    dist = torch.from_numpy(ops.pack_distinct(lists)).to(cuda)
+    pmin_d, pmax_d = (torch.from_numpy(a).to(cuda) for a in (pmin, pmax))
+    a, b = ref_mod.join_windows(dist, pmin_d, pmax_d, tile, P)
+    assert (b - a)[-1].tolist() == list(sizes)
+    paths = ref_mod.window_paths(a, b)
+    assert min(paths.values()) > 0, paths
+    got = join_overlap_batched(dist, pmin_d, pmax_d, num_partitions=P)
+    torch.cuda.synchronize()
+    assert torch.equal(got, join_overlap_batched_ref(dist, pmin_d, pmax_d,
+                                                     num_partitions=P))
+
+
+def test_join_overlap_batched_random_plane_nan_and_denormals(cuda):
+    """A random plane (every window the whole row) with denormal bounds
+    and keys, and a NaN bound (outside the plane's contract): equal to
+    the plain version, whose search the widened window keeps."""
+    rng = np.random.default_rng(17)
+    P, Q = 70_000, 9
+    cap = TD.plane_capacity(P)
+    pmin, pmax, lists = join_inputs(rng, Q, P, cap, 5000)
+    den = rng.random(P) < 0.02
+    pmin[:P][den], pmax[:P][den] = -DENORMALS[1], DENORMALS[0]
+    lists[0] = np.unique(np.concatenate([lists[0], DENORMALS[:2]])
+                         ).astype(np.float32)
+    pmin[4000], pmax[9000] = np.nan, np.nan
+    dist = torch.from_numpy(ops.pack_distinct(lists)).to(cuda)
+    pmin_d, pmax_d = (torch.from_numpy(a).to(cuda) for a in (pmin, pmax))
+    got = join_overlap_batched(dist, pmin_d, pmax_d, num_partitions=P)
+    torch.cuda.synchronize()
+    assert torch.equal(got, join_overlap_batched_ref(dist, pmin_d, pmax_d,
+                                                     num_partitions=P))
 
 
 @pytest.mark.parametrize("Q,P,n_blocks,edge", [
@@ -586,7 +749,7 @@ def test_minmax_prune_alignment_equals_plain_version(cuda, K, P, offset):
 
 @pytest.mark.parametrize("P,D", [
     (1, 1), (7, 60), (2049, 4096), (100_000, 4097),
-    # key lists longer than the kernel's shared-memory tile: in place
+    # key lists longer than the kernel's staged capacity: in place
     (5000, 9000),
 ])
 def test_join_overlap_equals_plain_version(cuda, P, D):
@@ -601,6 +764,61 @@ def test_join_overlap_equals_plain_version(cuda, P, D):
     want = join_overlap_ref(*args)
     assert got.dtype == torch.int32 and tuple(got.shape) == (P,)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("P,offset,n_keys", [
+    (4097, 0, 60), (4098, 0, 60), (4099, 0, 60),   # P = 1, 2, 3 mod 4
+    (100_000, 1, 400), (5000, 2, 3000), (4096, 3, 40),  # rows off 16 bytes
+    ((1 << 20) + 3, 0, 7132),                     # phase 4's widest join
+])
+def test_join_overlap_clustered_alignment(cuda, P, offset, n_keys):
+    """The windowed kernel on clustered intervals (mostly empty windows,
+    an all-empty run of tiles, keys at both infinities and -0.0) where
+    the rows are not 16-byte aligned: P not a multiple of 4 and the
+    interval rows and keys as views at an odd offset; ``launch_checked``
+    (the launch alone) equals the wrapper, the plain version and the
+    windowed one."""
+    rng = np.random.default_rng(P + offset)
+    tile = ref_mod.JOIN_TILE_SINGLE
+    t0 = (P // 3) // tile * tile
+    pmin, pmax = clustered_plane(rng, P, P, np.float32(np.inf),
+                                 empty_run=(t0, t0 + 2 * tile))
+    keys = clustered_keys(rng, pmin, pmax, P, n_keys, tile)
+    keys = np.unique(np.concatenate([keys, [-np.inf, np.inf, 0.0]])
+                     ).astype(np.float32)
+    keys[keys == 0] = np.float32(-0.0)
+    pmin[1:4], pmax[1:4] = [0.0, 7.0, np.inf], [0.0, np.inf, np.inf]
+    args = _views((pmin, pmax, keys), offset, cuda)
+    before = join_overlap.launches
+    got = join_overlap(*args)
+    alone = join_mod.launch_checked(*args)
+    torch.cuda.synchronize()
+    assert join_overlap.launches == before + 2
+    want = join_overlap_ref(*args)
+    assert torch.equal(got, want) and torch.equal(alone, want)
+    assert torch.equal(got, ref_mod.join_overlap_windowed_ref(
+        args[2], args[0], args[1], tile))
+
+
+@pytest.mark.parametrize("sizes", [
+    (0, 1, 32, 33, 1023, 1024, 4096, 4097),
+    (9000, 0, 0, 4096, 64, 1, 1500, 40),
+])
+def test_join_overlap_window_paths(cuda, sizes):
+    """Tiles whose key windows take each path of the single-query kernel:
+    empty, held in a warp's lanes, staged in shared memory, and in place
+    (below the least staged window and past the capacity); keys on every
+    tile's min and max."""
+    rng = np.random.default_rng(len(sizes))
+    tile = ref_mod.JOIN_TILE_SINGLE
+    pmin, pmax, keys = window_problem(rng, sizes, tile, np.float32(np.inf))
+    args = [torch.from_numpy(a).to(cuda) for a in (pmin, pmax, keys)]
+    a, b = ref_mod.join_windows(args[2][None], args[0], args[1], tile)
+    assert (b - a)[0].tolist() == list(sizes)
+    assert min(ref_mod.window_paths(a, b).values()) > 0
+    got = join_overlap(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, join_overlap_ref(*args))
 
 
 @pytest.mark.parametrize("P,k,order,lo,hi", [

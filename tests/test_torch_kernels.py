@@ -38,8 +38,9 @@ from repro_torch.kernels.join_overlap import join_overlap_batched
 from repro_torch.kernels.minmax_prune_batched import minmax_prune_batched
 from repro_torch.kernels.topk_boundary import topk_init_batched
 
-from test_torch_cuda import (TOPK_EDGES, bloom_inputs, join_inputs,
-                             topk_edge_inputs, topk_inputs)
+from test_torch_cuda import (TOPK_EDGES, bloom_inputs, clustered_keys,
+                             clustered_plane, join_inputs, topk_edge_inputs,
+                             topk_inputs, window_problem)
 
 torch.set_num_threads(1)
 
@@ -318,6 +319,107 @@ def test_join_plain_version_slabs_over_p(monkeypatch):
     monkeypatch.setattr(tref, "JOIN_SLAB_ELEMS", 7 * 256)   # 256-wide slabs
     assert torch.equal(tref.join_overlap_batched_ref(*args, num_partitions=P),
                        want)
+
+
+def _join_oracles(lists, pmin, pmax, P):
+    """The JAX package's jnp oracle and Pallas kernel (interpret mode) on
+    the same key lists and the first P intervals: hit [Q, P]."""
+    dist_r = rops.pack_distinct(lists)
+    args_r = (jnp.asarray(dist_r), jnp.asarray(pmin[:P]),
+              jnp.asarray(pmax[:P]))
+    Q = len(lists)
+    return (np.asarray(rref.join_overlap_batched_ref(*args_r))[:Q],
+            np.asarray(pallas_join_overlap_batched(*args_r,
+                                                   interpret=True))[:Q])
+
+
+@pytest.mark.parametrize("kind,Q,P,n_keys,tile,warp,sentinel", [
+    ("clustered", 6, 3000, 40, 256, 32, "f32max"),    # mostly empty windows
+    ("clustered", 5, 4100, 400, 2048, 256, "f32max"),  # the kernel's tile
+    ("clustered", 3, 700, 60, 1, None, "inf"),         # tiles of 1
+    ("clustered", 4, 700, 100, 4096, 512, "inf"),      # one tile past P
+    ("random", 7, 1000, 300, 64, 16, "f32max"),
+    ("random", 2, 257, 5, 2048, None, "inf"),
+])
+def test_join_windowed_version_equals_plain_version_and_pallas_interpret(
+        kind, Q, P, n_keys, tile, warp, sentinel):
+    """``ref.join_overlap_windowed_ref`` (the CUDA kernel's arithmetic:
+    each tile's key window, each warp's inside it, the search restricted
+    to it) equals the plain version, the jnp oracle and the Pallas kernel
+    in interpret mode, on clustered planes with all-empty tiles and on
+    random ones, with either empty sentinel."""
+    rng = np.random.default_rng(P + Q + tile)
+    cap = TD.plane_capacity(P)
+    sent = F32_MAX if sentinel == "f32max" else np.float32(np.inf)
+    if kind == "clustered":
+        t0 = (P // 3) // tile * tile
+        run = (t0, t0 + 2 * tile) if 4 * tile <= P else (0, 0)
+        pmin, pmax = clustered_plane(rng, P, cap, sent, empty_run=run)
+        lists = [clustered_keys(rng, pmin, pmax, P, n_keys, tile)
+                 for _ in range(Q)]
+    else:
+        pmin, pmax, lists = join_inputs(rng, Q, P, cap, n_keys)
+        gone = pmin > pmax
+        pmin[gone], pmax[gone] = sent, -sent
+    dist = tops.pack_distinct(lists)
+    args = _t(dist, pmin, pmax)
+    got = tref.join_overlap_windowed_ref(*args, tile, warp, num_partitions=P)
+    want = tref.join_overlap_batched_ref(*args, num_partitions=P)
+    assert got.dtype == torch.int8 and tuple(got.shape) == (Q, P)
+    assert torch.equal(got, want)
+    oracle, pallas = _join_oracles(lists, pmin, pmax, P)
+    np.testing.assert_array_equal(got.numpy(), oracle)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    a, b = tref.join_windows(args[0], *args[1:], tile, num_partitions=P)
+    assert a.shape == (Q, -(-P // tile))
+    if kind == "clustered" and run[1]:
+        # the all-empty tiles' windows are empty for every query
+        assert (b[:, run[0] // tile:run[1] // tile]
+                <= a[:, run[0] // tile:run[1] // tile]).all()
+
+
+@pytest.mark.parametrize("tile", [8, 16])
+def test_join_windowed_version_at_window_sizes(tile):
+    """Windows of 0, 1, 32, 33 keys, on both sides of the least staged
+    window and of the staged capacity, with keys on every tile's min and
+    max: ``join_windows`` finds
+    those sizes, ``window_paths`` sorts them into the kernel's four paths,
+    and the windowed version equals the plain version and the JAX
+    package."""
+    rng = np.random.default_rng(tile)
+    least, most = tref.JOIN_STAGE_MIN, tref.JOIN_STAGE_KEYS
+    sizes = (0, 1, 32, 33, least - 1, least, most, most + 1)
+    pmin, pmax, keys = window_problem(rng, sizes, tile, F32_MAX)
+    P = pmin.size
+    lists = [keys, keys[::2], keys[:40], keys[-3:]]
+    dist = tops.pack_distinct(lists)
+    args = _t(dist, pmin, pmax)
+    a, b = tref.join_windows(args[0], *args[1:], tile)
+    assert (b - a)[0].tolist() == list(sizes)
+    assert tref.window_paths(a[:1], b[:1]) == dict(empty=1, lanes=2,
+                                                   staged=2, in_place=3)
+    got = tref.join_overlap_windowed_ref(*args, tile, tile // 2)
+    assert torch.equal(got, tref.join_overlap_batched_ref(*args))
+    oracle, pallas = _join_oracles(lists, pmin, pmax, P)
+    np.testing.assert_array_equal(got.numpy(), oracle)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+
+
+def test_join_windowed_version_widens_a_tile_with_a_nan_bound():
+    """A NaN bound (outside the plane's contract) widens its tile's window
+    to the whole row, so the windowed version stays the plain version's
+    search there too."""
+    rng = np.random.default_rng(9)
+    P = 600
+    pmin, pmax = clustered_plane(rng, P, P, F32_MAX)
+    lists = [clustered_keys(rng, pmin, pmax, P, 50) for _ in range(3)]
+    pmin[5], pmax[300] = np.nan, np.nan
+    args = _t(tops.pack_distinct(lists), pmin, pmax)
+    a, b = tref.join_windows(args[0], *args[1:], 64)
+    assert (a[:, [0, 4]] == 0).all()
+    assert (b[:, [0, 4]] == args[0].shape[1]).all()
+    assert torch.equal(tref.join_overlap_windowed_ref(*args, 64, 8),
+                       tref.join_overlap_batched_ref(*args))
 
 
 # ---------------------------------------------------------------------------

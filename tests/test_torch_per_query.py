@@ -42,7 +42,8 @@ from repro_torch.kernels.join_overlap import join_overlap
 from repro_torch.kernels.minmax_prune import minmax_prune
 from repro_torch.kernels.topk_boundary import MAX_K_SCAN, topk_boundary
 
-from test_torch_cuda import overlap_problem, range_problem, topk_problem
+from test_torch_cuda import (clustered_keys, clustered_plane, overlap_problem,
+                             range_problem, topk_problem, window_problem)
 
 torch.set_num_threads(1)
 
@@ -274,6 +275,101 @@ def test_join_rejects_an_unsorted_or_nan_key_list(bad):
         with pytest.raises(KernelError, match="sorted"):
             tops.join_overlap_device(tt.stats, "y", np.array([5.0, 1.0]),
                                      device="cpu")
+
+
+def _single_oracles(pmin, pmax, distinct):
+    """The JAX package's jnp oracle and Pallas kernel (interpret mode), and
+    a brute-force any-key-inside, on the same intervals and keys."""
+    args = [jnp.asarray(a) for a in (pmin, pmax, distinct)]
+    brute = np.array([((distinct >= lo) & (distinct <= hi)).any()
+                      for lo, hi in zip(pmin, pmax)], dtype=np.int32)
+    return (np.asarray(rref.join_overlap_ref(*args)),
+            np.asarray(pallas_join_overlap(*args, interpret=True)), brute)
+
+
+@pytest.mark.parametrize("kind,P,n_keys,tile,warp", [
+    ("clustered", 3000, 40, 1024, 128),    # mostly empty windows
+    ("clustered", 5000, 600, 256, 32),
+    ("clustered", 600, 50, 1, None),        # tiles of 1
+    ("clustered", 700, 80, 2048, 128),      # one tile past P
+    ("random", 2047, 300, 1024, 128),
+    ("random", 37, 5, 64, None),
+])
+def test_join_windowed_version_equals_plain_version_pallas_and_brute_force(
+        kind, P, n_keys, tile, warp):
+    """``ref.join_overlap_windowed_ref`` on one key list (the CUDA kernel's
+    arithmetic: each tile's key window, each warp's inside it, the search
+    restricted to it) equals the plain version, the jnp oracle, the
+    Pallas kernel in interpret mode and a brute force, with all-empty
+    tiles (+inf, -inf), keys at both infinities and both signed zeros, and
+    intervals that are a signed zero or reach an infinity."""
+    rng = np.random.default_rng(P + tile)
+    if kind == "clustered":
+        t0 = (P // 3) // tile * tile
+        run = (t0, t0 + 2 * tile) if 4 * tile <= P else (0, 0)
+        pmin, pmax = clustered_plane(rng, P, P, np.float32(np.inf),
+                                     empty_run=run)
+        keys = clustered_keys(rng, pmin, pmax, P, n_keys, tile)
+    else:
+        pmin, pmax, keys = overlap_problem(rng, P, n_keys, edges=True)
+    keys = np.unique(np.concatenate([keys, [-np.inf, np.inf, 0.0]])
+                     ).astype(np.float32)
+    keys[keys == 0] = np.float32(-0.0)           # the key is -0.0
+    if P >= 8:
+        pmin[1:7] = [0.0, -0.0, 5.0, np.inf, -np.inf, -3.0]
+        pmax[1:7] = [0.0, -0.0, np.inf, np.inf, -np.inf, -0.0]
+    got = tref.join_overlap_windowed_ref(*_t(keys, pmin, pmax), tile, warp)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (P,)
+    assert torch.equal(got, tref.join_overlap_ref(*_t(pmin, pmax, keys)))
+    for want in _single_oracles(pmin, pmax, keys):
+        np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "clustered" and run[1]:
+        a, b = tref.join_windows(torch.from_numpy(keys)[None],
+                                 *_t(pmin, pmax), tile)
+        assert (b[0, run[0] // tile:run[1] // tile]
+                <= a[0, run[0] // tile:run[1] // tile]).all()
+
+
+@pytest.mark.parametrize("tile", [8, 32])
+def test_join_windowed_version_at_window_sizes(tile):
+    """One key list whose tile windows hold 0, 1, 32, 33 keys, and keys on
+    both sides of the least staged window and of the staged capacity,
+    with keys on every tile's min and max:
+    ``join_windows`` finds those sizes, ``window_paths`` sorts them into
+    the kernel's four paths, and the windowed version equals the plain
+    version and the JAX package."""
+    rng = np.random.default_rng(tile)
+    least, most = tref.JOIN_STAGE_MIN, tref.JOIN_STAGE_KEYS
+    sizes = (0, 1, 32, 33, least - 1, least, most, most + 1)
+    pmin, pmax, keys = window_problem(rng, sizes, tile, np.float32(np.inf))
+    a, b = tref.join_windows(torch.from_numpy(keys)[None], *_t(pmin, pmax),
+                             tile)
+    assert (b - a)[0].tolist() == list(sizes)
+    assert tref.window_paths(a, b) == dict(empty=1, lanes=2, staged=2,
+                                           in_place=3)
+    got = tref.join_overlap_windowed_ref(*_t(keys, pmin, pmax), tile,
+                                         tile // 4)
+    assert torch.equal(got, tref.join_overlap_ref(*_t(pmin, pmax, keys)))
+    for want in _single_oracles(pmin, pmax, keys):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name,tile", [
+    ("join_overlap", tref.JOIN_TILE_SINGLE),
+    ("join_overlap_batched", tref.JOIN_TILE_BATCHED),
+])
+def test_join_window_constants_match_the_kernel_sources(name, tile):
+    """The plain versions' tile and staged window sizes are the CUDA
+    sources' own (kThreads * kV partitions, kStageMin and kStageKeys
+    keys)."""
+    import re
+    with open(f"{CSRC}/{name}.cu") as f:
+        src = f.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kThreads"] * const["kV"] == tile
+    assert const["kStageMin"] == tref.JOIN_STAGE_MIN
+    assert const["kStageKeys"] == tref.JOIN_STAGE_KEYS
 
 
 # ---------------------------------------------------------------------------

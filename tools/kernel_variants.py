@@ -26,6 +26,25 @@ def edited(text: str, subs, what: str) -> str:
     return text
 
 
+def parent_jobs(parent, kernels) -> dict:
+    """``"<kernel>: parent" -> (kernel, source)`` for each of ``kernels``
+    whose source in the checkout at ``parent`` differs from this one's:
+    the sources to build and time beside the checkout's.  A source that
+    is the same would only be timed twice; each differing one is called
+    through the checkout's entry point, so its signature is the same."""
+    from repro_torch.kernels import build
+
+    if not parent:
+        return {}
+    csrc = Path(parent) / "src" / "repro_torch" / "kernels" / "csrc"
+    jobs = {}
+    for kernel in kernels:
+        text = (csrc / f"{kernel}.cu").read_text()
+        if text != (build.CSRC / f"{kernel}.cu").read_text():
+            jobs[f"{kernel}: parent"] = (kernel, text)
+    return jobs
+
+
 def compile_all(jobs: dict, out: Path) -> dict:
     """Build each (label -> (kernel, source text)) into its own library
     with the port's flags, one nvcc each, all at once, and register its
@@ -78,6 +97,33 @@ def spin_ms(fn, reps: int) -> float:
         e1.record()
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / reps
+
+
+def profile_device_us(fn, reps: int = 10) -> dict:
+    """Kernel name -> mean device microseconds a call of ``fn``, from
+    ``torch.profiler`` over ``reps`` calls, the L2 flushed before each
+    (the flush's own kernel left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        name = re.search(r"(\w+(?:<\w+>)?)\(", e.key)
+        if us and name and "FillFunctor<unsigned char>" not in e.key \
+                and not e.key.startswith(("aten::", "cuda", "Activity")):
+            out[name.group(1)] = us / reps
+    return out
 
 
 def time_in_turns(calls: dict, reps: int, timer=None) -> dict:
