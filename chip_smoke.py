@@ -123,6 +123,35 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      tokens/s, the batcher's requests/s, weight, cache and peak bytes, and
      the kernel (its template and TFLOP/s) at the prefill shape beside its
      bound, its plain version and SDPA.
+  6. (run after phase 4, on phase 3's tables) the tree path and
+     incremental ingest at full width.  (a) A batch of 64 selective
+     filters on events (32 recent-data scans and 32 time windows, the
+     selected share lognormal around 1% and capped at 10%; 16 of them
+     also ``ORDER BY num_sightings DESC LIMIT k``) and the 16 joins of
+     phase 3 whose probe scan is unfiltered or a ``ts`` scan, through
+     ``PruningService(tree_fanout=256)``: one warm-up and ``--batches``
+     timed batches, each bit-identical to the flat card service (phase
+     3's default service, which takes no tree rung), to the CPU service
+     and, on int and dictionary predicates, to the f64 host pipeline;
+     the filter group takes the ``tree`` path, every technique launches
+     on the tree rung, nothing is demoted, and each batched kernel's
+     launches are counted from 0 over these batches.
+     Then the same batches on the flat service (the tree batch's time
+     beside the flat one's), the group densities, the filter stage and
+     the join and Bloom group calls alone on both services in turns
+     (what the tree rung's pre-pass costs), and phase 3's batch once
+     through the tree service, bit-identical to phase 3's reports (its
+     groups' paths logged).  (b) On events in turn: append 4,096
+     partitions (65,536 generated rows, ``ts`` past the table's), drop
+     1,024, ``update_column("score")``, ``update_column("num_sightings")``
+     (the top-k plane's own column), rewrite 256.  After each step every
+     resident plane family of the tree service is brought current one
+     getter at a time (timed, with the bytes it staged) beside a fresh
+     card service's full stage of it; the planes must be byte-equal to the
+     fresh stage, the batch's reports equal to the fresh service's (and
+     the CPU service's after the first and last step); steps 1-3 replay
+     with no full restage, step 4 restages only the top-k plane, step 5
+     everything, and step 1's stat replay stages 3 * C * 4,096 * 4 bytes.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -1468,6 +1497,7 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
     log(f"[split] {card}: resident plane bytes {svc.cache.resident_bytes}; "
         f"integrity {svc.cache.integrity_snapshot()}")
     ctx["svc"] = svc
+    ctx["queries"], ctx["reports"] = queries, last
     return ctx, dict(
         queries=len(queries), groups={k: len(v) for k, v in groups.items()},
         non_lowering=non_lowering, join_topk=n_join_topk,
@@ -2042,6 +2072,472 @@ def phase_per_query(ctx: dict, card: str, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the tree path and incremental ingest at full width
+# ---------------------------------------------------------------------------
+
+TREE_FANOUT = 256
+TREE_TECH = {"prune_ranges_batched_tree": "filter",
+             "join_overlap_batched_tree": "join",
+             "bloom_probe_batched_tree": "join_bloom",
+             "topk_init_batched_tree": "topk"}
+JOIN_KEY = "user_id"
+ORDER_COL = "num_sightings"
+TS_MAX = 10_000_000
+
+
+def tree_traffic(ctx: dict, seed: int) -> list:
+    """Phase 6's batch on phase 3's tables: 64 selective filters on events
+    (32 recent-data scans ``ts >= TS_MAX (1 - f)`` and 32 windows ``lo <=
+    ts < lo + w TS_MAX``, f and w lognormal around 1% with sigma 1.0,
+    capped at 10%), every fourth also ``ORDER BY num_sightings DESC LIMIT
+    k``, and the 16 joins of phase 3 whose probe scan is unfiltered or
+    reads ``ts`` (the group's leaf work follows its widest query, and a
+    probe predicate that prunes nothing would make that all of P)."""
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import Query, TableScanSpec
+    from repro_torch.data.generator import sample_limit_k
+
+    events = ctx["events"]
+    rng = np.random.default_rng(seed + 6)
+    out = []
+    for i in range(64):
+        f = min(float(np.exp(rng.normal(np.log(0.01), 1.0))), 0.10)
+        if i < 32:
+            pred = E.col("ts") >= TS_MAX * (1 - f)
+        else:
+            lo = float(rng.uniform(0, TS_MAX * (1 - f)))
+            pred = (E.col("ts") >= lo) & (E.col("ts") < lo + f * TS_MAX)
+        q = Query(scans={"events": TableScanSpec(events, pred)})
+        if i % 4 == 0:
+            k = 0
+            while k <= 0:
+                k = sample_limit_k(rng)
+            q.limit, q.order_by = int(min(k, 200)), ("events", ORDER_COL,
+                                                     True)
+        out.append(q)
+    joins = [q for q in ctx["join_queries"]
+             if isinstance(q.scans["events"].pred, E.TruePred)
+             or "ts" in q.scans["events"].pred.columns()][:16]
+    if len(joins) < 16:
+        raise SystemExit(f"traffic: {len(joins)} joins with a selective "
+                         f"probe scan, expected 16")
+    return out + joins
+
+
+class TreeNotes:
+    """Records what each tree wrapper call did (``ops.last_tree_stats``),
+    by technique; the service looks the wrappers up on ``ops`` at each
+    call, so wrapping them there sees every tree rung launch."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.calls, self._saved = ops, [], {}
+
+    def __enter__(self):
+        for name in TREE_TECH:
+            fn = getattr(self.ops, name)
+            self._saved[name] = fn
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                out = _fn(*a, **kw)
+                self.calls.append((TREE_TECH[_name],
+                                   dict(self.ops.last_tree_stats())))
+                return out
+            setattr(self.ops, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.ops, name, fn)
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def batch_problems(reports, want, where: str) -> list:
+    """Each report's difference from ``want``'s, and any demotion,
+    salvage or passthrough of the batch."""
+    out = [f"query {i}: differs from {where}"
+           for i, (r, w) in enumerate(zip(reports, want))
+           if not reports_equal(r, w)]
+    res = reports[0].counters["resilience"]
+    if any(res["demotions"].values()):
+        out.append(f"demotions {res['demotions']}")
+    if res["salvaged_batches"] or res["passthroughs"] or res["errors"]:
+        out.append(f"resilience {res}")
+    return out
+
+
+def sync_families(svc, events, topk_keys, dev) -> dict:
+    """Bring each of the events table's plane families current on
+    ``svc``'s cache, one getter call at a time on the host clock around
+    synchronised calls: its ms and the staging counters it moved."""
+    cache = svc.cache
+    out = {}
+    box = []
+
+    def timed(name, fn):
+        before = cache.staging_snapshot()
+        ms = host_ms(fn, dev)
+        after = cache.staging_snapshot()
+        out[name] = dict(ms=ms, **{k: after[k] - before[k]
+                                   for k in ("staged_bytes", "delta_stages",
+                                             "full_restages")})
+
+    timed("stat", lambda: box.append(cache.get(events)))
+    timed("tree_stat", lambda: cache.tree_plane(events, box[0]))
+    timed("join_key", lambda: cache.join_key_plane(events, JOIN_KEY))
+    timed("enum", lambda: cache.enum_plane(events, JOIN_KEY))
+    for col, desc in topk_keys:
+        timed("block_topk", lambda: cache.block_topk_plane(events, col, desc))
+    return out
+
+
+def resident_arrays(svc, events) -> dict:
+    """(family, key without the table's uid) -> the resident arrays of
+    the events table's planes, and the enumeration plane's host meta."""
+    out = {}
+    for fam, store in svc.cache._stores.items():
+        for key, e in store.items():
+            if key[:2] != (events.name, events.stats.uid):
+                continue
+            arrays = e.planes if fam == "stat" else e.arrays
+            meta = ((e.meta["wmax"], e.meta["domain_ok"]) if fam == "enum"
+                    else None)
+            out[(fam,) + tuple(key[2:])] = (tuple(arrays), meta)
+    return out
+
+
+def planes_differ(got: dict, want: dict) -> list:
+    import torch
+    out = []
+    if set(got) != set(want):
+        out.append(f"resident families {sorted(got)} != {sorted(want)}")
+    for k in set(got) & set(want):
+        (ga, gm), (wa, wm) = got[k], want[k]
+        if gm != wm or len(ga) != len(wa) or not all(
+                a.shape == b.shape and a.dtype == b.dtype and
+                torch.equal(a, b) for a, b in zip(ga, wa)):
+            out.append(f"{k} differs from a fresh stage")
+    return out
+
+
+def filter_stage_ms(svcs: dict, queries, dev, rounds: int = 3) -> dict:
+    """The filter stage alone (``prune_batch``: the launch or the tree
+    pre-pass, the verdicts' read-back and the scan sets) on each service,
+    in turns (a b, b a, a b): ms by service."""
+    out = {name: [] for name in svcs}
+    order = list(svcs)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            out[name].append(host_ms(
+                lambda s=svcs[name]: s.prune_batch(queries), dev))
+    return out
+
+
+def join_group_calls(svc, queries) -> list:
+    """(method, args, kwargs) of every join and Bloom group call one batch
+    on ``svc`` makes (the flow looks the methods up on the service at each
+    call, so attributes of the instance see every call)."""
+    calls, names = [], ("join_hit_batch", "bloom_hit_batch")
+    for name in names:
+        def rec(*a, _fn=getattr(svc, name), _name=name, **kw):
+            calls.append((_name, a, kw))
+            return _fn(*a, **kw)
+        setattr(svc, name, rec)
+    try:
+        svc.run_batch(queries)
+    finally:
+        for name in names:
+            delattr(svc, name)
+    return calls
+
+
+def join_stage_ms(svcs: dict, calls, dev, rounds: int = 3) -> dict:
+    """Each join technique's group calls alone (on a tree rung: the group
+    pre-pass, the launch and the read-back), replayed on each service in
+    turns (a b, b a, a b): ms by method and service.  Fails where the
+    services' hits differ."""
+    out = {}
+    for method in sorted({m for m, _, _ in calls}):
+        mine = [(a, kw) for m, a, kw in calls if m == method]
+        hits, ms, order = {}, {name: [] for name in svcs}, list(svcs)
+
+        def run(name):
+            hits[name] = [getattr(svcs[name], method)(*a, **kw)
+                          for a, kw in mine]
+        for r in range(rounds):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                ms[name].append(host_ms(lambda n=name: run(n), dev))
+        ref = hits[order[0]]
+        for name in order[1:]:
+            if any(a is None or b is None or not np.array_equal(a, b)
+                   for a, b in zip(ref, hits[name])):
+                raise SystemExit(f"{method}: {name}'s hits differ from "
+                                 f"{order[0]}'s")
+        out[method] = ms
+    return out
+
+
+def dml_steps(events, seed: int) -> list:
+    """(name, apply) of phase 6's DML on events, in order, scaled to its
+    P (at P = 1,048,576: 4,096 partitions appended, 1,024 dropped, 256
+    rewritten): appended rows come from the events generator with ``ts``
+    continuing past the table's, at the table's rows a partition."""
+    from repro_torch.data.generator import make_events_table
+
+    rng = np.random.default_rng(seed + 60)
+    P = events.num_partitions
+    rows = int(events.part_bounds[1] - events.part_bounds[0])
+    n_app, n_drop, n_rew = P // 256, P // 1024, P // 4096
+
+    def generated(n):
+        t = make_events_table(rng, n_rows=n, rows_per_partition=rows,
+                              ts_clustering=0.995, user_clustering=0.99999)
+        return {c: t.decode(c, t.data[c]) for c in t.columns}
+
+    def append():
+        raw = generated(n_app * rows)
+        span = n_app * rows * TS_MAX // events.num_rows
+        raw["ts"] = TS_MAX + (np.asarray(raw["ts"], dtype=np.int64) * span
+                              // TS_MAX)
+        events.append_partitions(raw, rows_per_partition=rows)
+
+    def drop():
+        live = np.nonzero(events.live_mask)[0]
+        events.drop_partitions(rng.choice(live, n_drop, replace=False))
+
+    def update_score():
+        events.update_column("score", rng.random(events.num_rows))
+
+    def update_order_col():
+        events.update_column(ORDER_COL, rng.integers(
+            0, 100_000, events.num_rows).astype(np.int64))
+
+    def rewrite():
+        live = np.nonzero(events.live_mask)[0]
+        ids = np.sort(rng.choice(live, n_rew, replace=False))
+        n = int(np.diff(events.part_bounds)[ids].sum())
+        events.rewrite_partitions(ids, generated(n))
+
+    return [("append", append), ("drop", drop),
+            ("update score", update_score),
+            (f"update {ORDER_COL}", update_order_col), ("rewrite", rewrite)]
+
+
+def phase_tree_ingest(ctx: dict, seed: int, n_batches: int, card: str,
+                      dev) -> dict:
+    """Phase 6: (a) phase 6's batch through ``PruningService(tree_fanout=
+    256)`` (one warm-up, ``n_batches`` timed), held to the flat card
+    service, the CPU service and, on int and dictionary predicates, the
+    f64 host pipeline, with the tree path on the filter group and a tree
+    launch of every technique; then phase 3's batch once through it, held
+    to phase 3's reports.  (b) five DML steps on events, each replayed
+    into the tree service's resident planes (each family timed beside a
+    fresh stage of it), the planes byte-equal to the fresh stage, the
+    batch's reports equal to a fresh card service's (and the CPU
+    service's after the first and last step)."""
+    import torch
+
+    from repro_torch.core.flow import PruningPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.serve.prune_service import PruningService
+
+    events, flat = ctx["events"], ctx["svc"]
+    queries = tree_traffic(ctx, seed)
+    C = len(events.columns)
+    log(f"[tree] {card}: {len(queries)} queries (64 selective filters, "
+        f"16 ORDER BY {ORDER_COL}, 16 joins), events P="
+        f"{events.num_partitions}, fanout {TREE_FANOUT}")
+
+    t0 = time.perf_counter()
+    cpu_reports = PruningService(device="cpu").run_batch(queries)
+    t_cpu = time.perf_counter() - t0
+    bloom = {i for i, r in enumerate(cpu_reports)
+             if "join" in r.per_scan.get("events", {})
+             and r.per_scan["events"]["join"].detail["summary_kind"]
+             == "bloom"}
+    host = PruningPipeline(filter_mode="host")
+    t0 = time.perf_counter()
+    host_reports = {i: host.run(q) for i, q in enumerate(queries)
+                    if i not in bloom}
+    t_host = time.perf_counter() - t0
+    log(f"[tree] {card} host: references: CPU service {t_cpu:.2f} s, f64 "
+        f"host pipeline {t_host:.2f} s; Bloom joins {len(bloom)}")
+
+    # (a) the tree path, full width
+    kernel_of = {t: getattr(ops, n) for t, n in MAIN_KERNELS.items()}
+    svc = PruningService(device=dev, tree_fanout=TREE_FANOUT)
+    tree_ms, notes = [], None
+    with TreeNotes() as rec:
+        for fn in kernel_of.values():
+            fn.launches = 0               # this path's count from here
+        for b in range(n_batches + 1):
+            sync(dev)
+            t0 = time.perf_counter()
+            reports = svc.run_batch(queries)
+            sync(dev)
+            dt = (time.perf_counter() - t0) * 1e3
+            if b:
+                tree_ms.append(dt)
+            calls = rec.take()
+            c = reports[0].counters
+            problems = batch_problems(reports, cpu_reports, "the CPU run")
+            for i, rh in host_reports.items():
+                if integral_only(queries[i]) and not host_equal(reports[i],
+                                                                rh):
+                    problems.append(f"query {i}: differs from the host "
+                                    f"pipeline")
+                if not keeps_superset(reports[i], rh):
+                    problems.append(f"query {i}: drops a partition the "
+                                    f"host pipeline keeps")
+            by_tech = {t: [n for tt, n in calls if tt == t]
+                       for t in TREE_TECH.values()}
+            if any(n["path"] != "tree" for n in by_tech["filter"]) \
+                    or not by_tech["filter"]:
+                problems.append(f"filter group paths {by_tech['filter']}")
+            if any(not v for v in by_tech.values()):
+                problems.append(f"no tree launch of "
+                                f"{[t for t, v in by_tech.items() if not v]}")
+            if c["tree_launches"] != len(calls):
+                problems.append(f"tree launches {c['tree_launches']} != "
+                                f"{len(calls)} tree wrapper calls")
+            if problems:
+                raise SystemExit(f"tree batch {b}: " + "; ".join(
+                    problems[:10]))
+            notes = by_tech
+            log(f"[tree] {card}: batch {b}{' (warm-up)' if b == 0 else ''}"
+                f": {dt:.2f} ms, tree launches {c['tree_launches']}, paths "
+                f"{ {t: [n['path'] for n in v] for t, v in by_tech.items()} }"
+                f", checks passed")
+        launches = {t: fn.launches for t, fn in kernel_of.items()}
+        if not all(launches.values()):
+            raise SystemExit(f"tree path: kernel launches {launches}")
+        flat_ms = []
+        for b in range(n_batches + 1):
+            sync(dev)
+            t0 = time.perf_counter()
+            flat_reports = flat.run_batch(queries)
+            sync(dev)
+            if b:
+                flat_ms.append((time.perf_counter() - t0) * 1e3)
+            problems = batch_problems(reports, flat_reports,
+                                      "the flat card service")
+            if problems:
+                raise SystemExit(f"flat batch {b}: " + "; ".join(
+                    problems[:10]))
+        f_note = notes["filter"][0]
+        cap = svc.cache.get(events).capacity
+        med_tree = statistics.median(tree_ms)
+        log(f"[tree] {card}: tree batch median {med_tree:.3f} ms "
+            f"({[round(t, 3) for t in tree_ms]}) beside the flat "
+            f"service's {statistics.median(flat_ms):.3f} ms "
+            f"({[round(t, 3) for t in flat_ms]}) on the same traffic; "
+            f"launches {launches}; filter group: coarse density "
+            f"{f_note['coarse_density']:.4f}, fine density "
+            f"{f_note['fine_density']:.4f}, {f_note['leaf_cols']} leaf "
+            f"columns a query ({f_note['leaf_cols'] / cap:.4%} of the "
+            f"capacity); join {notes['join']}, Bloom {notes['join_bloom']},"
+            f" top-k {notes['topk']}")
+
+        stage = {}
+        for what, qs in (("phase 6", queries), ("phase 3", ctx["queries"])):
+            stage[what] = filter_stage_ms({"tree": svc, "flat": flat}, qs,
+                                          dev)
+            log(f"[tree] {card}: {what}'s filter stage alone, tree / flat "
+                f"service in turns: {[round(t, 3) for t in stage[what]['tree']]}"
+                f" / {[round(t, 3) for t in stage[what]['flat']]} ms")
+        # the join and Bloom tree rungs launch the flat kernels on the
+        # dense plane: what their group pre-pass costs on the card
+        join_stage = join_stage_ms({"tree": svc, "flat": flat},
+                                   join_group_calls(svc, queries), dev)
+        for method, ms in join_stage.items():
+            log(f"[tree] {card}: phase 6's {method} group calls alone, "
+                f"tree / flat service in turns: "
+                f"{[round(t, 3) for t in ms['tree']]} / "
+                f"{[round(t, 3) for t in ms['flat']]} ms")
+        rec.take()
+
+        # phase 3's own batch through the tree rung
+        t0 = time.perf_counter()
+        p3 = svc.run_batch(ctx["queries"])
+        p3_ms = (time.perf_counter() - t0) * 1e3
+        problems = batch_problems(p3, ctx["reports"], "phase 3's reports")
+        if problems:
+            raise SystemExit("phase 3's batch through the tree rung: "
+                             + "; ".join(problems[:10]))
+        p3_paths = rec.take()
+        log(f"[tree] {card}: phase 3's batch through the tree rung "
+            f"{p3_ms:.1f} ms, equal to phase 3's reports; groups "
+            f"{p3_paths}")
+
+    # (b) ingest at full width
+    topk_keys = sorted(k[2:] for k in svc.cache.topk_planes
+                       if k[:2] == (events.name, events.stats.uid))
+    steps = []
+    for si, (name, apply) in enumerate(dml_steps(events, seed)):
+        P0 = events.num_partitions
+        t0 = time.perf_counter()
+        apply()
+        dml_s = time.perf_counter() - t0
+        replay = sync_families(svc, events, topk_keys, dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        reports = svc.run_batch(queries)
+        sync(dev)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        fresh = PruningService(device=dev, tree_fanout=TREE_FANOUT)
+        full = sync_families(fresh, events, topk_keys, dev)
+        problems = planes_differ(resident_arrays(svc, events),
+                                 resident_arrays(fresh, events))
+        problems += batch_problems(reports, fresh.run_batch(queries),
+                                   "a fresh card service")
+        if si in (0, 4):
+            problems += batch_problems(reports, PruningService(
+                device="cpu").run_batch(queries), "the CPU service")
+        want_full = {0: set(), 1: set(), 2: set(), 3: {"block_topk"},
+                     4: set(replay)}[si]
+        for fam, r in replay.items():
+            if bool(r["full_restages"]) != (fam in want_full):
+                problems.append(f"{fam}: {r['full_restages']} full "
+                                f"restages")
+            if fam not in want_full and not r["delta_stages"] \
+                    and (si < 2 or fam in ("stat", "tree_stat")):
+                problems.append(f"{fam}: no delta replay")
+        n_new = events.num_partitions - P0
+        if si == 0 and replay["stat"]["staged_bytes"] != 3 * C * n_new * 4:
+            problems.append(f"stat replay staged "
+                            f"{replay['stat']['staged_bytes']} bytes, not "
+                            f"3 * {C} * {n_new} * 4")
+        if problems:
+            raise SystemExit(f"DML step {si + 1} ({name}): "
+                             + "; ".join(problems[:10]))
+        steps.append(dict(step=name, dml_s=dml_s, batch_ms=batch_ms,
+                          replay=replay, full_stage=full))
+        log(f"[ingest] {card}: step {si + 1} ({name}, {dml_s:.2f} s on the "
+            f"host): replay / full stage ms, staged bytes: " + "; ".join(
+                f"{fam} {replay[fam]['ms']:.3f} / {full[fam]['ms']:.3f} ms, "
+                f"{replay[fam]['staged_bytes']} / {full[fam]['staged_bytes']}"
+                f" bytes" for fam in replay)
+            + f"; batch {batch_ms:.1f} ms; planes equal a fresh stage, "
+              f"reports equal a fresh card service"
+            + (" and the CPU service" if si in (0, 4) else ""))
+        del fresh
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return dict(queries=len(queries), bloom_joins=len(bloom),
+                cpu_ref_s=t_cpu, host_ref_s=t_host, tree_batch_ms=tree_ms,
+                flat_batch_ms=flat_ms,
+                median_tree_ms=statistics.median(tree_ms),
+                median_flat_ms=statistics.median(flat_ms),
+                notes=notes, filter_stage_ms=stage,
+                join_stage_ms=join_stage, phase3_tree_ms=p3_ms,
+                phase3_paths=p3_paths,
+                launches=launches, steps=steps)
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: LM serving at full width
 # ---------------------------------------------------------------------------
 # GLM-4-9B at its published widths, all 40 layers, bf16, random weights
@@ -2530,6 +3026,9 @@ def main() -> int:
     t0 = time.perf_counter()
     pq = phase_per_query(ctx, card, dev)
     log(f"[per-query] {card}: phase 4 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    it = phase_tree_ingest(ctx, args.seed, args.batches, card, dev)
+    log(f"[tree] {card}: phase 6 took {time.perf_counter() - t0:.1f} s")
     del ctx
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2544,7 +3043,8 @@ def main() -> int:
         rows.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=replaces, launches=k["launches"],
+            replaces=replaces,
+            launches=k["launches"] + it["launches"].get(path, 0),
             max_abs_err=max(kv[name]["max_abs_err"], k["max_abs_err"]),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
@@ -2554,7 +3054,7 @@ def main() -> int:
         Path(args.json).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, build_s=build_s,
                  build=built, kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
-                 lm_serving=lm,
+                 ingest_tree=it, lm_serving=lm,
                  **kernels), indent=1))
     log(card)
     log(json.dumps(kernels))

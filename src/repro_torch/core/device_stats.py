@@ -5,8 +5,10 @@ demote planes to the GPU **once per table version** as float32 torch
 tensors; after that a batch of queries prunes against the resident planes
 with no host work per query.  Beside them it stages the runtime
 techniques' per-column planes (join-key, enumeration and block-top-k
-rows; see ``DeviceStatsCache``).  Eviction is always safe (a miss simply
-re-stages), and a table version change restages a plane in full.
+rows) and the hierarchical tree planes aggregated from the stat planes
+(see ``DeviceStatsCache``).  Eviction is always safe (a miss simply
+re-stages), and a table's DML replays into the resident planes from its
+delta log instead of restaging them.
 
 Precision contract (the single place stats are downcast to f32)
 ---------------------------------------------------------------
@@ -338,11 +340,63 @@ KPLANE = 64   # block-top-k plane width: values kept per partition
 # Per-column planes kept per family when the cache has no byte budget.
 MAX_PLANES = 64
 
+# Hierarchical (tree) plane geometry.  The flat [C, cap] planes aggregate
+# into [C, G] *group* planes (G = cap / fanout; both powers of two, so the
+# division is exact): group g's interval is the min/max hull of its
+# members, so a query range that misses the hull misses every member and
+# the batched path can prune whole groups before touching leaves.  A
+# second, tiny *coarse* level (at most TREE_COARSE_MAX root groups) lives
+# on the host in the same plane entry: it restricts the group pre-pass
+# and prices it before any launch (the dense fallback).  Below
+# fanout * TREE_MIN_GROUPS partitions the flat launch is used.
+TREE_FANOUT = 256
+TREE_MIN_GROUPS = 4
+TREE_COARSE_MAX = 64
+
 # Registry of plane families under the integrity protocol.  Every family
 # in DeviceStatsCache._stores MUST be declared here and vice versa, so a
 # new family cannot ship without joining checksum stamping and byte
 # accounting.
-PLANE_FAMILIES = ("stat", "join_key", "enum", "block_topk")
+PLANE_FAMILIES = ("stat", "join_key", "enum", "block_topk", "tree_stat")
+
+
+def _has_column(stats: PartitionStats, name: str) -> bool:
+    return any(c.name == name for c in stats.columns)
+
+
+def coarse_from_groups(gmins: torch.Tensor, gmaxs: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host [C, G2] root hull of the [C, G] group planes (G2 <= 64),
+    as CPU tensors (one small copy back from the device)."""
+    C, G = gmins.shape
+    g2 = min(int(G), TREE_COARSE_MAX)
+    f2 = int(G) // g2
+    cmins = gmins.reshape(C, g2, f2).amin(dim=2).cpu()
+    cmaxs = gmaxs.reshape(C, g2, f2).amax(dim=2).cpu()
+    return cmins, cmaxs
+
+
+def aggregate_tree_planes(mins: torch.Tensor, maxs: torch.Tensor,
+                          demote: torch.Tensor, fanout: int) -> Tuple:
+    """Aggregate flat [C, cap] planes into the tree plane arrays.
+
+    Returns ``(gmins, gmaxs, gdem, cmins, cmaxs)``: [C, G] group hulls on
+    the planes' device (min of member mins / max of member maxs / max of
+    member demotes) plus the host coarse root level.  Min and max of
+    already-widened f32 values are exact.  Sentinel slots (+f32max,
+    -f32max) aggregate to an empty hull only when the whole group is
+    sentinels: a live member's interval always widens the hull, so group
+    NO_MATCH implies member NO_MATCH with no special-casing.
+    """
+    C, cap = mins.shape
+    if fanout <= 0 or cap % fanout:
+        raise ValueError(f"fanout {fanout} must divide plane capacity {cap}")
+    G = cap // fanout
+    gmins = mins.reshape(C, G, fanout).amin(dim=2)
+    gmaxs = maxs.reshape(C, G, fanout).amax(dim=2)
+    gdem = demote.reshape(C, G, fanout).amax(dim=2)
+    cmins, cmaxs = coarse_from_groups(gmins, gmaxs)
+    return gmins, gmaxs, gdem, cmins, cmaxs
 
 
 @dataclasses.dataclass
@@ -352,7 +406,7 @@ class _PlaneEntry:
     ``arrays`` are capacity-padded along the partition axis (axis 0);
     slots beyond ``logical_p`` and dropped partitions hold the family's
     sentinel.  ``meta`` carries host-side extras (the column, enum
-    wmax/domain_ok, the checksum stamp).
+    wmax/domain_ok, the tree geometry, the checksum stamp).
     """
 
     version: int
@@ -367,6 +421,25 @@ class _PlaneEntry:
     @property
     def nbytes(self) -> int:
         return int(sum(a.numel() * a.element_size() for a in self.arrays))
+
+
+def tree_entry_for(dstats: "DeviceStats", fanout: int = TREE_FANOUT,
+                   version: int = 0,
+                   logical_p: Optional[int] = None) -> _PlaneEntry:
+    """A standalone hierarchical plane entry aggregated from a flat one.
+
+    Tests that stage ``DeviceStats`` directly (no table, no cache) get the
+    entry shape ``DeviceStatsCache.tree_plane`` serves: the group arrays
+    on the device and the coarse level on the host in ``arrays``, the
+    geometry in ``meta``.  The cache builds through here too.
+    """
+    arrays = aggregate_tree_planes(*dstats.planes, fanout=fanout)
+    return _PlaneEntry(
+        version,
+        dstats.num_partitions if logical_p is None else int(logical_p),
+        arrays,
+        meta=dict(fanout=fanout, cap=dstats.capacity,
+                  groups=int(arrays[0].shape[1])))
 
 
 @dataclasses.dataclass
@@ -553,21 +626,44 @@ class PlaneMemoryManager:
 
 
 class DeviceStatsCache:
-    """Once-per-table-version staging of metadata planes, LRU-bounded.
+    """Once-per-table staging of metadata planes, delta-synced, LRU-bounded.
 
     Keys are ``(table_name, stats.uid)``: the stats uid distinguishes a
     *rebuilt* table — same name, same shape, new data — from the object
-    that was staged, so a stale plane can never serve it.  Entries record
-    the table DML ``version`` they reflect and the service
-    ``TableVersion`` seen at staging; when either moves on, ``get``
-    restages the whole plane (counted in ``full_restages``).
+    that was staged, so a stale plane can never serve it.
+
+    Delta staging (incremental ingest)
+    ----------------------------------
+    Resident entries record the table DML ``version`` they reflect (and
+    the service ``TableVersion`` seen at staging).  When a table's version
+    advances through its own DML methods (``append_partitions`` /
+    ``drop_partitions`` / ``update_column``), ``get`` and the plane getters
+    *replay* the table's ``TableDelta`` log into the resident tensors in
+    place, with one H2D copy of the changed columns:
+
+      * **append**: planes were allocated with ``plane_capacity`` slack,
+        so only the new ``[C, ΔP]`` columns are staged;
+      * **drop**: dropped partitions are scattered with the family's
+        sentinel (``(+f32max, -f32max, demote=1)`` for the stat planes),
+        which every batched kernel evaluates as NO_MATCH or keep;
+      * **update(column)**: the [C, P] planes restage only that column's
+        three rows; per-column planes of *other* columns advance their
+        version with no staging work;
+      * **rewrite**, an update of a per-column plane's own column, a log
+        gap or a capacity overflow: full restage — the only cases that
+        pay O(table) again.
+
+    ``staged_bytes`` / ``delta_stages`` / ``full_restages`` count the
+    work.  A service ``TableVersion`` bump without a covering delta log
+    (the legacy ``notify_*`` flow) always restages in full.  A replay
+    writes the resident tensors in place: a launch enqueued before it on
+    the same stream reads the planes as they were.
 
     Runtime-technique planes
     ------------------------
     Beside the [C, cap] min/max/demote planes the cache stages three
     *per-column* plane families for the runtime techniques, keyed by
-    (table identity, column) and restaged in full when the table's
-    version moves on:
+    (table identity, column):
 
       * **join-key planes** (``join_key_plane``): the key column's widened
         f32 [cap] min/max rows, consumed by ``join_overlap_batched``;
@@ -578,10 +674,15 @@ class DeviceStatsCache:
         of the column's per-partition top-K *signed* values (sign = +1
         DESC / -1 ASC, nulls excluded, f64 -> f32 rounded toward -inf so
         every stored value is <= the true row value — a boundary derived
-        from them is always witnessed), consumed by ``topk_init_batched``.
+        from them is always witnessed), consumed by ``topk_init_batched``;
+
+    and one *tree* family (``tree_plane``): the [C, G] group hulls of the
+    stat planes (``tree_fanout`` partitions a group) with their host
+    coarse level, aggregated on the device from the current stat planes
+    and re-aggregated only for the groups a delta dirtied.
 
     ``budget_bytes`` hands residency to a ``PlaneMemoryManager``: one
-    byte budget across all four families, per-plane LRU eviction, and
+    byte budget across all five families, per-plane LRU eviction, and
     in-flight pinning via ``pin_scope`` so a batched launch can never lose
     a plane it is consuming.  Without a budget the ``max_entries`` /
     ``MAX_PLANES`` count caps apply and the manager only accounts.  Every
@@ -591,8 +692,14 @@ class DeviceStatsCache:
     def __init__(self, max_entries: int = 16,
                  budget_bytes: Optional[int] = None,
                  fault_injector=None, integrity_sample: int = 64,
-                 device=None):
+                 tree_fanout: int = TREE_FANOUT, device=None):
+        if tree_fanout < 2 or tree_fanout & (tree_fanout - 1):
+            raise ValueError(
+                f"tree_fanout must be a power of two >= 2, got {tree_fanout}")
         self.device = resolve_device(device)
+        # Leaf partitions per tree-plane group; plane capacities are
+        # powers of two, so any pow-2 fanout <= cap divides them exactly.
+        self.tree_fanout = int(tree_fanout)
         # (name, uid) -> DeviceStats ([C, cap] planes + epoch)
         self.entries: "OrderedDict[Tuple, DeviceStats]" = OrderedDict()  # guarded-by: _lock
         self.max_entries = max_entries
@@ -605,16 +712,23 @@ class DeviceStatsCache:
         self.enum_planes: "OrderedDict[Tuple, _PlaneEntry]" = OrderedDict()  # guarded-by: _lock
         # (name, uid, col, desc) -> _PlaneEntry(([cap, KPLANE] signed rows,))
         self.topk_planes: "OrderedDict[Tuple, _PlaneEntry]" = OrderedDict()  # guarded-by: _lock
+        # (name, uid) -> _PlaneEntry((gmins, gmaxs, gdem) [C, G] group
+        # hulls on the device + (cmins, cmaxs) host coarse root, all five
+        # under one stamp; meta: fanout, cap, groups)
+        self.tree_planes: "OrderedDict[Tuple, _PlaneEntry]" = OrderedDict()  # guarded-by: _lock
         self.plane_hits = 0
         self.plane_misses = 0
-        # staging-work counters (H2D bytes; full restages of planes that
-        # were resident at an older version)
+        # staging-work counters (H2D bytes; delta vs full attribution)
         self.staged_bytes = 0
-        self.full_restages = 0
+        self.delta_stages = 0      # successful delta replays (any family)
+        self.full_restages = 0     # full restagings of previously-resident
+                                   # planes (rewrite / log gap / overflow)
+        self.prefetch_stages = 0   # prefetch() calls that staged bytes
         self.memory = PlaneMemoryManager(budget_bytes)
         self._stores = {"stat": self.entries, "join_key": self.key_planes,
                         "enum": self.enum_planes,
-                        "block_topk": self.topk_planes}
+                        "block_topk": self.topk_planes,
+                        "tree_stat": self.tree_planes}
         self.memory.bind(self._evict_family)
         # Epoch check + plane read must be atomic per getter; one
         # reentrant lock serializes getters, DML hooks and manager
@@ -735,15 +849,62 @@ class DeviceStatsCache:
         self.memory.admit(family, key, nbytes)
         self._scope_pin(family, key)
 
-    # ---- version plumbing ----------------------------------------------
+    # ---- version / delta-log plumbing ----------------------------------
 
     @staticmethod
     def _table_version(table) -> int:
         return int(getattr(table, "version", 0))
 
+    @staticmethod
+    def _deltas_since(table, version: int):
+        """Ordered TableDeltas in (version, table.version], or None when
+        the log has been compacted past ``version`` (full restage)."""
+        deltas = getattr(table, "deltas", None)
+        if deltas is None:
+            return None
+        if version < int(getattr(table, "delta_floor", 0)):
+            return None
+        return [d for d in deltas if d.version > version]
+
+    @staticmethod
+    def _live_count(table) -> int:
+        return int(getattr(table, "num_live_partitions",
+                           table.stats.num_partitions))
+
+    def _ids(self, part_ids) -> torch.Tensor:
+        """Dropped partition ids as an index tensor on the device (one
+        small H2D copy)."""
+        return torch.from_numpy(
+            np.asarray(part_ids, dtype=np.int64)).to(self.device)
+
+    def _h2d(self, *host) -> torch.Tensor:
+        """Stack same-shaped host rows and copy them to the device in one
+        H2D transfer."""
+        return torch.from_numpy(np.ascontiguousarray(np.stack(host))).to(
+            self.device)
+
     def staging_snapshot(self) -> dict:
         return dict(staged_bytes=self.staged_bytes,
-                    full_restages=self.full_restages)
+                    delta_stages=self.delta_stages,
+                    full_restages=self.full_restages,
+                    prefetch_stages=self.prefetch_stages)
+
+    def prefetch(self, table, tv: Optional[TableVersion] = None) -> bool:
+        """Stage (or replay) the table's [C, cap] stat plane ahead of its
+        launch.  Runs the ordinary ``get`` path under the same lock, so a
+        concurrent getter finds the plane resident.  Never raises: a
+        staging failure surfaces on the real launch, where the ladder
+        handles it.  True when bytes were staged (``prefetch_stages``)."""
+        with self._lock:
+            before = self.staged_bytes
+            try:
+                self.get(table, tv)
+            except Exception:
+                return False
+            staged = self.staged_bytes > before
+            if staged:
+                self.prefetch_stages += 1
+            return staged
 
     def plane_epoch(self, table) -> Optional[PlaneEpoch]:
         """The resident [C, cap] plane's epoch for this table, if staged."""
@@ -753,14 +914,76 @@ class DeviceStatsCache:
 
     # ---- [C, cap] stat planes ------------------------------------------
 
+    @staticmethod
+    def _stat_cols(stats: PartitionStats, lo: int, hi: int):
+        """Host f32 plane columns for partitions [lo, hi) (delta slice)."""
+        m32, x32, inexact = cast_stats_f32(stats.mins[lo:hi].T,
+                                           stats.maxs[lo:hi].T)
+        dm = ((stats.null_counts[lo:hi].T > 0) | inexact).astype(np.float32)
+        return m32, x32, dm
+
+    def _replay_stats(self, e: DeviceStats, table, deltas) -> bool:
+        """Bring a resident [C, cap] entry current by replaying deltas into
+        its tensors in place.
+
+        Returns False, having written nothing, when a full restage is
+        required (a rewrite, an unknown column or kind, capacity
+        overflow); on success only the changed partition columns were
+        staged."""
+        stats = table.stats
+        if stats.num_partitions > e.capacity:
+            return False
+        for d in deltas:
+            if d.kind not in ("append", "drop", "update") or (
+                    d.kind == "update" and not _has_column(stats, d.column)):
+                return False
+        mins, maxs, dem = e.planes
+        nbytes = 0
+        for d in deltas:
+            if d.kind == "append":
+                cols = self._h2d(*self._stat_cols(stats, d.part_lo,
+                                                  d.part_hi))
+                for plane, col in zip((mins, maxs, dem), cols):
+                    plane[:, d.part_lo:d.part_hi] = col
+                nbytes += cols.numel() * cols.element_size()
+            elif d.kind == "drop":
+                ids = self._ids(d.part_ids)
+                mins.index_fill_(1, ids, float(_F32_MAX))
+                maxs.index_fill_(1, ids, -float(_F32_MAX))
+                dem.index_fill_(1, ids, 1.0)
+                nbytes += 3 * e.num_columns * len(d.part_ids) * 4
+            else:                       # update: that column's three rows
+                ci = stats.col_id(d.column)
+                P = stats.num_partitions
+                m32, x32, inexact = cast_stats_f32(
+                    stats.mins[:, ci][None, :], stats.maxs[:, ci][None, :])
+                dm = ((stats.null_counts[:, ci][None, :] > 0)
+                      | inexact).astype(np.float32)
+                rows = self._h2d(m32[0], x32[0], dm[0])
+                for plane, row in zip((mins, maxs, dem), rows):
+                    plane[ci, :P] = row
+                nbytes += 3 * P * 4
+        # re-stamp from the clean replayed tensors, then let the chaos
+        # seam tear bytes *after* the stamp (the corruption the verifier
+        # must catch); one tuple store of (planes, P), so a later read
+        # never pairs the new planes with the old partition count
+        e.checksum = plane_checksum((mins, maxs, dem))
+        e.planes_state = (self._corrupt("stage.stat", (mins, maxs, dem)),
+                          stats.num_partitions)
+        e.live_count = self._live_count(table)
+        self.staged_bytes += nbytes
+        self.delta_stages += 1
+        return True
+
     def get(self, table, tv: Optional[TableVersion] = None) -> DeviceStats:
-        """The table's resident DeviceStats: staged on first touch and
-        restaged in full whenever the table's version (or the service's
-        ``TableVersion``) moved on since.
+        """The table's resident DeviceStats: staged on first touch,
+        delta-synced on table DML, fully restaged only when it must be.
 
         stats.uid guards against a rebuilt table (same name, same shape,
         new data) silently hitting the stale staged plane — stale stats
         would break NO_MATCH safety, the one direction that loses rows.
+        A service ``TableVersion`` bump without a covering table delta
+        log (the legacy invalidation flow) also forces a restage.
         """
         with self._lock:
             self._fire("get.stat")
@@ -769,11 +992,22 @@ class DeviceStatsCache:
             tver = self._table_version(table)
             e = self.entries.get(key)
             if e is not None:
+                served = False
                 if e.version == tver and (tvv is None or e.tv_version in
                                           (None, tvv)):
                     self.hits += 1
                     if tvv is not None:
                         e.tv_version = tvv
+                    served = True
+                elif e.version < tver:
+                    deltas = self._deltas_since(table, e.version)
+                    if deltas is not None and self._replay_stats(e, table,
+                                                                 deltas):
+                        e.version = tver
+                        e.tv_version = tvv
+                        self.hits += 1
+                        served = True
+                if served:
                     self.entries.move_to_end(key)
                     self._touch("stat", key)
                     if not self._verify_due() or self._verify(e.planes,
@@ -783,7 +1017,7 @@ class DeviceStatsCache:
                     # quarantine it and restage fresh below (verified)
                     self._quarantine("stat", key)
                 else:
-                    # stale: rebuild below
+                    # stale and not replayable: rebuild below
                     self.full_restages += 1
                     del self.entries[key]
                     self.memory.release("stat", key)
@@ -829,46 +1063,83 @@ class DeviceStatsCache:
     # ---- runtime-technique planes --------------------------------------
 
     def _plane_current(self, family: str, store: "OrderedDict", key: Tuple,
-                       table) -> Optional[_PlaneEntry]:
-        """The resident plane entry if it reflects the table's version,
-        else None (a stale entry is dropped and counted as a full
-        restage; the caller stages fresh)."""
+                       table, column: str, append_fn, drop_fn
+                       ) -> Optional[_PlaneEntry]:
+        """The resident plane entry brought current, or None.
+
+        Replays the table's delta log into the entry: appends stage only
+        the new partitions (``append_fn``), drops scatter the family's
+        sentinel (``drop_fn``), updates of *other* columns are free
+        version advances.  An update of ``column`` itself, a rewrite, a
+        log gap or capacity overflow drops the entry (the caller stages
+        fresh, counted as a plane miss and a full restage).
+        """
         e = store.get(key)
         if e is None:
             return None
-        if e.version != self._table_version(table):
-            del store[key]
-            self.memory.release(family, key)
-            self.full_restages += 1
+        tver = self._table_version(table)
+        served = e.version == tver
+        if e.version < tver:
+            deltas = self._deltas_since(table, e.version)
+            if deltas is not None \
+                    and table.stats.num_partitions <= e.capacity \
+                    and all(d.kind in ("append", "drop")
+                            or (d.kind == "update" and d.column != column)
+                            for d in deltas):
+                nbytes = 0
+                staged = False
+                for d in deltas:
+                    if d.kind == "append":
+                        nbytes += append_fn(e, table, d.part_lo, d.part_hi)
+                        staged = True
+                    elif d.kind == "drop":
+                        nbytes += drop_fn(e, table, d.part_ids)
+                        staged = True
+                e.version = tver
+                e.logical_p = table.stats.num_partitions
+                self.staged_bytes += nbytes
+                if staged:
+                    self.delta_stages += 1
+                    # re-stamp from the clean replayed tensors, then the
+                    # chaos seam may tear bytes after the stamp
+                    e.meta["checksum"] = plane_checksum(e.arrays)
+                    e.arrays = self._corrupt(f"stage.{family}", e.arrays)
+                served = True
+        if served:
+            self.plane_hits += 1
+            store.move_to_end(key)
+            self._touch(family, key)
+            if not self._verify_due() or self._verify(e.arrays,
+                                                      e.meta.get("checksum")):
+                return e
+            # torn resident plane: quarantine; the caller stages fresh
+            # (and _plane_fresh force-verifies that restage)
+            self._quarantine(family, key)
             return None
-        self.plane_hits += 1
-        store.move_to_end(key)
-        self._touch(family, key)
-        if not self._verify_due() or self._verify(e.arrays,
-                                                  e.meta.get("checksum")):
-            return e
-        # torn resident plane: quarantine; the caller stages fresh (and
-        # _plane_fresh force-verifies that restage)
-        self._quarantine(family, key)
+        del store[key]
+        self.memory.release(family, key)
+        self.full_restages += 1
         return None
 
     def _plane_fresh(self, family: str, store: "OrderedDict", key: Tuple,
                      build_fn) -> _PlaneEntry:
-        """Stage a fresh per-column plane with the integrity protocol:
-        stamp from the built host arrays, move them to the device, admit,
-        and force-verify whenever the key was just quarantined or was ever
+        """Stage a fresh plane with the integrity protocol: stamp from the
+        built arrays, move the host (numpy) ones to the device, admit, and
+        force-verify whenever the key was just quarantined or was ever
         budget-evicted; a verify failure quarantines and rebuilds once, a
         second failure raises ``PlaneIntegrityError`` (the serving ladder
-        demotes past it)."""
+        demotes past it).  Tensors a build returns stay where they are:
+        the tree family's coarse level is a host tensor."""
         retried = False
         while True:
             self._fire(f"stage.{family}")
             e = build_fn()
-            # stamped from the host arrays pre-H2D: free at stage time
+            # stamped from the built arrays (the host arrays pre-H2D: free
+            # at stage time)
             e.meta["checksum"] = plane_checksum(e.arrays)
             e.arrays = self._corrupt(f"stage.{family}", tuple(
                 torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for a in e.arrays))
+                if isinstance(a, np.ndarray) else a for a in e.arrays))
             e = self._plane_put(family, store, key, e)
             fk = (family, key)
             force = fk in self._quarantined \
@@ -899,20 +1170,45 @@ class DeviceStatsCache:
                 self.memory.release(family, k)
         return entry
 
+    # -- join-key planes --
+
+    @staticmethod
+    def _key_rows(table, key_col: str, lo: int, hi: int):
+        """Widened f32 (pmin, pmax) host rows for partitions [lo, hi),
+        clamped to finite f32."""
+        pmin = np.clip(round_down_f32(table.stats.col_min(key_col)[lo:hi]),
+                       -_F32_MAX, _F32_MAX)
+        pmax = np.clip(round_up_f32(table.stats.col_max(key_col)[lo:hi]),
+                       -_F32_MAX, _F32_MAX)
+        return pmin, pmax
+
+    def _key_append(self, e: _PlaneEntry, table, lo: int, hi: int) -> int:
+        rows = self._h2d(*self._key_rows(table, e.meta["col"], lo, hi))
+        for a, row in zip(e.arrays, rows):
+            a[lo:hi] = row
+        return rows.numel() * rows.element_size()
+
+    def _key_drop(self, e: _PlaneEntry, table, part_ids) -> int:
+        ids = self._ids(part_ids)
+        pmin, pmax = e.arrays
+        pmin.index_fill_(0, ids, float(_F32_MAX))
+        pmax.index_fill_(0, ids, -float(_F32_MAX))
+        return 2 * len(part_ids) * 4
+
     def join_key_plane(self, table, key_col: str) -> Tuple:
         """The key column's resident (pmin, pmax) [cap] f32 rows (widened).
 
-        Staged once per (table identity, column, version); consumed by the
-        batched join-overlap kernel.  Clamped to finite f32 like the
-        [C, cap] planes, so +inf distinct-key padding can never produce a
-        hit; dropped partitions (whose stats are the empty interval) and
-        capacity slots hold the sentinel (+f32max, -f32max) — never a hit
-        either.
+        Staged once per (table identity, column) and delta-synced on table
+        DML; consumed by the batched join-overlap kernel.  Clamped to
+        finite f32 like the [C, cap] planes, so +inf distinct-key padding
+        can never produce a hit; dropped partitions and capacity slots
+        hold the sentinel (+f32max, -f32max) — never a hit either.
         """
         with self._lock:
             self._fire("get.join_key")
             key = (table.name, table.stats.uid, key_col)
-            e = self._plane_current("join_key", self.key_planes, key, table)
+            e = self._plane_current("join_key", self.key_planes, key, table,
+                                    key_col, self._key_append, self._key_drop)
             if e is not None:
                 return e.arrays
 
@@ -921,15 +1217,14 @@ class DeviceStatsCache:
                 cap = plane_capacity(P)
                 pmin = np.full(cap, _F32_MAX, dtype=np.float32)
                 pmax = np.full(cap, -_F32_MAX, dtype=np.float32)
-                pmin[:P] = np.clip(round_down_f32(table.stats.col_min(key_col)),
-                                   -_F32_MAX, _F32_MAX)
-                pmax[:P] = np.clip(round_up_f32(table.stats.col_max(key_col)),
-                                   -_F32_MAX, _F32_MAX)
+                pmin[:P], pmax[:P] = self._key_rows(table, key_col, 0, P)
                 return _PlaneEntry(self._table_version(table), P,
                                    (pmin, pmax), meta=dict(col=key_col))
 
             return self._plane_fresh("join_key", self.key_planes, key,
                                      build).arrays
+
+    # -- enumeration planes --
 
     def enum_plane(self, table, key_col: str) -> Tuple:
         """The key column's resident enumeration rows:
@@ -949,12 +1244,14 @@ class DeviceStatsCache:
         int32 — the device-vs-host parity gate
         (``PruningService.join_device_eligible``), computed once here so
         eligibility never rescans [P] stats per query.  Width 0 is also
-        the drop/capacity sentinel.
+        the drop/capacity sentinel.  Delta-synced like the join-key plane.
         """
         with self._lock:
             self._fire("get.enum")
             key = (table.name, table.stats.uid, key_col)
-            e = self._plane_current("enum", self.enum_planes, key, table)
+            e = self._plane_current("enum", self.enum_planes, key, table,
+                                    key_col, self._enum_append,
+                                    self._enum_drop)
             if e is not None:
                 return e.arrays + (e.meta["wmax"], e.meta["domain_ok"])
 
@@ -977,7 +1274,10 @@ class DeviceStatsCache:
     @staticmethod
     def _enum_rows(table, key_col: str):
         """Host enumeration rows over all partitions:
-        (pmin i32 [P], width i32 [P], wmax, domain_ok).  A dropped
+        (pmin i32 [P], width i32 [P], wmax, domain_ok) — an exact
+        recompute shared by fresh staging and delta replay (the replay
+        stages only the changed slices but refreshes wmax / domain_ok
+        exactly, so it picks the same route as a fresh stage).  A dropped
         partition's stats are the empty interval, so its width is 0."""
         lo = np.ceil(np.asarray(table.stats.col_min(key_col), np.float64))
         hi = np.floor(np.asarray(table.stats.col_max(key_col), np.float64))
@@ -992,6 +1292,26 @@ class DeviceStatsCache:
         wmax = int(width.max()) if width.size else 0
         return pmin, width, wmax, domain_ok
 
+    def _enum_append(self, e: _PlaneEntry, table, lo: int, hi: int) -> int:
+        pmin_h, width_h, wmax, domain_ok = self._enum_rows(table,
+                                                           e.meta["col"])
+        rows = self._h2d(pmin_h[lo:hi], width_h[lo:hi])
+        for a, row in zip(e.arrays, rows):
+            a[lo:hi] = row
+        e.meta.update(wmax=wmax, domain_ok=domain_ok)
+        return 2 * (hi - lo) * 4
+
+    def _enum_drop(self, e: _PlaneEntry, table, part_ids) -> int:
+        ids = self._ids(part_ids)
+        for a in e.arrays:
+            a.index_fill_(0, ids, 0)
+        _pmin, _width, wmax, domain_ok = self._enum_rows(table,
+                                                         e.meta["col"])
+        e.meta.update(wmax=wmax, domain_ok=domain_ok)
+        return 2 * len(part_ids) * 4
+
+    # -- block-top-k planes --
+
     def block_topk_plane(self, table, order_col: str,
                          desc: bool) -> torch.Tensor:
         """The column's resident [cap, KPLANE] signed block-top-k rows.
@@ -1000,13 +1320,15 @@ class DeviceStatsCache:
         (desc per row, -inf padded, nulls excluded).  Values are rounded
         toward -inf in the signed domain, so every stored entry is <= the
         true value of an actual non-null row — any boundary taken from
-        these rows is a *witnessed* Sec. 5.4 boundary.
+        these rows is a *witnessed* Sec. 5.4 boundary.  Delta-synced; an
+        update of ``order_col`` itself restages it in full.
         """
         with self._lock:
             self._fire("get.block_topk")
             key = (table.name, table.stats.uid, order_col, bool(desc))
             e = self._plane_current("block_topk", self.topk_planes, key,
-                                    table)
+                                    table, order_col, self._topk_append,
+                                    self._topk_drop)
             if e is not None:
                 return e.arrays[0]
 
@@ -1014,7 +1336,8 @@ class DeviceStatsCache:
                 P = table.stats.num_partitions
                 cap = plane_capacity(P)
                 rows = np.full((cap, KPLANE), -np.inf, dtype=np.float32)
-                rows[:P] = self._topk_rows(table, order_col, bool(desc))
+                rows[:P] = self._topk_rows(table, order_col, bool(desc),
+                                           0, P)
                 return _PlaneEntry(self._table_version(table), P, (rows,),
                                    meta=dict(col=order_col,
                                              desc=bool(desc)))
@@ -1023,26 +1346,200 @@ class DeviceStatsCache:
                                      build).arrays[0]
 
     @staticmethod
-    def _topk_rows(table, order_col: str, desc: bool) -> np.ndarray:
-        """Signed block-top-k host rows for every partition.
+    def _topk_rows(table, order_col: str, desc: bool, lo: int,
+                   hi: int) -> np.ndarray:
+        """Signed block-top-k host rows for partitions [lo, hi), from
+        those partitions' rows only.
 
         Rows of dropped partitions are all -inf (the no-contribution
         sentinel): their tombstoned data rows must never witness a
-        boundary.
+        boundary, and a fresh stage gives the same rows as the delta
+        path's sentinel scatter.
         """
         from ..kernels.ops import build_block_topk  # lazy: ops imports us
+        bounds = np.asarray(table.part_bounds[lo:hi + 1], dtype=np.int64)
+        r0, r1 = int(bounds[0]), int(bounds[-1])
         sign = 1.0 if desc else -1.0
-        sv = round_down_f32(sign * np.asarray(table.data[order_col],
+        sv = round_down_f32(sign * np.asarray(table.data[order_col][r0:r1],
                                               dtype=np.float64))
         nm = table.nulls.get(order_col)
-        mask = None if nm is None else ~np.asarray(nm, dtype=bool)
+        mask = None if nm is None else ~np.asarray(nm[r0:r1], dtype=bool)
         live = getattr(table, "live", None)
         if live is not None:
-            live_rows = np.repeat(np.asarray(live, dtype=bool),
-                                  np.diff(table.part_bounds))
+            live_rows = np.repeat(np.asarray(live[lo:hi], dtype=bool),
+                                  np.diff(bounds))
             mask = live_rows if mask is None else (mask & live_rows)
-        return build_block_topk(sv.astype(np.float32), table.part_bounds,
-                                KPLANE, mask=mask)
+        return build_block_topk(sv, bounds - r0, KPLANE, mask=mask)
+
+    def _topk_append(self, e: _PlaneEntry, table, lo: int, hi: int) -> int:
+        new = self._topk_rows(table, e.meta["col"], e.meta["desc"], lo, hi)
+        (rows,) = e.arrays
+        rows[lo:hi] = torch.from_numpy(new).to(self.device)
+        return int(new.nbytes)
+
+    def _topk_drop(self, e: _PlaneEntry, table, part_ids) -> int:
+        (rows,) = e.arrays
+        rows.index_fill_(0, self._ids(part_ids), float("-inf"))
+        return len(part_ids) * int(rows.shape[1]) * 4
+
+    # -- hierarchical (tree) planes --
+
+    def _tree_replay(self, e: _PlaneEntry, table, dstats: DeviceStats,
+                     deltas) -> Optional[int]:
+        """Re-aggregate only the dirtied groups from the current flat
+        planes, in place; returns the staged bytes, or None (having
+        written nothing) when a full rebuild is required (a rewrite, an
+        unknown kind or column).
+
+        ``dstats`` is already current (the caller syncs it first), so the
+        group hulls re-derive on the device with no H2D of plane data:
+        appends dirty only the touched tail groups, drops only the dropped
+        ids' groups, and a column update re-aggregates that column's group
+        row.  The host coarse level re-derives from the group arrays
+        afterwards (one small copy back).
+        """
+        fanout = e.meta["fanout"]
+        gm, gx, gd = e.arrays[:3]
+        C, G = int(gm.shape[0]), int(gm.shape[1])
+        mins, maxs, dem = dstats.planes
+        dirty: set = set()
+        rows: set = set()
+        for d in deltas:
+            if d.kind == "append":
+                dirty.update(range(d.part_lo // fanout,
+                                   (max(d.part_hi, d.part_lo + 1) - 1)
+                                   // fanout + 1))
+            elif d.kind == "drop":
+                dirty.update(int(p) // fanout
+                             for p in np.asarray(d.part_ids).tolist())
+            elif d.kind == "update" and _has_column(table.stats, d.column):
+                rows.add(table.stats.col_id(d.column))
+            else:                  # rewrite (or unknown): full rebuild
+                return None
+        nbytes = 0
+        if dirty:
+            gids = np.fromiter(sorted(dirty), dtype=np.int64)
+            idx = (gids[:, None] * fanout
+                   + np.arange(fanout)[None, :]).reshape(-1)
+            jg = self._ids(gids)
+            idx_d = self._ids(idx)
+            n = len(gids)
+            gm.index_copy_(1, jg, mins.index_select(1, idx_d)
+                           .reshape(C, n, fanout).amin(dim=2))
+            gx.index_copy_(1, jg, maxs.index_select(1, idx_d)
+                           .reshape(C, n, fanout).amax(dim=2))
+            gd.index_copy_(1, jg, dem.index_select(1, idx_d)
+                           .reshape(C, n, fanout).amax(dim=2))
+            nbytes += 3 * C * n * 4
+        for ci in sorted(rows):
+            span = slice(0, G * fanout)
+            gm[ci] = mins[ci, span].reshape(G, fanout).amin(dim=1)
+            gx[ci] = maxs[ci, span].reshape(G, fanout).amax(dim=1)
+            gd[ci] = dem[ci, span].reshape(G, fanout).amax(dim=1)
+            nbytes += 3 * G * 4
+        cmins, cmaxs = coarse_from_groups(gm, gx)
+        e.arrays = (gm, gx, gd, cmins, cmaxs)
+        return nbytes
+
+    def tree_plane(self, table, dstats: DeviceStats) -> _PlaneEntry:
+        """The table's resident hierarchical plane entry, brought current.
+
+        ``dstats`` must be the table's *current* flat entry (from
+        ``get``): the tree arrays are pure aggregations of it, so delta
+        maintenance re-aggregates dirtied groups from the resident flat
+        planes instead of restaging from host truth.  A full member of
+        the integrity protocol: stamped at build and after every replay
+        (the stamp covers the host coarse level too: it takes part in
+        pruning decisions), sampled-verified on read, force-verified after
+        a quarantine or eviction restage, ``PlaneIntegrityError`` on a
+        second failure (the serving ladder demotes to the flat rungs).  A
+        geometry change (capacity growth, another fanout) rebuilds.
+        """
+        with self._lock:
+            self._fire("get.tree_stat")
+            key = (table.name, table.stats.uid)
+            fanout = self.tree_fanout
+            tver = self._table_version(table)
+            e = self.tree_planes.get(key)
+            if e is not None:
+                served = False
+                geometry_ok = (e.meta["fanout"] == fanout
+                               and e.meta["cap"] == dstats.capacity)
+                if geometry_ok and e.version == tver:
+                    served = True
+                elif geometry_ok and e.version < tver:
+                    deltas = self._deltas_since(table, e.version)
+                    if deltas is not None:
+                        nbytes = self._tree_replay(e, table, dstats, deltas)
+                        if nbytes is not None:
+                            e.version = tver
+                            e.logical_p = table.stats.num_partitions
+                            self.staged_bytes += nbytes
+                            self.delta_stages += 1
+                            e.meta["checksum"] = plane_checksum(e.arrays)
+                            e.arrays = self._corrupt("stage.tree_stat",
+                                                     e.arrays)
+                            served = True
+                if served:
+                    self.plane_hits += 1
+                    self.tree_planes.move_to_end(key)
+                    self._touch("tree_stat", key)
+                    if not self._verify_due() or self._verify(
+                            e.arrays, e.meta.get("checksum")):
+                        return e
+                    self._quarantine("tree_stat", key)
+                else:
+                    self.tree_planes.pop(key, None)
+                    self.memory.release("tree_stat", key)
+                    self.full_restages += 1
+
+            def build():
+                return tree_entry_for(dstats, fanout=fanout, version=tver,
+                                      logical_p=table.stats.num_partitions)
+
+            return self._plane_fresh("tree_stat", self.tree_planes, key,
+                                     build)
+
+    # ---- invalidation and the DML hooks ----------------------------------
+
+    def invalidate(self, table_name: str, column: Optional[str] = None
+                   ) -> None:
+        """Drop staged planes for a table.
+
+        ``column=None`` drops everything (insert/delete semantics); a
+        column drops the [C, P] planes and the tree planes (they carry
+        every column) plus only that column's join-key / enumeration /
+        block-top-k planes.
+        """
+        with self._lock:
+            for family, store in (("stat", self.entries),
+                                  ("tree_stat", self.tree_planes)):
+                for k in [k for k in store if k[0] == table_name]:
+                    del store[k]
+                    self.memory.release(family, k)
+            for family, store in (("join_key", self.key_planes),
+                                  ("enum", self.enum_planes),
+                                  ("block_topk", self.topk_planes)):
+                stale = [k for k in store
+                         if k[0] == table_name
+                         and (column is None or k[2] == column)]
+                for k in stale:
+                    del store[k]
+                    self.memory.release(family, k)
+
+    # Legacy DML hooks (a mutation made without the table's own DML
+    # methods, so without a delta log): every mutation invalidates.
+    def on_insert(self, table_name: str) -> None:
+        self.invalidate(table_name)
+
+    def on_delete(self, table_name: str) -> None:
+        self.invalidate(table_name)
+
+    def on_update(self, table_name: str, column: str) -> None:
+        # Updates are column-scoped: the [C, P] stat planes restage (they
+        # include the updated column), while the other columns' join-key /
+        # enumeration / block-top-k planes stay resident.
+        self.invalidate(table_name, column=column)
 
     @property
     def resident_bytes(self) -> int:

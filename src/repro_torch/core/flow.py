@@ -326,7 +326,8 @@ class JoinTechnique(Technique):
         if pipe.filter_mode == "device":
             q = state.query
             hit = pipe.device_service().join_hit(
-                q.scans[q.join.probe].table, q.join.probe_key, summary)
+                q.scans[q.join.probe].table, q.join.probe_key, summary,
+                part_ids=state.scan_sets[q.join.probe].part_ids)
         self._apply(pipe, state, summary, hit)
 
     def run_batch(self, pipe, states, service=None):
@@ -355,7 +356,10 @@ class JoinTechnique(Technique):
         for batch_fn, group in ((service.join_hit_batch, groups),
                                 (service.bloom_hit_batch, bloom_groups)):
             for table, key_col, members in group.values():
-                hits = batch_fn(table, key_col, [s for _, s in members])
+                hits = batch_fn(
+                    table, key_col, [s for _, s in members],
+                    part_ids=[st.scan_sets[st.query.join.probe].part_ids
+                              for st, _ in members])
                 if hits is None:
                     # the service's ladder degraded this group past the
                     # device rung: the host matcher (hit=None per member)
@@ -500,6 +504,12 @@ class PruningPipeline:
         device=None,                 # the lazily-built service's device:
                                      # None is the GPU (raises without
                                      # one); 'cpu' runs the plain path.
+        tree_fanout: Optional[int] = None,
+                                     # tree-plane group size for the
+                                     # lazily-built service (None keeps
+                                     # every table on the flat rungs;
+                                     # tests shrink it so small tables
+                                     # take the tree rung).
     ):
         if filter_mode not in ("host", "device"):
             raise ValueError(f"unknown filter_mode {filter_mode!r}")
@@ -512,14 +522,17 @@ class PruningPipeline:
         self.join_ndv_limit = join_ndv_limit
         self.filter_mode = filter_mode
         if service is not None and (budget_bytes is not None
-                                    or device is not None):
-            # silently dropping these would run the service unbounded or
-            # on another device than asked
+                                    or device is not None
+                                    or tree_fanout is not None):
+            # silently dropping these would run the service unbounded, on
+            # another device or with another geometry than asked
             raise ValueError(
-                "budget_bytes / device configure the lazily-built service; "
-                "pass them to the PruningService itself when providing one")
+                "budget_bytes / device / tree_fanout configure the "
+                "lazily-built service; pass them to the PruningService "
+                "itself when providing one")
         self._service = service
         self._budget_bytes = budget_bytes
+        self._tree_fanout = tree_fanout
         self._device = device
         self.techniques: List[Technique] = [
             FilterTechnique(), LimitTechnique(),
@@ -537,7 +550,8 @@ class PruningPipeline:
         if self._service is None:
             from ..serve.prune_service import PruningService
             self._service = PruningService(budget_bytes=self._budget_bytes,
-                                           device=self._device)
+                                           device=self._device,
+                                           tree_fanout=self._tree_fanout)
         return self._service
 
     # -- shape gates shared by executors -------------------------------------

@@ -331,22 +331,25 @@ class Table:
         ci = self.stats.col_id(column)
         vals = self.data[column]
         nmask = self.nulls.get(column)
+        # every live partition's non-null min / max and null count, one
+        # segmented reduction per statistic; a partition with no non-null
+        # row gets the empty interval, a dropped one keeps its sentinel
+        P = self.num_partitions
+        rows = np.diff(self.part_bounds) > 0
+        starts = self.part_bounds[:-1][rows]
+        lo, hi = vals, vals
+        nulls = np.zeros(P, dtype=np.int64)
+        if nmask is not None:
+            lo = np.where(nmask, np.inf, vals)
+            hi = np.where(nmask, -np.inf, vals)
+            nulls[rows] = np.add.reduceat(nmask.astype(np.int64), starts)
+        mins = np.full(P, np.inf)
+        maxs = np.full(P, -np.inf)
+        if starts.size:
+            mins[rows] = np.minimum.reduceat(lo, starts)
+            maxs[rows] = np.maximum.reduceat(hi, starts)
         live = self.live_mask
-        for p in range(self.num_partitions):
-            if not live[p]:
-                continue                      # dropped: sentinel stays
-            s = self.partition_rows(p)
-            v = vals[s]
-            if nmask is not None:
-                m = nmask[s]
-                self.stats.null_counts[p, ci] = int(m.sum())
-                v = v[~m]
-            else:
-                self.stats.null_counts[p, ci] = 0
-            if v.size:
-                self.stats.mins[p, ci] = v.min()
-                self.stats.maxs[p, ci] = v.max()
-            else:
-                self.stats.mins[p, ci] = np.inf
-                self.stats.maxs[p, ci] = -np.inf
+        self.stats.null_counts[live, ci] = nulls[live]
+        self.stats.mins[live, ci] = mins[live]
+        self.stats.maxs[live, ci] = maxs[live]
         self._log("update", column=column)

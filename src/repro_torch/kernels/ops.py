@@ -22,7 +22,7 @@ Each takes the device explicitly: ``None`` is the GPU (raising without
 one), ``"cpu"`` runs the plain versions.
 
 Resident + batched paths: a table's planes live on the device in a
-``core.device_stats.DeviceStatsCache`` (staged once per table version)
+``core.device_stats.DeviceStatsCache`` (staged once, delta-synced on DML)
 and a *batch* of queries is packed into one launch per table group.
 ``serve.prune_service.PruningService`` groups a workload and drives them:
 
@@ -35,6 +35,10 @@ and a *batch* of queries is packed into one launch per table group.
     filter words against the enumeration plane, ``bloom_probe_batched``;
   * top-k (``topk_init_batched_device``): per-query candidate partitions
     (CSR) against the block-top-k plane, ``topk_init_batched``.
+
+Each has a ``*_tree`` form (``prune_ranges_batched_tree`` and siblings)
+that first prunes whole groups of partitions on the tree planes and
+evaluates only what survives; see "Hierarchical (tree) pruning path".
 
 Kernel modes: ``auto`` dispatches on the planes' device (CUDA tensors
 launch the kernel, CPU tensors run the plain torch version; the choice is
@@ -56,24 +60,26 @@ exactly equal to the f64 host oracle on the paper's workloads.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.device_stats import (DeviceStats, cast_bounds_f32,
-                                 cast_stats_f32, resolve_device,
-                                 round_down_f32, round_up_f32,
-                                 snap_bounds_integral)
+from ..core.device_stats import (TREE_MIN_GROUPS, DeviceStats,
+                                 cast_bounds_f32, cast_stats_f32,
+                                 resolve_device, round_down_f32,
+                                 round_up_f32, snap_bounds_integral, to_host)
 from ..core.metadata import PartitionStats
 from ..core.prune_join import BLOCK_WORDS
+from . import build
 from .bloom_probe import bloom_probe_batched
 from .build import KernelError, load_all
 from .flash_attention import flash_attention
 from .join_overlap import join_overlap, join_overlap_batched
 from .minmax_prune import minmax_prune
-from .minmax_prune_batched import minmax_prune_batched
-from .ref import topk_boundary_prefix_ref
+from .minmax_prune_batched import _REF_SLAB_ELEMS, minmax_prune_batched
+from .ref import minmax_prune_gathered_ref, topk_boundary_prefix_ref
 from .topk_boundary import topk_boundary, topk_init_batched
 
 # the port's kernels (csrc/<name>.cu): the batched ones in the order of
@@ -360,15 +366,25 @@ def build_block_topk(
     # Widen, don't round-to-nearest: a plane value must never understate
     # the block's potential, or the boundary test could skip a match.
     vals = round_up_f32(values[lo_row:hi_row])
-    pid = np.repeat(np.arange(P), np.diff(cb))
+    sizes = np.diff(cb)
+    pid = np.repeat(np.arange(P), sizes)
+    keep = ~np.isnan(vals)
     if mask is not None:
-        sel = np.asarray(mask, dtype=bool)[lo_row:hi_row]
-        vals = vals[sel]
-        pid = pid[sel]
-    finite = ~np.isnan(vals)
-    if not finite.all():
-        vals = vals[finite]
-        pid = pid[finite]
+        keep &= np.asarray(mask, dtype=bool)[lo_row:hi_row]
+    R = int(sizes.max()) if P else 0
+    if 0 < P * R <= 2 * vals.size:
+        # partitions of near-equal size: sort each row of a padded [P, R]
+        # matrix, -inf in the gaps.  The same rows as the segmented sort
+        # below: -inf is the padding either way, and a stable sort keeps
+        # equal values (+0 / -0 included) in row order
+        col = np.arange(vals.size) - np.repeat(cb[:-1] - lo_row, sizes)
+        m = np.full((P, R), -np.inf, dtype=np.float32)
+        m[pid[keep], col[keep]] = vals[keep]
+        w = min(R, k)
+        out[:, :w] = -np.sort(-m, axis=1, kind="stable")[:, :w]
+        return out
+    vals = vals[keep]
+    pid = pid[keep]
     if vals.size == 0:
         return out
     order = np.lexsort((-vals, pid))        # partition-major, value desc
@@ -410,6 +426,14 @@ def topk_boundary_device(
     return _read_back(skip, "topk_boundary"), _read_back(heap, "topk_boundary")
 
 
+def keys_f32(keys) -> np.ndarray:
+    """Distinct build keys in f32, rounded to nearest.  The one key cast
+    of the JOIN paths: it is monotone, so a sorted list stays sorted and
+    a key inside a partition's f64 range stays inside its widened f32
+    interval (the partition side is widened, never the keys)."""
+    return np.asarray(keys, dtype=np.float32)
+
+
 def _stage_join(stats: PartitionStats, key_col: str, distinct: np.ndarray,
                 device: torch.device):
     """The join kernel's inputs on ``device``: (pmin [P], pmax [P],
@@ -417,8 +441,8 @@ def _stage_join(stats: PartitionStats, key_col: str, distinct: np.ndarray,
     up) and the keys cast round-to-nearest."""
     pmin = round_down_f32(stats.col_min(key_col))
     pmax = round_up_f32(stats.col_max(key_col))
-    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
-                 .to(device) for a in (pmin, pmax, distinct))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (pmin, pmax, keys_f32(distinct)))
 
 
 def join_overlap_device(
@@ -453,8 +477,17 @@ def pack_distinct(distinct_lists: Sequence[np.ndarray]) -> np.ndarray:
     Db = d_bucket(max((len(d) for d in distinct_lists), default=1))
     dist = np.full((Q, Db), np.inf, dtype=np.float32)
     for qi, d in enumerate(distinct_lists):
-        dist[qi, : len(d)] = np.asarray(d, dtype=np.float32)
+        dist[qi, : len(d)] = keys_f32(d)
     return dist
+
+
+def _listed(part_ids_lists, qi: int, P: int, dev) -> torch.Tensor:
+    """Query qi's listed partition ids (all P without a list) as an index
+    tensor on ``dev``."""
+    if part_ids_lists is None:
+        return torch.arange(P, device=dev)
+    return torch.from_numpy(
+        np.asarray(part_ids_lists[qi], dtype=np.int64)).to(dev)
 
 
 def join_overlap_batched_device(
@@ -463,16 +496,32 @@ def join_overlap_batched_device(
     pmax: torch.Tensor,      # [Pc] resident f32 key-column maxima (widened)
     num_partitions: int,     # logical P of the plane
     mode: str = "auto",
+    part_ids_lists: Optional[Sequence[np.ndarray]] = None,
 ) -> np.ndarray:
     """hit [Q, P] int8 — Q build summaries vs the resident key plane, one
     launch for the whole table group.  The device path can keep extra
     partitions (widened intervals) but never prunes a partition holding a
-    joinable key."""
+    joinable key.
+
+    ``part_ids_lists`` optionally names the partitions each query will
+    consult (its scan set).  The kernel ignores it — it evaluates the
+    resident plane dense, the batched design — while the plain version
+    evaluates only the listed positions; other entries are then 0 and
+    must not be read."""
     dev = pmin.device
     check_mode(mode, dev)
     dist = torch.from_numpy(pack_distinct(distinct_lists)).to(dev)
-    hit = join_overlap_batched(dist, pmin, pmax,
-                               num_partitions=num_partitions)
+    if part_ids_lists is None or build.runs_kernel(dev):
+        hit = join_overlap_batched(dist, pmin, pmax,
+                                   num_partitions=num_partitions)
+        return _read_back(hit, "join_overlap_batched")
+    hit = torch.zeros((len(distinct_lists), num_partitions),
+                      dtype=torch.int8, device=dev)
+    for qi in range(len(distinct_lists)):
+        ids = _listed(part_ids_lists, qi, num_partitions, dev)
+        hit[qi, ids] = join_overlap_batched(dist[qi:qi + 1], pmin[ids],
+                                            pmax[ids],
+                                            num_partitions=len(ids))[0]
     return _read_back(hit, "join_overlap_batched")
 
 
@@ -500,19 +549,34 @@ def bloom_probe_batched_device(
     enum_limit: int,
     num_partitions: int,     # logical P of the plane
     mode: str = "auto",
+    part_ids_lists: Optional[Sequence[np.ndarray]] = None,
 ) -> np.ndarray:
     """hit [Q, P] int8 — Q Bloom summaries vs the resident enumeration
     plane; row q equals the host matcher's narrow-range enumeration for
     query q's filter (hit 0 only where 0 < width <= enum_limit and no
-    candidate value is in the filter)."""
+    candidate value is in the filter).
+
+    ``part_ids_lists`` as in ``join_overlap_batched_device``: the kernel
+    evaluates dense and ignores it; the plain version probes only the
+    listed positions, and other entries are 1 (keep) and must not be
+    read."""
     dev = pmin.device
     check_mode(mode, dev)
     words = torch.from_numpy(pack_blooms(blooms)).to(dev)
     # partitions wider than the enumeration limit are kept, never probed
     width_eff = torch.where(width <= int(enum_limit), width,
                             torch.zeros_like(width))
-    hit = bloom_probe_batched(words, pmin, width_eff,
-                              num_partitions=num_partitions)
+    if part_ids_lists is None or build.runs_kernel(dev):
+        hit = bloom_probe_batched(words, pmin, width_eff,
+                                  num_partitions=num_partitions)
+        return _read_back(hit, "bloom_probe_batched")
+    hit = torch.ones((len(blooms), num_partitions), dtype=torch.int8,
+                     device=dev)
+    for qi in range(len(blooms)):
+        ids = _listed(part_ids_lists, qi, num_partitions, dev)
+        hit[qi, ids] = bloom_probe_batched(words[qi:qi + 1], pmin[ids],
+                                           width_eff[ids],
+                                           num_partitions=len(ids))[0]
     return _read_back(hit, "bloom_probe_batched")
 
 
@@ -545,3 +609,308 @@ def topk_init_batched_device(
     heap = topk_init_batched(plane, torch.from_numpy(offsets).to(dev),
                              torch.from_numpy(ids).to(dev), k)
     return _read_back(heap, "topk_init_batched")
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical (tree) pruning path: group pre-pass + gathered leaf eval
+# ---------------------------------------------------------------------------
+#
+# The flat batched path is linear in P: every query touches every
+# partition slot.  The tree path makes the work follow the *survivors*,
+# in three levels (core.device_stats stages the aggregated planes):
+#
+#   0. host coarse: the [C, G2] root hulls (G2 <= 64) evaluate in numpy;
+#      this restricts level 1 and *prices* the pre-pass before any
+#      launch.  Coarse survivors bound fine survivors from above, so a
+#      coarse density over the cutoff proves the pre-pass cannot win and
+#      the flat launch runs with no extra work.
+#   1. fine group pre-pass: the [C, G] group planes evaluate only at the
+#      coarse survivors' children, per query, by the gathered evaluator.
+#   2. leaf: the flat [C, cap] planes evaluate only at the surviving
+#      groups' members; verdicts scatter into the [Q, P] output.  Every
+#      unlisted live partition sits in a group whose hull missed the
+#      query, and group NO_MATCH implies member NO_MATCH, so the rows are
+#      bit-identical to the flat evaluation.
+#
+# FULL is never decided above the leaves: a hull inside [lo, hi] proves
+# nothing about its members, so the pre-pass only decides NO_MATCH versus
+# survive.  The gathered evaluator (``ref.minmax_prune_gathered_ref``) is
+# plain torch on both devices; the JOIN and top-k forms launch the flat
+# kernels on dense or compacted planes.
+
+TREE_DENSE_CUTOFF = 0.5
+
+# What the most recent tree-path call on THIS thread did (path taken,
+# group count, survivor densities, leaf columns).
+_tree_note = threading.local()
+
+
+def last_tree_stats() -> dict:
+    return getattr(_tree_note, "d", {})
+
+
+def _note_tree(**kw) -> None:
+    _tree_note.d = dict(kw)
+
+
+def _coarse_survivors(cids, lo, hi, cmins, cmaxs) -> np.ndarray:
+    """surv [Q, G2] bool — host evaluation of the coarse root level: the
+    NO_MATCH term of the batched evaluation (empty hull, range miss);
+    no-op slots keep everything."""
+    surv = np.ones((cids.shape[0], cmins.shape[1]), dtype=bool)
+    for k in range(cids.shape[1]):
+        pm = cmins[cids[:, k]]                        # [Q, G2]
+        px = cmaxs[cids[:, k]]
+        lo_k = lo[:, k][:, None]
+        hi_k = hi[:, k][:, None]
+        noop = (lo_k == -np.inf) & (hi_k == np.inf)
+        no = ((pm > px) | (px < lo_k) | (pm > hi_k)) & ~noop
+        surv &= ~no
+    return surv
+
+
+def _survivor_ids(surv: np.ndarray) -> np.ndarray:
+    """ids [Q, Sb] int64 — each row's surviving ids, right-padded with id
+    0 up to the power-of-two bucket Sb of the largest row count.  The
+    padding is exact, not a sentinel: the gathered evaluator computes the
+    true verdict at every position it is given, and scattering a true
+    verdict twice — or for a pruned group, whose members are provably NO
+    — changes nothing."""
+    Q = surv.shape[0]
+    counts = surv.sum(axis=1)
+    sb = _pow2_at_least(max(int(counts.max()), 1))
+    ids = np.zeros((Q, sb), dtype=np.int64)
+    qs, gs = np.nonzero(surv)
+    col = np.arange(len(qs)) - np.repeat(np.cumsum(counts) - counts, counts)
+    ids[qs, col] = gs
+    return ids
+
+
+def _survivor_positions(ids, span: int):
+    """pos [Q, Sb * span] — each surviving id expanded to its ``span``
+    child positions (id * span + j), in the array type of ``ids`` (a
+    numpy array, or a tensor on its device)."""
+    if isinstance(ids, torch.Tensor):
+        j = torch.arange(span, dtype=ids.dtype, device=ids.device)
+    else:
+        j = np.arange(span, dtype=ids.dtype)
+    return (ids[:, :, None] * span + j).reshape(ids.shape[0], -1)
+
+
+def prune_ranges_batched_tree(
+    range_lists: Sequence[List[Tuple[int, float, float]]],
+    dstats: DeviceStats,
+    tree_entry,                  # DeviceStatsCache.tree_plane(...) entry
+    mode: str = "auto",
+) -> np.ndarray:
+    """tv [Q, P] int8 via the hierarchical group pre-pass.
+
+    Bit-identical to ``prune_ranges_batched_device`` row for row: the
+    pre-pass only removes positions whose group hull *proves* NO_MATCH.
+    Falls back to the flat launch when the table is too small for the
+    tree geometry or the coarse survivor density exceeds
+    ``TREE_DENSE_CUTOFF`` (priced on the host coarse level, so the fallback
+    pays no pre-pass).
+    """
+    Q = len(range_lists)
+    planes, P = dstats.planes_state
+    mins, maxs, demote = planes
+    dev = mins.device
+    check_mode(mode, dev)
+    gm, gx, gd = tree_entry.arrays[:3]
+    cmins, cmaxs = (to_host(a) for a in tree_entry.arrays[3:])
+    fanout = int(tree_entry.meta["fanout"])
+    G = int(gm.shape[1])
+    if Q == 0 or int(mins.shape[1]) != G * fanout \
+            or P < fanout * TREE_MIN_GROUPS:
+        _note_tree(path="flat_small", groups=G)
+        return prune_ranges_batched_device(range_lists, dstats, mode)
+    cids, lo, hi, full_safe = pack_ranges(range_lists, dstats)
+    cids, lo, hi = cids[:Q], lo[:Q], hi[:Q]
+    # Level 0 — the host coarse hulls price the pre-pass
+    csurv = _coarse_survivors(cids, lo, hi, cmins, cmaxs)
+    G2 = csurv.shape[1]
+    cdens = csurv.sum(axis=1).max() / G2
+    if cdens > TREE_DENSE_CUTOFF:
+        _note_tree(path="flat_dense", groups=G, coarse_density=float(cdens))
+        return prune_ranges_batched_device(range_lists, dstats, mode)
+    cids_d, lo_d, hi_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in (cids, lo, hi))
+    # Level 1 — fine group pre-pass over the coarse survivors' children
+    gpos = _survivor_positions(_survivor_ids(csurv), G // G2)
+    tvg = _read_back(minmax_prune_gathered_ref(
+        cids_d, lo_d, hi_d, gm, gx, gd, torch.from_numpy(gpos).to(dev)),
+        "tree pre-pass")
+    gsurv = np.zeros((Q, G), dtype=bool)
+    qrow = np.repeat(np.arange(Q), gpos.shape[1])
+    gsurv[qrow, gpos.reshape(-1)] = (tvg > 0).reshape(-1)
+    fdens = gsurv.sum(axis=1).max() / G
+    # Level 2 — the leaves of the surviving groups (expanded on the
+    # device from their group ids), in slabs of whole groups (a power of
+    # two of them) that bound the gathers' memory
+    pos = _survivor_positions(
+        torch.from_numpy(_survivor_ids(gsurv)).to(dev), fanout)
+    W = int(pos.shape[1])
+    groups_per_slab = max(1, (_REF_SLAB_ELEMS // q_bucket(Q)) // fanout)
+    slab = fanout * (1 << (groups_per_slab.bit_length() - 1))
+    tvl = torch.cat([minmax_prune_gathered_ref(
+        cids_d, lo_d, hi_d, mins, maxs, demote, pos[:, s:s + slab])
+        for s in range(0, W, slab)], dim=1)
+    # Scatter — unlisted positions stay 0 (NO): every unlisted live
+    # partition sits in a pruned group, and group NO implies member NO;
+    # capacity-tail positions are dropped
+    tv_d = torch.zeros((Q, P), dtype=torch.int8, device=dev)
+    live = pos < P
+    rows = torch.arange(Q, device=dev)[:, None].expand(Q, W)
+    tv_d[rows[live], pos[live]] = tvl[live]
+    tv = _read_back(tv_d, "tree leaves")
+    if not full_safe.all():
+        tv[~full_safe] = np.minimum(tv[~full_safe], 1)
+    _note_tree(path="tree", groups=G, coarse_density=float(cdens),
+               fine_density=float(fdens), leaf_cols=W)
+    return tv
+
+
+def _restrict(part_ids_lists, n: int, P: int, keep: np.ndarray,
+              fanout: int) -> List[np.ndarray]:
+    """Each query's listed ids (all P without a list) that lie in a group
+    ``keep[q]`` (one [G] bool row, or one shared by every query) keeps."""
+    out = []
+    for qi in range(n):
+        ids = (np.arange(P) if part_ids_lists is None
+               else np.asarray(part_ids_lists[qi], dtype=np.int64))
+        k = keep if keep.ndim == 1 else keep[qi]
+        out.append(ids[k[ids // fanout]])
+    return out
+
+
+def join_overlap_batched_tree(
+    distinct_lists: Sequence[np.ndarray],
+    pmin: torch.Tensor,
+    pmax: torch.Tensor,
+    num_partitions: int,
+    tree_entry,
+    key_ci: int,
+    mode: str = "auto",
+    part_ids_lists: Optional[Sequence[np.ndarray]] = None,
+) -> np.ndarray:
+    """hit [Q, P] — group pre-pass wrapper over the batched join overlap.
+
+    The stat tree's ``key_ci`` row is a hull over the same widened f32
+    member intervals as the join-key plane, so a distinct list that misses
+    group g's hull misses every member: those members' hits are provably
+    0 and drop out of the part-id restriction handed to the flat
+    evaluator.  Bit-identical either way.  The kernel evaluates the
+    resident plane dense and ignores a restriction, so the restriction is
+    built only for the plain version, which reads it.
+    """
+    Q = len(distinct_lists)
+    fanout = int(tree_entry.meta["fanout"])
+    G = int(tree_entry.meta["groups"])
+    if Q == 0 or int(pmin.shape[0]) > G * fanout:
+        _note_tree(path="flat_small", groups=G)
+        return join_overlap_batched_device(distinct_lists, pmin, pmax,
+                                           num_partitions, mode,
+                                           part_ids_lists)
+    hg_lo = to_host(tree_entry.arrays[0][key_ci])      # [G] group hulls
+    hg_hi = to_host(tree_entry.arrays[1][key_ci])
+    ghit = np.empty((Q, G), dtype=bool)
+    for qi, d in enumerate(distinct_lists):
+        d32 = keys_f32(d)
+        # group g may hit iff some key lands in its hull; an empty hull
+        # (an all-sentinel group) brackets nothing
+        ghit[qi] = (np.searchsorted(d32, hg_hi, side="right")
+                    > np.searchsorted(d32, hg_lo, side="left"))
+    dens = ghit.sum(axis=1).max() / G
+    if dens > TREE_DENSE_CUTOFF:
+        _note_tree(path="flat_dense", groups=G, fine_density=float(dens))
+        return join_overlap_batched_device(distinct_lists, pmin, pmax,
+                                           num_partitions, mode,
+                                           part_ids_lists)
+    _note_tree(path="tree", groups=G, fine_density=float(dens))
+    restricted = (part_ids_lists if build.runs_kernel(pmin.device) else
+                  _restrict(part_ids_lists, Q, num_partitions, ghit, fanout))
+    return join_overlap_batched_device(distinct_lists, pmin, pmax,
+                                       num_partitions, mode, restricted)
+
+
+def bloom_probe_batched_tree(
+    blooms: Sequence,
+    pmin: torch.Tensor,
+    width: torch.Tensor,
+    enum_limit: int,
+    num_partitions: int,
+    tree_entry,
+    mode: str = "auto",
+    part_ids_lists: Optional[Sequence[np.ndarray]] = None,
+) -> np.ndarray:
+    """hit [Q, P] — group pre-pass wrapper over the batched Bloom probe.
+
+    Bloom pruning only ever decides *enumerable* partitions (0 < width <=
+    enum_limit); everything else is an unconditional keep.  The pre-pass
+    aggregates enumerability over the width plane's groups (one reduction
+    on the device) and restricts the part-id lists to members of groups
+    with an enumerable member: the excluded rows are exactly the flat
+    path's keeps, so the result is bit-identical.  As for the join, the
+    kernel ignores the restriction and it is built only for the plain
+    version.
+    """
+    Q = len(blooms)
+    fanout = int(tree_entry.meta["fanout"])
+    G = int(tree_entry.meta["groups"])
+    if Q == 0 or int(width.shape[0]) != G * fanout:
+        _note_tree(path="flat_small", groups=G)
+        return bloom_probe_batched_device(blooms, pmin, width, enum_limit,
+                                          num_partitions, mode,
+                                          part_ids_lists)
+    genum = to_host(((width > 0) & (width <= int(enum_limit)))
+                    .reshape(G, fanout).any(dim=1))
+    _note_tree(path="tree", groups=G, fine_density=float(genum.mean()))
+    restricted = (part_ids_lists if build.runs_kernel(pmin.device) else
+                  _restrict(part_ids_lists, Q, num_partitions, genum,
+                            fanout))
+    return bloom_probe_batched_device(blooms, pmin, width, enum_limit,
+                                      num_partitions, mode, restricted)
+
+
+def topk_init_batched_tree(
+    plane: torch.Tensor,
+    candidate_lists: Sequence[np.ndarray],
+    k: int,
+    tree_entry,
+    mode: str = "auto",
+) -> np.ndarray:
+    """heap [Q, k] — group-compacted wrapper over the batched top-k init.
+
+    The union of the candidates' groups names every plane row any query
+    can select from, so the kernel runs on the compacted ``[S * fanout,
+    K]`` slice of the plane (``index_select`` of the S surviving groups)
+    with each candidate id remapped into it — ``rank(group) * fanout + id
+    % fanout`` — and returns the identical value multisets (top-k is a
+    pure selection).  Dense unions fall back flat.
+    """
+    Q = len(candidate_lists)
+    fanout = int(tree_entry.meta["fanout"])
+    G = int(tree_entry.meta["groups"])
+    if Q == 0 or int(plane.shape[0]) != G * fanout:
+        _note_tree(path="flat_small", groups=G)
+        return topk_init_batched_device(plane, candidate_lists, k, mode)
+    lists = [np.asarray(c, dtype=np.int64) for c in candidate_lists]
+    gunion = np.zeros(G, dtype=bool)
+    for c in lists:
+        gunion[c // fanout] = True
+    dens = gunion.sum() / G
+    if dens > TREE_DENSE_CUTOFF:
+        _note_tree(path="flat_dense", groups=G, fine_density=float(dens))
+        return topk_init_batched_device(plane, candidate_lists, k, mode)
+    gids = np.nonzero(gunion)[0]
+    _note_tree(path="tree", groups=G, fine_density=float(dens))
+    if not gids.size:
+        return np.full((Q, k), -np.inf, dtype=np.float32)
+    rank = np.zeros(G, dtype=np.int64)
+    rank[gids] = np.arange(gids.size)
+    pos = (gids[:, None] * fanout + np.arange(fanout)[None, :]).reshape(-1)
+    cplane = plane.index_select(0, torch.from_numpy(pos).to(plane.device))
+    return topk_init_batched_device(
+        cplane, [rank[c // fanout] * fanout + c % fanout for c in lists], k,
+        mode)

@@ -47,6 +47,40 @@ def minmax_prune_batched_ref(cids, lo, hi, mins, maxs, demote,
     return tv
 
 
+def minmax_prune_gathered_ref(cids, lo, hi, mins, maxs, demote, pos
+                              ) -> torch.Tensor:
+    """tv [Q, W] int8 over per-query *gathered* plane positions.
+
+    The tree path's survivor-restricted evaluator (it has no kernel of its
+    own, on the card or the TPU): column w of row q is plane position
+    ``pos[q, w]`` (an index into the partition axis of the [C, Pc]
+    planes — the group planes or the leaf planes), so entry (q, w) equals
+    ``minmax_prune_batched_ref(...)[q, pos[q, w]]`` bit for bit: the
+    gather commutes with every elementwise step of the three-valued
+    conjunction.  Duplicate or padding positions recompute the same
+    verdict.
+    """
+    Q, Kb = lo.shape
+    stride = int(mins.shape[1])
+    fm, fx, fd = mins.reshape(-1), maxs.reshape(-1), demote.reshape(-1)
+    pos = pos.long()
+    cids = cids.long()
+    tv = torch.full(pos.shape, 2, dtype=torch.int8, device=mins.device)
+    for k in range(Kb):
+        idx = cids[:, k, None] * stride + pos          # [Q, W] flat index
+        pmin, pmax, pdem = fm[idx], fx[idx], fd[idx]
+        lo_k = lo[:, k, None]
+        hi_k = hi[:, k, None]
+        empty = pmin > pmax
+        no = (pmax < lo_k) | (pmin > hi_k) | empty
+        full = (pmin >= lo_k) & (pmax <= hi_k) & (pdem == 0.0) & ~empty
+        tv_k = torch.where(no, 0, torch.where(full, 2, 1)).to(torch.int8)
+        noop = (lo_k == float("-inf")) & (hi_k == float("inf"))
+        tv_k = torch.where(noop, torch.full_like(tv_k, 2), tv_k)
+        tv = torch.minimum(tv, tv_k)
+    return tv
+
+
 # Peak elements of a [K_chunk, P] intermediate of the single-query plain
 # version; long conjunctions go through in chunks of constraints.
 MINMAX_SLAB_ELEMS = 1 << 24

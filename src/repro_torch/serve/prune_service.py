@@ -31,12 +31,34 @@ outside any ladder rung, so a build failure raises here instead of
 demoting every launch to the host.
 
 Counters: ``ServiceCounters`` tracks launches and host fallbacks both in
-aggregate and per technique (``counters.technique``), and ``run_batch``
+aggregate and per technique (``counters.technique``).  A launch is one
+batched kernel launch (off the card, one call of the kernel's plain
+version); ``tree_launches`` counts the evaluations that ran a tree rung,
+whether or not they launched a kernel (the filter's group pre-pass and
+gathered leaves are plain torch and count there alone).  ``run_batch``
 attaches a snapshot to every report (``PruningReport.counters``) so a run
 can show which rung served each stage.
 
-DML: a table's own DML methods bump its ``version``, and the next
-launch's ``DeviceStatsCache.get`` restages the plane in full.
+Tree rungs: with ``tree_fanout`` given, for a table of at least
+``tree_fanout * TREE_MIN_GROUPS`` partitions every stage enters at the
+``tree`` rung, which prunes whole groups of partitions on the resident
+tree planes before evaluating what survives (``kops.*_batched_tree``),
+bit-identical to the flat ``device`` rung it demotes to on a tree-plane
+fault.  Without it every table takes the flat rungs: the tree rung is
+opt-in because its dense fallback is priced over capacity groups and
+does not fire on a large table's unselective groups, where the pre-pass
+costs more than it saves.
+
+DML: mutations made through the Table's own methods
+(``append_partitions`` / ``drop_partitions`` / ``rewrite_partitions`` /
+``update_column``) log ``TableDelta``s, and the resident planes
+*delta-sync* on the next batch — appends stage O(ΔP), drops scatter
+sentinels, nothing is invalidated (``notify_append/drop/rewrite`` keep
+the ``TableVersion`` bookkeeping aligned).  The legacy ``notify_insert /
+notify_delete / notify_update`` path bumps the version and invalidates
+outright, forcing a full restage.  Per-batch staging work and the
+``PlaneEpoch`` each table's launches ran against are attached to every
+report (``counters["staging"]`` / ``counters["planes"]``).
 """
 
 from __future__ import annotations
@@ -47,10 +69,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core import expr as E
-from ..core.device_stats import (DeviceStatsCache, PlaneMemoryManager,
+from ..core.device_stats import (TREE_MIN_GROUPS, DeviceStatsCache,
+                                 PlaneEpoch, PlaneMemoryManager,
                                  resolve_device)
 from ..core.metadata import (FULL_MATCH, NO_MATCH, PARTIAL_MATCH, ScanSet,
                              live_full_scan, mask_dead_partitions)
+from ..core.predicate_cache import TableVersion
 from ..core.prune_filter import eval_tv, extract_ranges
 from ..core.prune_join import DEFAULT_ENUM_LIMIT, BuildSummary
 from ..kernels import ops as kops
@@ -64,8 +88,9 @@ from .resilience import (DegradationLadder, new_resilience_counters,
                          resilience_delta, resilience_snapshot)
 
 # Registered DegradationLadder launch sites: the only methods allowed to
-# call ``kops.*_batched_*`` entrypoints.  Each builds a rung list that is
-# executed exclusively through ``self.ladder.execute``.
+# call ``kops.*_batched_*`` entrypoints (the tree forms included).  Each
+# builds a rung list that is executed exclusively through
+# ``self.ladder.execute``.
 LADDER_LAUNCH_SITES = frozenset({
     "PruningService._filter_rungs",
     "PruningService.join_hit_batch",
@@ -80,28 +105,33 @@ class ServiceCounters:
     scans: int = 0
     launches: int = 0          # batched kernel launches, all techniques
     host_fallbacks: int = 0    # host fallbacks, all techniques
+    tree_launches: int = 0     # evaluations that ran a tree rung
     # per-technique attribution: {'filter': {'launches': n, 'fallbacks': m}}
     technique: Dict[str, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
 
-    def bump(self, tech: str, launches: int = 0, fallbacks: int = 0) -> None:
+    def bump(self, tech: str, launches: int = 0, fallbacks: int = 0,
+             tree: int = 0) -> None:
         t = self.technique.setdefault(tech, dict(launches=0, fallbacks=0))
         t["launches"] += launches
         t["fallbacks"] += fallbacks
         self.launches += launches
         self.host_fallbacks += fallbacks
+        self.tree_launches += tree
 
     def snapshot(self) -> dict:
         return dict(queries=self.queries, scans=self.scans,
                     launches=self.launches,
                     host_fallbacks=self.host_fallbacks,
+                    tree_launches=self.tree_launches,
                     technique={k: dict(v) for k, v in self.technique.items()})
 
     @staticmethod
     def delta(before: dict, after: dict) -> dict:
         """after - before of two snapshots: the activity in between."""
         out = {k: after[k] - before[k]
-               for k in ("queries", "scans", "launches", "host_fallbacks")}
+               for k in ("queries", "scans", "launches", "host_fallbacks",
+                         "tree_launches")}
         zero = dict(launches=0, fallbacks=0)
         out["technique"] = {
             t: {f: v - before["technique"].get(t, zero)[f]
@@ -134,16 +164,26 @@ class PruningService:
                                        # schedule: every n-th read (1 =
                                        # every read; None keeps the
                                        # cache's default)
+        tree_fanout: Optional[int] = None,  # tree-plane group size; None
+                                       # keeps every table on the flat
+                                       # rungs (tests shrink it so small
+                                       # tables take the tree rungs)
     ):
         dev = resolve_device(device)
         kops.check_mode(mode, dev)
         self.mode = mode
         self.device = dev
+        self.tree_fanout = tree_fanout
         self.cache = DeviceStatsCache(
             budget_bytes=budget_bytes, fault_injector=fault_injector,
             device=dev,
             **({} if integrity_sample is None
-               else dict(integrity_sample=integrity_sample)))
+               else dict(integrity_sample=integrity_sample)),
+            **({} if tree_fanout is None
+               else dict(tree_fanout=tree_fanout)))
+        # service-side table versions (register / notify_*), handed to the
+        # stat-plane getter so a legacy notify forces a restage
+        self.versions: Dict[str, TableVersion] = {}
         if dev.type == "cuda":
             # build + bind the kernels now: a build failure must raise
             # here, not inside a ladder rung that would demote past it
@@ -153,10 +193,12 @@ class PruningService:
         # (stats uid, pred repr) pairs that validated clean (_validate_query)
         self._validated: set = set()
         # The resilience layer: every batched launch executes through the
-        # degradation ladder (device -> host kernel -> host oracle ->
-        # passthrough), so an injected fault, a torn plane, or a deadline
-        # costs pruning quality, never correctness and never an exception
-        # out of run_batch; a KernelError is let through, never demoted.
+        # degradation ladder (tree -> device -> host kernel -> host oracle
+        # -> passthrough; the tree rung only for tables large enough to
+        # carry a group plane), so an injected fault, a torn plane, or a
+        # deadline costs pruning quality, never correctness and never an
+        # exception out of run_batch; a KernelError is let through, never
+        # demoted.
         # Demotions and retries surface per batch under
         # ``PruningReport.counters["resilience"]``.
         self.resilience = new_resilience_counters()
@@ -167,6 +209,55 @@ class PruningService:
     def _fire(self, site: str) -> None:
         if self.fault_injector is not None:
             self.fault_injector.fire(site)
+
+    # -- DML bookkeeping ----------------------------------------------------
+
+    def register(self, table) -> TableVersion:
+        tv = self.versions.get(table.name)
+        if tv is None:
+            tv = TableVersion(table.num_partitions)
+            self.versions[table.name] = tv
+        return tv
+
+    # Legacy DML notifications (the mutation did not go through the
+    # table's own DML methods, so there is no delta log): the version
+    # bumps and the planes are invalidated, forcing a full restage.
+
+    def notify_insert(self, table_name: str, n_partitions: int) -> None:
+        self.notify_append(table_name, n_partitions)
+        self.cache.on_insert(table_name)
+
+    def notify_delete(self, table_name: str) -> None:
+        self.notify_drop(table_name)
+        self.cache.on_delete(table_name)
+
+    def notify_update(self, table_name: str, column: str) -> None:
+        self.notify_drop(table_name)
+        self.cache.on_update(table_name, column)
+
+    # Streaming DML (the table's own append_partitions / drop_partitions /
+    # rewrite_partitions / update_column logged it): the cache replays the
+    # delta log into the resident planes, so nothing is invalidated here —
+    # only the TableVersion bookkeeping advances.
+
+    def notify_append(self, table_name: str, n_partitions: int) -> None:
+        tv = self.versions.get(table_name)
+        if tv is not None:
+            tv.insert_partitions(n_partitions)
+
+    def notify_drop(self, table_name: str) -> None:
+        tv = self.versions.get(table_name)
+        if tv is not None:
+            tv.version += 1
+
+    notify_rewrite = notify_drop
+
+    def plane_epoch(self, table) -> Optional[PlaneEpoch]:
+        """(version, live count, capacity) of the table's resident plane."""
+        return self.cache.plane_epoch(table)
+
+    def _stat_plane(self, table):
+        return self.cache.get(table, self.versions.get(table.name))
 
     # -- filter stage -------------------------------------------------------
 
@@ -189,28 +280,67 @@ class PruningService:
         return ScanSet(ss.part_ids,
                        np.full(len(ss), PARTIAL_MATCH, dtype=np.int8))
 
+    def _tree_eligible(self, table) -> bool:
+        """Should this table's launches enter at the tree rung?  Never
+        without a ``tree_fanout``; below ``tree_fanout * TREE_MIN_GROUPS``
+        partitions the flat launch wins (and no tree plane is staged for
+        the table)."""
+        return (self.tree_fanout is not None
+                and table.stats.num_partitions
+                >= self.tree_fanout * TREE_MIN_GROUPS)
+
+    def _device_rungs(self, tech: str, launch_fn, table) -> list:
+        """The device rungs of a ladder chain: the tree rung first when
+        the table is large enough to carry a resident group plane, then
+        the flat rung.  ``launch_fn(site, tree)`` builds the thunk; a
+        tree-plane fault (staging failure, torn plane) demotes to the
+        flat rung, which never consults the tree family."""
+        rungs = []
+        if self._tree_eligible(table):
+            rungs.append(("tree", launch_fn(f"launch.{tech}:tree", True)))
+        rungs.append(("device", launch_fn(f"launch.{tech}:device", False)))
+        return rungs
+
+    def _tree_entry(self, table):
+        """The table's current tree plane (its stat plane synced first)."""
+        return self.cache.tree_plane(table, self._stat_plane(table))
+
     def _filter_rungs(self, table, range_lists, preds) -> list:
         """The filter stage's full rung chain for one table group.
 
         Every rung returns the same contract: tv ``[Q, P]`` int8 rows
         (None from the passthrough rung — the caller keeps every live
-        partition as PARTIAL).  The host kernel is exact f64 over the
-        same lowered ranges; the host oracle re-evaluates each predicate
-        tree — both bit-identical to ``eval_tv`` for lowerable
+        partition as PARTIAL).  The tree rung runs the group pre-pass,
+        bit-identical by the hull argument of
+        ``kops.prune_ranges_batched_tree``; the host kernel is exact f64
+        over the same lowered ranges; the host oracle re-evaluates each
+        predicate tree — both bit-identical to ``eval_tv`` for lowerable
         predicates, so stopping at any rung costs latency, not pruning
         quality.
         """
-        def device():
-            self._fire("launch.filter:device")
-            # Pin scope: the planes this launch reads must not be evicted
-            # (by another table's staging under the budget) while the
-            # launch is in flight.
-            with self.cache.pin_scope():
-                dstats = self.cache.get(table)
-                tv = kops.prune_ranges_batched_device(range_lists, dstats,
-                                                      self.mode)
-                self.counters.bump("filter", launches=1)
-            return tv
+        def launch(site, tree):
+            def thunk():
+                self._fire(site)
+                # Pin scope: the planes this launch reads must not be
+                # evicted (by another table's staging under the budget)
+                # while the launch is in flight.
+                with self.cache.pin_scope():
+                    dstats = self._stat_plane(table)
+                    if tree:
+                        tv = kops.prune_ranges_batched_tree(
+                            range_lists, dstats,
+                            self.cache.tree_plane(table, dstats), self.mode)
+                        # the gathered pre-pass launches no kernel; its
+                        # flat fallbacks launch the batched one
+                        gathered = kops.last_tree_stats()["path"] == "tree"
+                    else:
+                        tv = kops.prune_ranges_batched_device(
+                            range_lists, dstats, self.mode)
+                        gathered = False
+                    self.counters.bump("filter", launches=int(not gathered),
+                                       tree=int(tree))
+                return tv
+            return thunk
 
         def host_kernel():
             self._fire("launch.filter:host_kernel")
@@ -225,8 +355,7 @@ class PruningService:
             self.counters.bump("filter", fallbacks=1)
             return tv
 
-        return [
-            ("device", device),
+        return self._device_rungs("filter", launch, table) + [
             ("host_kernel", host_kernel),
             ("host_oracle", host_oracle),
             ("passthrough", lambda: None),
@@ -246,7 +375,7 @@ class PruningService:
         if ranges is None:
             self.counters.bump("filter", fallbacks=1)
             return None
-        # device rung + host kernel; the terminal rung hands back None
+        # device rungs + host kernel; the terminal rung hands back None
         # so flow's _prune_scan runs its own eval_tv host path
         rungs = self._filter_rungs(spec.table, [ranges], [spec.pred])[:-2]
         rungs.append(("host_oracle", lambda: None))
@@ -342,63 +471,92 @@ class PruningService:
         return self.cache.enum_plane(table, key_col)[3]
 
     def join_hit_batch(self, table, key_col: str,
-                       summaries: Sequence[BuildSummary]
+                       summaries: Sequence[BuildSummary],
+                       part_ids: Optional[Sequence[np.ndarray]] = None
                        ) -> Optional[np.ndarray]:
         """hit [G, P] for a (table, key column) group — one launch.
 
-        Returns None when the ladder degraded past the device rung — the
+        ``part_ids`` optionally restricts the plain version to each
+        query's scan set (entries outside it are 0 and must not be read);
+        the kernel always evaluates the resident plane dense.  Returns
+        None when the ladder degraded past the device rungs — the
         caller's host matcher is this stage's exact terminal rung
         (``prune_probe`` recomputes the overlap from host truth, so a
         degraded join loses latency, never pruning quality).
         """
-        def device():
-            self._fire("launch.join:device")
-            with self.cache.pin_scope():
-                pmin, pmax = self.cache.join_key_plane(table, key_col)
-                hit = kops.join_overlap_batched_device(
-                    [s.distinct for s in summaries], pmin, pmax,
-                    table.stats.num_partitions, self.mode)
-                self.counters.bump("join", launches=1)
-            return hit
+        def launch(site, tree):
+            def thunk():
+                self._fire(site)
+                with self.cache.pin_scope():
+                    pmin, pmax = self.cache.join_key_plane(table, key_col)
+                    dist = [s.distinct for s in summaries]
+                    P = table.stats.num_partitions
+                    if tree:
+                        hit = kops.join_overlap_batched_tree(
+                            dist, pmin, pmax, P, self._tree_entry(table),
+                            table.stats.col_id(key_col), self.mode,
+                            part_ids_lists=part_ids)
+                    else:
+                        hit = kops.join_overlap_batched_device(
+                            dist, pmin, pmax, P, self.mode,
+                            part_ids_lists=part_ids)
+                    self.counters.bump("join", launches=1, tree=int(tree))
+                return hit
+            return thunk
 
         def host_oracle():
             self.counters.bump("join", fallbacks=len(summaries))
             return None
 
-        hit, _rung = self.ladder.execute([("device", device),
-                                          ("host_oracle", host_oracle)])
+        hit, _rung = self.ladder.execute(
+            self._device_rungs("join", launch, table)
+            + [("host_oracle", host_oracle)])
         return hit
 
     def bloom_hit_batch(self, table, key_col: str,
-                        summaries: Sequence[BuildSummary]
+                        summaries: Sequence[BuildSummary],
+                        part_ids: Optional[Sequence[np.ndarray]] = None
                         ) -> Optional[np.ndarray]:
         """hit [G, P] for a (table, key column) group of Bloom summaries —
         one batched narrow-range enumeration launch over the resident
-        enumeration plane.  None when the ladder degraded to the exact
-        host matcher.  The enumeration limit is the host matcher's
-        (``prune_probe``'s ``DEFAULT_ENUM_LIMIT``), so both give the same
-        verdicts."""
-        def device():
-            self._fire("launch.join_bloom:device")
-            with self.cache.pin_scope():
-                pmin, width, _wmax, _ok = self.cache.enum_plane(table,
-                                                                key_col)
-                hit = kops.bloom_probe_batched_device(
-                    [s.bloom for s in summaries], pmin, width,
-                    DEFAULT_ENUM_LIMIT,
-                    table.stats.num_partitions, self.mode)
-                self.counters.bump("join_bloom", launches=1)
-            return hit
+        enumeration plane (``part_ids`` restricts the plain version to
+        each query's scan set, like ``join_hit_batch``).  None when the
+        ladder degraded to the exact host matcher.  The enumeration limit
+        is the host matcher's (``prune_probe``'s ``DEFAULT_ENUM_LIMIT``),
+        so both give the same verdicts."""
+        def launch(site, tree):
+            def thunk():
+                self._fire(site)
+                with self.cache.pin_scope():
+                    pmin, width, _wmax, _ok = self.cache.enum_plane(table,
+                                                                    key_col)
+                    blooms = [s.bloom for s in summaries]
+                    P = table.stats.num_partitions
+                    if tree:
+                        hit = kops.bloom_probe_batched_tree(
+                            blooms, pmin, width, DEFAULT_ENUM_LIMIT, P,
+                            self._tree_entry(table), self.mode,
+                            part_ids_lists=part_ids)
+                    else:
+                        hit = kops.bloom_probe_batched_device(
+                            blooms, pmin, width, DEFAULT_ENUM_LIMIT, P,
+                            self.mode, part_ids_lists=part_ids)
+                    self.counters.bump("join_bloom", launches=1,
+                                       tree=int(tree))
+                return hit
+            return thunk
 
         def host_oracle():
             self.counters.bump("join_bloom", fallbacks=len(summaries))
             return None
 
-        hit, _rung = self.ladder.execute([("device", device),
-                                          ("host_oracle", host_oracle)])
+        hit, _rung = self.ladder.execute(
+            self._device_rungs("join_bloom", launch, table)
+            + [("host_oracle", host_oracle)])
         return hit
 
-    def join_hit(self, table, key_col: str, summary: BuildSummary
+    def join_hit(self, table, key_col: str, summary: BuildSummary,
+                 part_ids: Optional[np.ndarray] = None
                  ) -> Optional[np.ndarray]:
         """hit [P] for one query, or None -> host path (counted per
         technique — ``join`` for distinct, ``join_bloom`` for Bloom —
@@ -410,10 +568,13 @@ class PruningService:
                     "join_bloom" if summary.bloom is not None else "join",
                     fallbacks=1)
             return None
+        pid = None if part_ids is None else [part_ids]
         if summary.distinct is not None:
-            hit = self.join_hit_batch(table, key_col, [summary])
+            hit = self.join_hit_batch(table, key_col, [summary],
+                                      part_ids=pid)
         else:
-            hit = self.bloom_hit_batch(table, key_col, [summary])
+            hit = self.bloom_hit_batch(table, key_col, [summary],
+                                       part_ids=pid)
         # None: the ladder degraded to the host matcher terminal rung
         return None if hit is None else hit[0]
 
@@ -444,14 +605,23 @@ class PruningService:
             return out                     # nothing to bound; skip the launch
         kb = kops.k_bucket(max(k for _, _, k in live))
 
-        def device():
-            self._fire("launch.topk:device")
-            with self.cache.pin_scope():
-                plane = self.cache.block_topk_plane(table, order_col, desc)
-                heap = kops.topk_init_batched_device(
-                    plane, [full for _, full, _ in live], kb, self.mode)
-                self.counters.bump("topk", launches=1)
-            return heap
+        def launch(site, tree):
+            def thunk():
+                self._fire(site)
+                with self.cache.pin_scope():
+                    plane = self.cache.block_topk_plane(table, order_col,
+                                                        desc)
+                    lists = [full for _, full, _ in live]
+                    if tree:
+                        heap = kops.topk_init_batched_tree(
+                            plane, lists, kb, self._tree_entry(table),
+                            self.mode)
+                    else:
+                        heap = kops.topk_init_batched_device(
+                            plane, lists, kb, self.mode)
+                    self.counters.bump("topk", launches=1, tree=int(tree))
+                return heap
+            return thunk
 
         def host_oracle():
             # -inf floors: run_topk's own boundary discovery takes over —
@@ -459,8 +629,9 @@ class PruningService:
             self.counters.bump("topk", fallbacks=1)
             return None
 
-        heap, _rung = self.ladder.execute([("device", device),
-                                           ("host_oracle", host_oracle)])
+        heap, _rung = self.ladder.execute(
+            self._device_rungs("topk", launch, table)
+            + [("host_oracle", host_oracle)])
         if heap is None:
             return out
         for row, (i, _full, k) in enumerate(live):

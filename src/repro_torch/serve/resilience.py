@@ -9,11 +9,13 @@ Skipping makes for its indexes: skipping metadata may only
 over-approximate).  This module turns that property into machinery:
 
   * ``DegradationLadder`` executes a per-table batched launch through an
-    ordered fallback chain (``RUNGS``): device kernel -> host kernel
-    fallback (``kernels/ops.py``) -> host oracle technique -> no-prune
-    passthrough.  The filter stage has all four rungs; the JOIN and top-k
-    stages go from the device rung straight to ``host_oracle``, which
-    hands the stage back to its exact host matcher / host boundary.  Each rung gets a
+    ordered fallback chain (``RUNGS``): tree pre-pass (tables large
+    enough to carry a resident group plane) -> device kernel -> host
+    kernel fallback (``kernels/ops.py``) -> host oracle technique ->
+    no-prune passthrough.  The filter stage has all the rungs; the JOIN
+    and top-k stages go from the device rungs straight to
+    ``host_oracle``, which hands the stage back to its exact host matcher
+    / host boundary.  Each rung gets a
     bounded number of retries with deterministic exponential backoff
     (injectable clock/sleep so tests never really sleep) and a per-stage
     deadline; every demotion is recorded in the service's
@@ -61,8 +63,11 @@ from ..kernels.build import KernelError
 # The ordered fallback chain.  A launch enters at the top rung and only
 # ever moves down; the bottom rung keeps every live partition as PARTIAL
 # — a superset of any correct answer, never FULL (so LIMIT cannot trust
-# uncertified rows).
-RUNGS = ("device", "host_kernel", "host_oracle", "passthrough")
+# uncertified rows).  The tree rung runs the hierarchical group pre-pass
+# over the [C, G] tree plane before touching leaves; a tree-plane fault
+# (integrity error, staging failure) demotes to the flat device rung,
+# which never consults the tree family.
+RUNGS = ("tree", "device", "host_kernel", "host_oracle", "passthrough")
 
 # Single registry of every counter key the serving layer may write —
 # dict keys of the resilience / integrity counter stores, report-section
@@ -75,8 +80,12 @@ COUNTER_REGISTRY = frozenset({
     "salvaged_batches", "demotions",
     # plane-integrity counters (core.device_stats.DeviceStatsCache)
     "verifications", "checksum_failures", "quarantines",
-    # per-technique attribution (ServiceCounters.bump / .technique)
+    # per-technique attribution (ServiceCounters.bump / .technique) and
+    # the launches that ran the tree path (ServiceCounters.tree_launches)
     "filter", "join", "join_bloom", "topk", "launches", "fallbacks",
+    "tree_launches",
+    # staging work (DeviceStatsCache.staging_snapshot, counters["staging"])
+    "staged_bytes", "delta_stages", "full_restages", "prefetch_stages",
     # report sections attached to each batch (PruningService.run_batch)
     "technique", "staging", "memory", "resilience", "integrity", "planes",
 })

@@ -1182,3 +1182,96 @@ def test_served_path_reaches_the_kernel_and_equals_cpu(cuda):
     want, got = torch.stack(want, dim=1), torch.stack(got, dim=1).cpu()
     err = (got - want).abs().max() / want.abs().max()
     assert float(err) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# the tree wrappers (kernels/ops.py): the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _tree_planes(dev, seed=0, P=3000, fanout=16):
+    """Clustered stat planes with dropped partitions, their tree entry,
+    and the key, enumeration and block-top-k planes of the same P, on
+    ``dev``."""
+    rng = np.random.default_rng(seed)
+    C = 3
+    mins = np.empty((P, C))
+    mins[:, 0] = np.sort(rng.integers(0, 100_000, P))
+    mins[:, 1] = rng.integers(-1000, 1000, P)
+    mins[:, 2] = rng.integers(0, 500, P)
+    maxs = mins + np.stack([rng.integers(0, 60, P), rng.integers(0, 400, P),
+                            rng.integers(0, 6, P)], axis=1)
+    drop = rng.choice(P, 40, replace=False)
+    mins[drop], maxs[drop] = np.inf, -np.inf
+    stats = PartitionStats([ColumnMeta(f"c{i}", "int") for i in range(C)],
+                           mins, maxs, np.zeros((P, C), np.int64),
+                           np.full(P, 5, np.int64))
+    d = TD.DeviceStats.stage(stats, capacity=TD.plane_capacity(P),
+                             device=dev)
+    cap = d.capacity
+    pmin = np.full(cap, F32_MAX, dtype=np.float32)
+    pmax = np.full(cap, -F32_MAX, dtype=np.float32)
+    pmin[:P] = np.clip(TD.round_down_f32(mins[:, 0]), -F32_MAX, F32_MAX)
+    pmax[:P] = np.clip(TD.round_up_f32(maxs[:, 0]), -F32_MAX, F32_MAX)
+    emin = np.zeros(cap, dtype=np.int32)
+    width = np.zeros(cap, dtype=np.int32)
+    live = np.isfinite(mins[:, 2])
+    emin[:P] = np.where(live, mins[:, 2], 0)
+    width[:P] = np.where(live, maxs[:, 2] - mins[:, 2] + 1, 0)
+    plane = np.full((cap, 8), -np.inf, dtype=np.float32)
+    plane[:P][live] = -np.sort(-rng.integers(-1000, 1000, (int(live.sum()),
+                                                           8)), axis=1)
+    to = (lambda a: torch.from_numpy(a).to(dev))
+    return (d, TD.tree_entry_for(d, fanout=fanout), mins,
+            (to(pmin), to(pmax)), (to(emin), to(width)), to(plane))
+
+
+def test_tree_wrappers_on_card_equal_cpu(cuda):
+    """Each tree wrapper on CUDA planes returns what it returns on the
+    CPU, taking the same path with the same densities, and launches the
+    flat kernels."""
+    rng = np.random.default_rng(1)
+    d_cpu, te_cpu, mins, keys_cpu, enum_cpu, plane_cpu = _tree_planes("cpu")
+    d_gpu, te_gpu, _, keys_gpu, enum_gpu, plane_gpu = _tree_planes(cuda)
+    anchors = mins[np.isfinite(mins[:, 0]), 0][[5, 800, 2500]]
+    filters = [[(0, float(a), float(a) + 300.0)] for a in anchors] + [
+        [(0, float(anchors[1]), float(anchors[1]) + 900.0),
+         (2, 100.0, 110.0)]]
+    wide = [[(1, -200.0, 200.0)]]
+    dist = [np.unique(rng.integers(a, a + 500, 6)).astype(np.float64)
+            for a in (100, 40_000)]
+    blooms = []
+    for _ in range(3):
+        b = BlockedBloom(64)
+        b.add(rng.integers(0, 500, 40))
+        blooms.append(b)
+    lists = [np.array([3, 4, 17, 18, 2000, 2001]), np.array([5]),
+             np.array([31, 32, 700, 1999])]
+    P = d_cpu.num_partitions
+    before = {n: getattr(ops, n).launches for n in (
+        "minmax_prune_batched", "join_overlap_batched",
+        "bloom_probe_batched", "topk_init_batched")}
+    paths = []
+    for fn, args_cpu, args_gpu in (
+            (ops.prune_ranges_batched_tree, (filters, d_cpu, te_cpu),
+             (filters, d_gpu, te_gpu)),
+            (ops.prune_ranges_batched_tree, (wide, d_cpu, te_cpu),
+             (wide, d_gpu, te_gpu)),
+            (ops.join_overlap_batched_tree,
+             (dist, *keys_cpu, P, te_cpu, 0), (dist, *keys_gpu, P, te_gpu,
+                                               0)),
+            (ops.bloom_probe_batched_tree,
+             (blooms, *enum_cpu, 1024, P, te_cpu),
+             (blooms, *enum_gpu, 1024, P, te_gpu)),
+            (ops.topk_init_batched_tree, (plane_cpu, lists, 4, te_cpu),
+             (plane_gpu, lists, 4, te_gpu))):
+        want = fn(*args_cpu)
+        note = ops.last_tree_stats()
+        got = fn(*args_gpu)
+        assert ops.last_tree_stats() == note, fn.__name__
+        np.testing.assert_array_equal(got, want, err_msg=fn.__name__)
+        paths.append(note["path"])
+    after = {n: getattr(ops, n).launches for n in before}
+    # the tree filter evaluates by gathers (no kernel); its dense
+    # fallback, the join, the Bloom probe and the top-k launch once each
+    assert paths[:2] == ["tree", "flat_dense"], paths
+    assert all(after[n] == before[n] + 1 for n in before), (before, after)

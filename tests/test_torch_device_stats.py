@@ -144,6 +144,9 @@ def test_pinned_planes_never_evicted_under_budget():
 
 @pytest.mark.parametrize("dml", ["append", "drop", "update", "notify"])
 def test_version_bump_restages(dml):
+    """After a version bump the plane equals a fresh stage byte for byte:
+    replayed from the delta log for the table's own DML, restaged in full
+    for a bare ``TableVersion`` bump."""
     (t,) = _tables(1, seed=3)
     cache = TD.DeviceStatsCache(device=CPU)
     first = cache.get(t)
@@ -164,8 +167,14 @@ def test_version_bump_restages(dml):
         cache.get(t, tv)
         tv.version += 1
     again = cache.get(t, tv)
-    assert again is not first
-    assert cache.full_restages == 1
+    if dml == "notify":
+        # a TableVersion bump with no delta log behind it restages in full
+        assert again is not first
+        assert cache.full_restages == 1 and cache.delta_stages == 0
+    else:
+        # the table's own DML replays into the resident plane in place
+        assert again is first
+        assert cache.full_restages == 0 and cache.delta_stages == 1
     fresh = TD.DeviceStats.stage(t.stats, t.name, t.version,
                                  capacity=TD.plane_capacity(t.num_partitions),
                                  live=t.live, device=CPU)
@@ -294,7 +303,9 @@ def test_runtime_plane_hit_and_version_bump_restage(family):
                           "f": np.zeros(30), "v": np.arange(30) * 7,
                           "s": np.array(["ok-1"] * 30)}, rows_per_partition=30)
     after, _ = _planes_of(cache, family, tt, "v")
-    assert cache.full_restages == 1
+    # an in-capacity append replays into the resident tensors in place
+    assert cache.full_restages == 0 and cache.delta_stages == 1
+    assert all(a is b for a, b in zip(first, after))
     fresh, _ = _planes_of(TD.DeviceStatsCache(device=CPU), family, tt, "v")
     for x, y in zip(after, fresh):
         assert TD.to_host(x).tobytes() == TD.to_host(y).tobytes()

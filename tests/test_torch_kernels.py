@@ -654,6 +654,39 @@ def test_build_block_topk_equals_reference():
             assert got.tobytes() == np.asarray(want).tobytes()
 
 
+@pytest.mark.parametrize("sizes", ["uniform", "near_uniform", "skewed",
+                                   "overrun"])
+def test_build_block_topk_row_sort_equals_reference(sizes):
+    """Partitions of near-equal size take a row sort of a padded matrix,
+    skewed ones the segmented sort: both give the reference's rows, with
+    ties of +0 and -0, -inf values, NaN and masked rows."""
+    rng = np.random.default_rng(3)
+    P = 60
+    if sizes == "uniform":
+        counts = np.full(P, 16)
+    elif sizes == "near_uniform":
+        counts = rng.integers(10, 17, P)
+    elif sizes == "skewed":
+        counts = rng.integers(0, 3, P)
+        counts[7] = 400
+    else:
+        counts = np.full(P, 16)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    n = int(bounds[-1])
+    vals = rng.integers(-5, 5, n).astype(np.float64)
+    vals[rng.random(n) < 0.1] = -0.0
+    vals[rng.random(n) < 0.05] = -np.inf
+    vals[rng.random(n) < 0.05] = np.nan
+    if sizes == "overrun":
+        vals = vals[:n - 20]               # bounds past the last row
+    mask = rng.random(vals.size) < 0.8
+    for k in (1, 4, 16, 64):
+        for m in (None, mask):
+            got = tops.build_block_topk(vals, bounds, k, mask=m)
+            want = np.asarray(rops.build_block_topk(vals, bounds, k, mask=m))
+            assert got.tobytes() == want.tobytes(), (k, m is None)
+
+
 @pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 100, 1024, 1025, 4096])
 def test_join_buckets_equal_reference(n):
     assert tops.d_bucket(n) == rops.d_bucket(n)
