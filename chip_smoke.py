@@ -153,6 +153,36 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      with no full restage, step 4 restages only the top-k plane, step 5
      everything, and step 1's stat replay stages 3 * C * 4,096 * 4 bytes.
 
+  7. (run after phase 6, on its tables) the serving surface around
+     ``run_batch``.  (a) The verdict cache: five batches of 128 filter
+     queries on events from a pool of 32 of phase 3's int and dictionary
+     filter predicates, each in two spellings with one canonical key
+     (the first load: every predicate in both spellings and Zipf draws;
+     then three refreshes and, after appending phase 6's step 1 again,
+     one more, each 128 Zipf draws with s = 1.1), through a service with
+     the cache on: each batch equal to the cache-off card service and the
+     CPU run, ``verdict_deduped`` = jobs - unique keys, a batch whose
+     keys were all seen twice before launches no filter kernel, and the
+     batch after the append is served by repair (no launch) and equals a
+     fresh card service; each batch's time and its filter stage alone
+     beside the cache-off service's, in turns.  (b) A fleet of events and
+     11 tables of P = 131,072 whose resident planes pass 1 GiB, under a
+     budget of 25% of them: two services share one cache (a re-budget
+     raises), reports equal an unbudgeted service's, evictions happen;
+     ``fleet_summary()`` logged.  (c) A service sharded over a logical
+     mesh of 4 shards on the card: phase 3's 128 filter, 48 LIMIT and 32
+     join queries (top-k off) and the 48 top-k queries' boundary inits
+     equal to the unsharded service, every launch sharded, each shard's
+     kernel launch equal to its plain version on the same inputs;
+     ``make_plane_mesh()`` of the machine and the default service.  (d)
+     A threaded ``ServingFrontend(max_batch=32, deadline_s=0.01)`` fed
+     phase 3's 128 filter and 32 join queries from 4 threads: every
+     response equal to a direct ``run_batch``, none unresolved; latency
+     percentiles and dispatch causes logged.
+
+Phases 3, 4 and 6 run their services with the verdict cache off, so that
+every batch launches its table groups' kernels.
+
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
 printed just before them.  Without a CUDA device, or without the rest of
@@ -1359,6 +1389,7 @@ def main_path_traffic(seed: int, card: str, n_rows: int = 2 ** 24):
                 for i in range(32)]
     # the per-query path (phase 4) takes the filter, top-k and join queries
     ctx = dict(events=events, build=build, filter_queries=queries[:128],
+               limit_queries=queries[128:176],
                topk_queries=queries[176:224], join_queries=queries[224:])
     return [queries[i] for i in rng.permutation(len(queries))], ctx
 
@@ -1395,7 +1426,8 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
         f"predicates {non_lowering}, join + ORDER BY {n_join_topk}")
 
     t0 = time.perf_counter()
-    cpu_reports = PruningService(device="cpu").run_batch(queries)
+    cpu_reports = PruningService(device="cpu",
+                                 verdict_cache=False).run_batch(queries)
     t_cpu = time.perf_counter() - t0
     cpu_tech = cpu_reports[0].counters["technique"]
     bloom_q = [i for i, r in enumerate(cpu_reports)
@@ -1424,7 +1456,9 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
         raise SystemExit(f"traffic: top-k launches {cpu_tech.get('topk')}")
 
     kernel_of = {t: getattr(ops, n) for t, n in MAIN_KERNELS.items()}
-    svc = PruningService(device=dev)
+    # the verdict cache off: every batch launches each table group's
+    # kernels (a repeated batch would otherwise be served from verdicts)
+    svc = PruningService(device=dev, verdict_cache=False)
     for fn in kernel_of.values():
         fn.launches = 0                     # the main path's count from here
     times = []
@@ -2352,7 +2386,8 @@ def phase_tree_ingest(ctx: dict, seed: int, n_batches: int, card: str,
         f"{events.num_partitions}, fanout {TREE_FANOUT}")
 
     t0 = time.perf_counter()
-    cpu_reports = PruningService(device="cpu").run_batch(queries)
+    cpu_reports = PruningService(device="cpu",
+                                 verdict_cache=False).run_batch(queries)
     t_cpu = time.perf_counter() - t0
     bloom = {i for i, r in enumerate(cpu_reports)
              if "join" in r.per_scan.get("events", {})
@@ -2368,7 +2403,8 @@ def phase_tree_ingest(ctx: dict, seed: int, n_batches: int, card: str,
 
     # (a) the tree path, full width
     kernel_of = {t: getattr(ops, n) for t, n in MAIN_KERNELS.items()}
-    svc = PruningService(device=dev, tree_fanout=TREE_FANOUT)
+    svc = PruningService(device=dev, tree_fanout=TREE_FANOUT,
+                         verdict_cache=False)
     tree_ms, notes = [], None
     with TreeNotes() as rec:
         for fn in kernel_of.values():
@@ -2487,7 +2523,8 @@ def phase_tree_ingest(ctx: dict, seed: int, n_batches: int, card: str,
         reports = svc.run_batch(queries)
         sync(dev)
         batch_ms = (time.perf_counter() - t0) * 1e3
-        fresh = PruningService(device=dev, tree_fanout=TREE_FANOUT)
+        fresh = PruningService(device=dev, tree_fanout=TREE_FANOUT,
+                               verdict_cache=False)
         full = sync_families(fresh, events, topk_keys, dev)
         problems = planes_differ(resident_arrays(svc, events),
                                  resident_arrays(fresh, events))
@@ -2495,7 +2532,7 @@ def phase_tree_ingest(ctx: dict, seed: int, n_batches: int, card: str,
                                    "a fresh card service")
         if si in (0, 4):
             problems += batch_problems(reports, PruningService(
-                device="cpu").run_batch(queries), "the CPU service")
+                device="cpu", verdict_cache=False).run_batch(queries), "the CPU service")
         want_full = {0: set(), 1: set(), 2: set(), 3: {"block_topk"},
                      4: set(replay)}[si]
         for fam, r in replay.items():
@@ -2535,6 +2572,492 @@ def phase_tree_ingest(ctx: dict, seed: int, n_batches: int, card: str,
                 join_stage_ms=join_stage, phase3_tree_ms=p3_ms,
                 phase3_paths=p3_paths,
                 launches=launches, steps=steps)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the serving surface around run_batch at full width
+# ---------------------------------------------------------------------------
+# On phase 3's tables as phase 6 left them: (a) the verdict cache under a
+# dashboard mix, with an append repaired in place; (b) a fleet under a
+# byte budget, two services sharing one cache; (c) partition-sharded
+# launches over a logical mesh of four shards on the card; (d) the
+# threaded front-end.
+
+POOL = 32            # dashboard panels: distinct filter predicates
+ZIPF_S = 1.1         # panel popularity
+DASH_BATCH = 128
+FLEET_ROWS = 2 ** 21     # P = 131,072 a fleet table at 16 rows a partition
+FLEET_TABLES = 11
+FLEET_DATASETS = 2       # generated datasets the fleet tables are cut from
+FLEET_RATIO = 0.25       # budget / the fleet's resident bytes
+LOGICAL_SHARDS = 4
+
+
+def dashboard_pool(ctx: dict) -> list:
+    """(spelling 1, spelling 2) of each of the first POOL of phase 3's
+    filter predicates that read int and dictionary columns only and are a
+    conjunction or a comparison, distinct by canonical key: the conjuncts
+    swapped, or the literal on the left with the comparison flipped — the
+    same canonical key.  (An append's verdict repair evaluates the new
+    partitions in f64 on the host, which equals the kernel's f32 verdicts
+    on int and dictionary columns; on a float column a repaired slot can
+    be FULL where the kernel's widened f32 bounds keep it PARTIAL.)"""
+    from repro_torch.core import expr as E
+    flip = {">": "<", ">=": "<=", "<": ">", "<=": ">="}
+    pool, keys = [], set()
+    for q in ctx["filter_queries"]:
+        p = q.scans["events"].pred
+        if not integral_only(q):
+            continue
+        if isinstance(p, E.And):
+            alt = E.And(tuple(reversed(p.children)))
+        elif isinstance(p, E.Cmp) and isinstance(p.lhs, E.Col) \
+                and isinstance(p.rhs, E.Lit) and p.op in flip:
+            alt = E.Cmp(flip[p.op], p.rhs, p.lhs)
+        else:
+            continue
+        ck = E.canonical_key(p)
+        if ck in keys or E.canonical_key(alt) != ck:
+            continue
+        keys.add(ck)
+        pool.append((p, alt))
+        if len(pool) == POOL:
+            return pool
+    raise SystemExit(f"traffic: {len(pool)} dashboard predicates, "
+                     f"expected {POOL}")
+
+
+def dashboard_batches(ctx: dict, pool: list, rng) -> list:
+    """Five batches of DASH_BATCH filter queries on events, as (query,
+    pool index) pairs: the dashboard's first load (every panel in both
+    spellings, then Zipf draws), three refreshes and the batch after the
+    append (each DASH_BATCH draws with replacement, Zipf s = ZIPF_S over
+    the pool, a random spelling)."""
+    from repro_torch.core.flow import Query, TableScanSpec
+    events = ctx["events"]
+    w = 1.0 / np.arange(1, POOL + 1) ** ZIPF_S
+    w /= w.sum()
+
+    def q(i, s):
+        return Query(scans={"events": TableScanSpec(events, pool[i][s])}), i
+
+    def draws(n):
+        return [q(int(i), int(s)) for i, s in zip(
+            rng.choice(POOL, n, p=w), rng.integers(0, 2, n))]
+
+    first = [q(i, s) for i in range(POOL) for s in (0, 1)]
+    first += draws(DASH_BATCH - len(first))
+    first = [first[i] for i in rng.permutation(len(first))]
+    return [first] + [draws(DASH_BATCH) for _ in range(4)]
+
+
+class ShardRecorder:
+    """Records every launch of the four batched kernels' wrappers (inputs
+    and a copy of the output); the service looks them up on ``ops`` at
+    each call, so wrapping them there sees every shard's launch."""
+
+    NAMES = ("minmax_prune_batched", "join_overlap_batched",
+             "bloom_probe_batched", "topk_init_batched")
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.calls, self._saved = ops, [], {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = getattr(self.ops, name)
+            self._saved[name] = fn
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                out = _fn(*a, **kw)
+                self.calls.append((_name, a, kw, out.clone()))
+                return out
+            setattr(self.ops, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.ops, name, fn)
+
+
+def shard_vs_plain(calls) -> dict:
+    """Each recorded shard launch against its kernel's plain version on
+    the same inputs (on the card): calls and max abs err by kernel."""
+    from repro_torch.kernels import ref
+    out = {}
+    for name, a, kw, got in calls:
+        P = kw.get("num_partitions")
+        if name == "minmax_prune_batched":
+            c, lo, hi, m, x, d = a
+            want = ref.minmax_prune_batched_ref(c, lo, hi, m[:, :P],
+                                                x[:, :P], d[:, :P])
+        elif name == "join_overlap_batched":
+            want = ref.join_overlap_batched_ref(*a, num_partitions=P)
+        elif name == "bloom_probe_batched":
+            want = ref.bloom_probe_batched_ref(*a, num_partitions=P)
+        else:
+            want = ref.topk_init_batched_ref(*a)
+        err = require_equal(name, got, want.to(got.device),
+                            f"a shard launch of phase 7 (P = {P})")
+        n, e = out.get(name, (0, 0.0))
+        out[name] = (n + 1, max(e, err))
+    return out
+
+
+def fleet_traffic(tables: list, build, rng, n: int, warm: bool) -> list:
+    """A fleet round: with ``warm`` one filter, one join and (on the
+    fleet tables, not events) one ``ORDER BY num_sightings DESC LIMIT 10``
+    a table; else ``n`` queries on tables drawn Zipf (s = 1.2, events the
+    most popular), each a filter, a join or (fleet tables) a top-k."""
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import JoinSpec, Query, TableScanSpec
+
+    def filt(t):
+        return Query(scans={t.name: TableScanSpec(
+            t, sample_filter_pred(rng, E))})
+
+    def join(t):
+        return Query(scans={
+            "users": TableScanSpec(build, E.col("age") >= int(
+                rng.integers(65, 85))),
+            t.name: TableScanSpec(t)},
+            join=JoinSpec("users", t.name, "id", "user_id"))
+
+    def topk(t):
+        return Query(scans={t.name: TableScanSpec(
+            t, E.col("ts") >= TS_MAX * 0.9)}, limit=10,
+            order_by=(t.name, ORDER_COL, True))
+
+    if warm:
+        out = []
+        for i, t in enumerate(tables):
+            out += [filt(t), join(t)] + ([topk(t)] if i else [])
+        return out
+    w = 1.0 / np.arange(1, len(tables) + 1) ** 1.2
+    out = []
+    for ti in rng.choice(len(tables), n, p=w / w.sum()):
+        t = tables[int(ti)]
+        kind = int(rng.integers(0, 3 if ti else 2))
+        out.append((filt, join, topk)[kind](t))
+    return out
+
+
+def phase_serving(ctx: dict, seed: int, card: str, dev,
+                  fleet_rows: int = FLEET_ROWS,
+                  fleet_tables: int = FLEET_TABLES,
+                  min_fleet_bytes: int = 1 << 30) -> dict:
+    """Phase 7 (after phase 6, on its tables): (a) the verdict cache, (b)
+    a budgeted fleet with a shared cache, (c) sharded launches over a
+    logical mesh, (d) the threaded front-end; every gate raises."""
+    import threading
+
+    import torch
+
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import PruningPipeline
+    from repro_torch.data.generator import make_events_table
+    from repro_torch.data.table import Table
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_plane_mesh
+    from repro_torch.serve.frontend import ServingFrontend
+    from repro_torch.serve.prune_service import PruningService
+
+    events, flat, build = ctx["events"], ctx["svc"], ctx["build"]
+    kernel_of = {t: getattr(ops, n) for t, n in MAIN_KERNELS.items()}
+    for fn in kernel_of.values():
+        fn.launches = 0                    # this phase's count from here
+    out = {}
+
+    # (a) the verdict cache under a dashboard mix
+    pool = dashboard_pool(ctx)
+    rng = np.random.default_rng(seed + 7)
+    batches = dashboard_batches(ctx, pool, rng)
+    cached = PruningService(device=dev, cache=flat.cache)   # cache on
+    cpu = PruningService(device="cpu")
+    keys = [E.canonical_key(p) for p, _ in pool]
+    sightings = np.zeros(POOL, dtype=np.int64)
+    rows = []
+    log(f"[serving] {card}: (a) {len(batches)} batches of {DASH_BATCH} "
+        f"filter queries over a pool of {POOL} predicates in two spellings "
+        f"each (Zipf s = {ZIPF_S}); events P={events.num_partitions}")
+    for b, batch in enumerate(batches):
+        if b == len(batches) - 1:
+            P0 = events.num_partitions
+            dml_steps(events, seed + 7)[0][1]()          # the append
+            log(f"[serving] {card}: appended "
+                f"{events.num_partitions - P0} partitions (P="
+                f"{events.num_partitions})")
+        qs = [q for q, _ in batch]
+        idx = np.array([i for _, i in batch])
+        uniq = np.unique(idx)
+        warm = bool((sightings[uniq] >= 2).all())
+        ms, reps = {}, {}
+        # the two services in turns, the cached one's launches counted
+        for name in (("verdict", "off") if b % 2 == 0
+                     else ("off", "verdict")):
+            svc = cached if name == "verdict" else flat
+            if name == "verdict":
+                before = (kernel_of["filter"].launches,
+                          cached.counters.technique.get("filter", {}).get(
+                              "launches", 0),
+                          cached.cache.integrity["verdict_repairs"])
+            ms[name] = host_ms(lambda s=svc, n=name: reps.__setitem__(
+                n, s.run_batch(qs)), dev)
+            if name == "verdict":
+                launched = kernel_of["filter"].launches - before[0]
+                svc_launches = cached.counters.technique["filter"][
+                    "launches"] - before[1]
+                repairs = cached.cache.integrity["verdict_repairs"] \
+                    - before[2]
+        res = reps["verdict"][0].counters["resilience"]
+        problems = batch_problems(reps["verdict"], reps["off"],
+                                  "the cache-off card service")
+        problems += batch_problems(reps["verdict"], cpu.run_batch(qs),
+                                   "the CPU run")
+        if res["verdict_deduped"] != len(qs) - len(uniq):
+            problems.append(f"deduped {res['verdict_deduped']}, expected "
+                            f"{len(qs) - len(uniq)}")
+        if warm and (launched or svc_launches
+                     or res["verdict_hits"] != len(uniq)):
+            problems.append(f"a warm batch launched {launched} filter "
+                            f"kernels, hits {res['verdict_hits']}")
+        if b == len(batches) - 1:
+            fresh = PruningService(device=dev, verdict_cache=False)
+            problems += batch_problems(reps["verdict"], fresh.run_batch(qs),
+                                       "a fresh card service")
+            del fresh
+            if not warm or repairs <= 0:
+                problems.append(f"after the append: warm {warm}, "
+                                f"{repairs} verdict repairs")
+        if b > 0 and not warm:
+            problems.append("a refresh batch is not warm")
+        if problems:
+            raise SystemExit(f"verdict batch {b}: " + "; ".join(
+                problems[:10]))
+        sightings += np.bincount(idx, minlength=POOL)
+        stage = filter_stage_ms({"verdict": cached, "off": flat}, qs, dev)
+        rows.append(dict(batch=b, unique=int(len(uniq)), warm=warm,
+                         kernel_launches=launched, hits=res["verdict_hits"],
+                         misses=res["verdict_misses"],
+                         deduped=res["verdict_deduped"], repairs=repairs,
+                         batch_ms=ms, filter_stage_ms=stage))
+        log(f"[serving] {card}: (a) batch {b}"
+            f"{' (after the append)' if b == len(batches) - 1 else ''}: "
+            f"{len(uniq)} unique keys, deduped {res['verdict_deduped']}, "
+            f"hits {res['verdict_hits']}, misses {res['verdict_misses']}, "
+            f"repairs {repairs}, filter kernel launches {launched}; batch "
+            f"ms verdict / off {ms['verdict']:.2f} / {ms['off']:.2f}; filter"
+            f" stage alone in turns verdict "
+            f"{[round(t, 3) for t in stage['verdict']]} / off "
+            f"{[round(t, 3) for t in stage['off']]} ms; equal to the "
+            f"cache-off service and the CPU run")
+    out["verdict"] = rows
+    del cpu
+
+    # (b) a fleet under a byte budget, two services sharing one cache
+    t0 = time.perf_counter()
+    base = [make_events_table(np.random.default_rng(seed + 70 + i),
+                              n_rows=fleet_rows, rows_per_partition=16,
+                              ts_clustering=0.995, user_clustering=0.99999)
+            for i in range(FLEET_DATASETS)]
+    fleet = [events] + [Table.from_arrays(
+        f"fleet{i}", base[i % FLEET_DATASETS].columns,
+        base[i % FLEET_DATASETS].data, base[i % FLEET_DATASETS].nulls,
+        base[i % FLEET_DATASETS].part_bounds) for i in range(fleet_tables)]
+    gen_s = time.perf_counter() - t0
+    frng = np.random.default_rng(seed + 71)
+    rounds = [fleet_traffic(fleet, build, frng, 0, warm=True)] + [
+        fleet_traffic(fleet, build, frng, 24, warm=False) for _ in range(2)]
+    free = PruningService(device=dev)
+    t0 = time.perf_counter()
+    want = [free.run_batch(rounds[0])]
+    ws = free.cache.resident_bytes
+    budget = int(ws * FLEET_RATIO)
+    if ws < min_fleet_bytes:
+        raise SystemExit(f"fleet: resident planes {ws} bytes, under "
+                         f"{min_fleet_bytes}")
+    want += [free.run_batch(r) for r in rounds[1:]]
+    free_s = time.perf_counter() - t0
+    budgeted = PruningService(device=dev, budget_bytes=budget)
+    twin = PruningService(device=dev, cache=budgeted.cache)
+    try:
+        PruningService(device=dev, cache=budgeted.cache,
+                       budget_bytes=budget + 1)
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise SystemExit("fleet: a shared cache was re-budgeted")
+    if twin.cache is not budgeted.cache:
+        raise SystemExit("fleet: the services do not share one cache")
+    t0 = time.perf_counter()
+    got = budgeted.run_fleet(rounds[:2]) + [twin.run_batch(rounds[2])]
+    fleet_s = time.perf_counter() - t0
+    problems = []
+    for r, (g, w) in enumerate(zip(got, want)):
+        problems += batch_problems(g, w, f"the unbudgeted service, round {r}")
+    summary = budgeted.fleet_summary()
+    mem = summary["memory"]
+    if not mem["evictions"]:
+        problems.append("no eviction under the budget")
+    if mem["bytes_in_use"] != budgeted.cache.resident_bytes:
+        problems.append("budget accounting differs from the stores")
+    if problems:
+        raise SystemExit("fleet: " + "; ".join(problems[:10]))
+    out["fleet"] = dict(tables=len(fleet), resident_bytes=ws, budget=budget,
+                        generate_s=gen_s, unbudgeted_s=free_s,
+                        budgeted_s=fleet_s, refusal=refusal,
+                        memory=mem, staging=summary["staging"],
+                        plane_hit_rate=summary["plane_hit_rate"],
+                        queries=[len(r) for r in rounds])
+    log(f"[serving] {card}: (b) fleet of {len(fleet)} tables (events and "
+        f"{fleet_tables} of P={fleet[1].num_partitions}, generated in "
+        f"{gen_s:.1f} s), resident planes {ws} bytes, budget {budget} "
+        f"({FLEET_RATIO:.0%}); rounds of {[len(r) for r in rounds]} queries: "
+        f"budgeted {fleet_s:.1f} s, unbudgeted {free_s:.1f} s; re-budget "
+        f"refused ({refusal}); equal to the unbudgeted service; "
+        f"evictions {mem['evictions']}, restage storms "
+        f"{mem['restage_storms']}, peak {mem['peak_bytes']} bytes, plane "
+        f"hit rate {summary['plane_hit_rate']:.4f}")
+    del free, budgeted, twin, fleet, base
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) partition-sharded launches over a logical mesh on the card
+    mesh = make_plane_mesh([dev] * LOGICAL_SHARDS)
+    sharded = PruningService(device=dev, cache=flat.cache, shard_mesh=mesh,
+                             verdict_cache=False)
+    qs = ctx["filter_queries"] + ctx["limit_queries"] + ctx["join_queries"]
+    # the joins' ORDER BY is phase 3's host scan: top-k off on both sides
+    pipes = {n: PruningPipeline(filter_mode="device", service=s,
+                                enable_topk=False)
+             for n, s in (("sharded", sharded), ("flat", flat))}
+    scans = flat.prune_batch(ctx["topk_queries"])
+    groups = {}
+    for q, ss in zip(ctx["topk_queries"], scans):
+        _, col, desc = q.order_by
+        groups.setdefault((col, bool(desc)), []).append(
+            (ss["events"], q.effective_k))
+    # bring the shared planes current (phase 6's and (a)'s DML replay,
+    # the top-k planes of phase 6's updated column rebuild) off the clock
+    flat.run_batch(qs, pipes["flat"])
+    for col, desc in groups:
+        flat.cache.block_topk_plane(events, col, desc)
+    before = {t: fn.launches for t, fn in kernel_of.items()}
+    ms, reps, heaps = {"sharded": [], "flat": []}, {}, {}
+
+    def run(n):
+        s = sharded if n == "sharded" else flat
+        reps[n] = s.run_batch(qs, pipes[n])
+        heaps[n] = {g: s.topk_init_batch(events, g[0], g[1], jobs)
+                    for g, jobs in groups.items()}
+
+    with ShardRecorder() as rec:        # every shard launch, recorded
+        run("sharded")
+    calls = rec.calls
+    for name in ("sharded", "flat", "flat", "sharded"):     # in turns
+        ms[name].append(host_ms(lambda n=name: run(n), dev))
+    launched = {t: fn.launches - before[t] for t, fn in kernel_of.items()}
+    problems = batch_problems(reps["sharded"], reps["flat"],
+                              "phase 3's unsharded service")
+    if heaps["sharded"] != heaps["flat"]:
+        problems.append("top-k boundaries differ from the unsharded ones")
+    c = sharded.counters
+    if c.sharded_launches != c.launches or not c.launches:
+        problems.append(f"sharded launches {c.sharded_launches} of "
+                        f"{c.launches}")
+    if problems:
+        raise SystemExit("sharded: " + "; ".join(problems[:10]))
+    shard_check = shard_vs_plain(calls)
+    del calls
+    if set(shard_check) != set(ShardRecorder.NAMES):
+        raise SystemExit(f"sharded: shard launches of {sorted(shard_check)}")
+    host_mesh = make_plane_mesh() if dev.type == "cuda" else (dev,)
+    default = PruningService(device=dev, cache=flat.cache, shard_mesh=True,
+                             verdict_cache=False)
+    default.run_batch(ctx["filter_queries"][:8])
+    if (default.counters.sharded_launches > 0) != (len(host_mesh) > 1):
+        raise SystemExit(f"default mesh of {len(host_mesh)}: sharded "
+                         f"launches {default.counters.sharded_launches}")
+    P, cap = events.num_partitions, flat.cache.get(events).capacity
+    out["sharded"] = dict(shards=LOGICAL_SHARDS, batch_ms=ms,
+                          live_shards=[s[2] for s in ops._shard_spans(
+                              cap, LOGICAL_SHARDS, P)],
+                          service_launches=c.launches,
+                          kernel_launches=launched,
+                          shard_vs_plain={k: dict(calls=n, max_abs_err=e)
+                                          for k, (n, e) in
+                                          shard_check.items()},
+                          machine_mesh=len(host_mesh))
+    log(f"[serving] {card}: (c) {LOGICAL_SHARDS} logical shards of "
+        f"{cap // LOGICAL_SHARDS} partitions (live "
+        f"{out['sharded']['live_shards']}): {len(qs)} queries, batch ms "
+        f"sharded {[round(t, 2) for t in ms['sharded']]} / unsharded "
+        f"{[round(t, 2) for t in ms['flat']]} in turns; top-k boundaries of "
+        f"{sum(len(j) for j in groups.values())} queries; bit-identical to "
+        f"the unsharded service; service launches {c.launches}, all "
+        f"sharded; kernel launches {launched}; each shard launch equal to "
+        f"its plain version: { {k: n for k, (n, _) in shard_check.items()} }"
+        f"; make_plane_mesh() here: {len(host_mesh)} device(s), default "
+        f"service sharded launches {default.counters.sharded_launches}")
+    del sharded, default
+
+    # (d) the threaded front-end
+    fe_svc = PruningService(device=dev, cache=flat.cache)    # cache on
+    qs = ctx["filter_queries"] + ctx["join_queries"]
+    pipe = PruningPipeline(filter_mode="device", service=fe_svc,
+                           enable_topk=False)
+    direct = flat.run_batch(qs, PruningPipeline(
+        filter_mode="device", service=flat, enable_topk=False))
+    staged0 = fe_svc.cache.staging_snapshot()["prefetch_stages"]
+    futs = [None] * len(qs)
+    errs = []
+
+    def client(k):
+        try:
+            for i in range(k, len(qs), 4):
+                futs[i] = fe.submit(qs[i])
+        except Exception as exc:        # reported below, never passed over
+            errs.append(exc)
+
+    t0 = time.perf_counter()
+    with ServingFrontend(fe_svc, pipe, max_batch=32,
+                         deadline_s=0.01) as fe:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        fe.drain()
+    fe_s = time.perf_counter() - t0
+    if errs:
+        raise SystemExit(f"front-end: a client raised {errs[0]!r}")
+    if not all(f is not None and f.done() for f in futs):
+        raise SystemExit("front-end: a future was left unresolved")
+    resps = [f.result() for f in futs]
+    problems = [f"query {i}: differs from run_batch"
+                for i, (r, w) in enumerate(zip(resps, direct))
+                if not reports_equal(r.report, w)]
+    if problems:
+        raise SystemExit("front-end: " + "; ".join(problems[:10]))
+    lat = fe_svc.fleet_summary()["latency"]
+    prefetch = fe_svc.cache.staging_snapshot()["prefetch_stages"] - staged0
+    out["frontend"] = dict(queries=len(qs), s=fe_s, latency=lat,
+                           prefetch_stages=prefetch,
+                           verdict_hits=fe_svc.resilience["verdict_hits"])
+    log(f"[serving] {card}: (d) {len(qs)} queries from 4 threads, "
+        f"max_batch 32, deadline 10 ms: {fe_s:.2f} s; {lat['batches']} "
+        f"batches ({lat['size_fired']} size-fired, "
+        f"{lat['deadline_fired']} deadline, {lat['flush_fired']} flush); "
+        f"latency p50 {lat['p50_ms']:.1f} / p99 {lat['p99_ms']:.1f} / max "
+        f"{lat['max_ms']:.1f} ms; prefetch stages {prefetch}; every "
+        f"response equals run_batch")
+    out["launches"] = {t: fn.launches for t, fn in kernel_of.items()}
+    if not all(out["launches"].values()):
+        raise SystemExit(f"phase 7: kernel launches {out['launches']}")
+    out["shard_max_abs_err"] = {
+        k: e for k, (_, e) in shard_check.items()}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3029,6 +3552,9 @@ def main() -> int:
     t0 = time.perf_counter()
     it = phase_tree_ingest(ctx, args.seed, args.batches, card, dev)
     log(f"[tree] {card}: phase 6 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sv = phase_serving(ctx, args.seed, card, dev)
+    log(f"[serving] {card}: phase 7 took {time.perf_counter() - t0:.1f} s")
     del ctx
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3044,8 +3570,10 @@ def main() -> int:
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces,
-            launches=k["launches"] + it["launches"].get(path, 0),
-            max_abs_err=max(kv[name]["max_abs_err"], k["max_abs_err"]),
+            launches=(k["launches"] + it["launches"].get(path, 0)
+                      + sv["launches"].get(path, 0)),
+            max_abs_err=max(kv[name]["max_abs_err"], k["max_abs_err"],
+                            sv["shard_max_abs_err"].get(name, 0.0)),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
     kernels = {"kernels": rows}
@@ -3054,7 +3582,7 @@ def main() -> int:
         Path(args.json).write_text(json.dumps(
             dict(card=card, torch=torch.__version__, build_s=build_s,
                  build=built, kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
-                 ingest_tree=it, lm_serving=lm,
+                 ingest_tree=it, serving=sv, lm_serving=lm,
                  **kernels), indent=1))
     log(card)
     log(json.dumps(kernels))

@@ -45,8 +45,9 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from .metadata import PartitionStats
+from .metadata import NO_MATCH, PartitionStats
 from .predicate_cache import TableVersion
+from .prune_filter import eval_tv
 
 
 def resolve_device(device=None) -> torch.device:
@@ -356,8 +357,10 @@ TREE_COARSE_MAX = 64
 # Registry of plane families under the integrity protocol.  Every family
 # in DeviceStatsCache._stores MUST be declared here and vice versa, so a
 # new family cannot ship without joining checksum stamping and byte
-# accounting.
-PLANE_FAMILIES = ("stat", "join_key", "enum", "block_topk", "tree_stat")
+# accounting.  ``verdict`` is the Sec. 8.2 predicate / verdict cache: one
+# int8 [cap] three-valued verdict row per (table, canonical predicate).
+PLANE_FAMILIES = ("stat", "join_key", "enum", "block_topk", "tree_stat",
+                  "verdict")
 
 
 def _has_column(stats: PartitionStats, name: str) -> bool:
@@ -676,13 +679,16 @@ class DeviceStatsCache:
         every stored value is <= the true row value — a boundary derived
         from them is always witnessed), consumed by ``topk_init_batched``;
 
-    and one *tree* family (``tree_plane``): the [C, G] group hulls of the
+    one *tree* family (``tree_plane``): the [C, G] group hulls of the
     stat planes (``tree_fanout`` partitions a group) with their host
     coarse level, aggregated on the device from the current stat planes
-    and re-aggregated only for the groups a delta dirtied.
+    and re-aggregated only for the groups a delta dirtied; and one
+    *verdict* family (``verdict_plane`` / ``verdict_record``): int8 [cap]
+    rows of a filter predicate's three-valued verdicts, keyed by (table
+    identity, canonical predicate), repaired in place on append and drop.
 
     ``budget_bytes`` hands residency to a ``PlaneMemoryManager``: one
-    byte budget across all five families, per-plane LRU eviction, and
+    byte budget across all six families, per-plane LRU eviction, and
     in-flight pinning via ``pin_scope`` so a batched launch can never lose
     a plane it is consuming.  Without a budget the ``max_entries`` /
     ``MAX_PLANES`` count caps apply and the manager only accounts.  Every
@@ -716,6 +722,9 @@ class DeviceStatsCache:
         # hulls on the device + (cmins, cmaxs) host coarse root, all five
         # under one stamp; meta: fanout, cap, groups)
         self.tree_planes: "OrderedDict[Tuple, _PlaneEntry]" = OrderedDict()  # guarded-by: _lock
+        # (name, uid, canonical predicate key) -> _PlaneEntry((verdicts,)
+        # [cap] int8, meta: the columns the predicate reads)
+        self.verdict_planes: "OrderedDict[Tuple, _PlaneEntry]" = OrderedDict()  # guarded-by: _lock
         self.plane_hits = 0
         self.plane_misses = 0
         # staging-work counters (H2D bytes; delta vs full attribution)
@@ -728,7 +737,8 @@ class DeviceStatsCache:
         self._stores = {"stat": self.entries, "join_key": self.key_planes,
                         "enum": self.enum_planes,
                         "block_topk": self.topk_planes,
-                        "tree_stat": self.tree_planes}
+                        "tree_stat": self.tree_planes,
+                        "verdict": self.verdict_planes}
         self.memory.bind(self._evict_family)
         # Epoch check + plane read must be atomic per getter; one
         # reentrant lock serializes getters, DML hooks and manager
@@ -748,7 +758,7 @@ class DeviceStatsCache:
         self._integrity_tick = 0        # guarded-by: _lock
         self._quarantined: set = set()  # guarded-by: _lock
         self.integrity = dict(verifications=0, checksum_failures=0,  # guarded-by: _lock
-                              quarantines=0)
+                              quarantines=0, verdict_repairs=0)
 
     # ---- memory-manager plumbing ---------------------------------------
 
@@ -1063,16 +1073,16 @@ class DeviceStatsCache:
     # ---- runtime-technique planes --------------------------------------
 
     def _plane_current(self, family: str, store: "OrderedDict", key: Tuple,
-                       table, column: str, append_fn, drop_fn
+                       table, columns: Tuple[str, ...], append_fn, drop_fn
                        ) -> Optional[_PlaneEntry]:
         """The resident plane entry brought current, or None.
 
         Replays the table's delta log into the entry: appends stage only
         the new partitions (``append_fn``), drops scatter the family's
-        sentinel (``drop_fn``), updates of *other* columns are free
-        version advances.  An update of ``column`` itself, a rewrite, a
-        log gap or capacity overflow drops the entry (the caller stages
-        fresh, counted as a plane miss and a full restage).
+        sentinel (``drop_fn``), updates of columns the plane does not read
+        are free version advances.  An update of one of ``columns``, a
+        rewrite, a log gap or capacity overflow drops the entry (the
+        caller stages fresh, counted as a plane miss and a full restage).
         """
         e = store.get(key)
         if e is None:
@@ -1084,7 +1094,8 @@ class DeviceStatsCache:
             if deltas is not None \
                     and table.stats.num_partitions <= e.capacity \
                     and all(d.kind in ("append", "drop")
-                            or (d.kind == "update" and d.column != column)
+                            or (d.kind == "update"
+                                and d.column not in columns)
                             for d in deltas):
                 nbytes = 0
                 staged = False
@@ -1208,7 +1219,8 @@ class DeviceStatsCache:
             self._fire("get.join_key")
             key = (table.name, table.stats.uid, key_col)
             e = self._plane_current("join_key", self.key_planes, key, table,
-                                    key_col, self._key_append, self._key_drop)
+                                    (key_col,), self._key_append,
+                                    self._key_drop)
             if e is not None:
                 return e.arrays
 
@@ -1250,7 +1262,7 @@ class DeviceStatsCache:
             self._fire("get.enum")
             key = (table.name, table.stats.uid, key_col)
             e = self._plane_current("enum", self.enum_planes, key, table,
-                                    key_col, self._enum_append,
+                                    (key_col,), self._enum_append,
                                     self._enum_drop)
             if e is not None:
                 return e.arrays + (e.meta["wmax"], e.meta["domain_ok"])
@@ -1327,7 +1339,7 @@ class DeviceStatsCache:
             self._fire("get.block_topk")
             key = (table.name, table.stats.uid, order_col, bool(desc))
             e = self._plane_current("block_topk", self.topk_planes, key,
-                                    table, order_col, self._topk_append,
+                                    table, (order_col,), self._topk_append,
                                     self._topk_drop)
             if e is not None:
                 return e.arrays[0]
@@ -1500,6 +1512,78 @@ class DeviceStatsCache:
             return self._plane_fresh("tree_stat", self.tree_planes, key,
                                      build)
 
+    # ---- verdict planes (Sec. 8.2 predicate cache, device-resident) -----
+
+    def verdict_plane(self, table, pred, ckey: str) -> Optional[np.ndarray]:
+        """The cached int8 ``[P]`` verdict row for ``(table, predicate)``,
+        brought current, as a host copy — or None on a miss (the caller
+        launches the ordinary kernel chain and ``verdict_record``s the
+        result).
+
+        ``ckey`` is the canonical predicate key (``expr.canonical_key``),
+        so syntactic variants of one predicate share a row.  A full
+        member of the integrity protocol: stamped at record and after
+        every delta repair, sampled-verified on read (a torn row is
+        quarantined and misses — it is never served), force-verified on
+        the restage, ``PlaneIntegrityError`` on a second failure (the
+        serving ladder demotes to the kernel chain).
+
+        Delta repair from the table's ``TableDelta`` log, written into the
+        resident row in place: an append's partitions are the only unknown
+        slots — their verdicts are evaluated on the host (f64 ``eval_tv``
+        over just the ``[part_lo, part_hi)`` stats slice) and written by
+        index assignment, counted in ``integrity["verdict_repairs"]``; a
+        drop scatters the NO_MATCH sentinel; an update of a column the
+        predicate does not read costs nothing; an update of one it reads,
+        a rewrite, a log gap or a capacity overflow drops the entry (a
+        miss).
+        """
+        with self._lock:
+            def repair(e, table, lo, hi):
+                patch = eval_tv(pred, table.stats.select(np.arange(lo, hi)))
+                e.arrays[0][lo:hi] = torch.from_numpy(
+                    np.asarray(patch, dtype=np.int8)).to(self.device)
+                self.integrity["verdict_repairs"] += 1
+                return hi - lo
+
+            def tombstone(e, table, part_ids):
+                e.arrays[0].index_fill_(0, self._ids(part_ids), NO_MATCH)
+                return len(part_ids)
+
+            self._fire("get.verdict")
+            e = self._plane_current(
+                "verdict", self.verdict_planes,
+                (table.name, table.stats.uid, ckey), table,
+                tuple(pred.columns()), repair, tombstone)
+            if e is None:
+                return None
+            # a copy, never a view: on the CPU ``to_host`` would alias the
+            # resident row
+            return np.array(to_host(e.arrays[0][:e.logical_p]),
+                            dtype=np.int8)
+
+    def verdict_record(self, table, pred, ckey: str,
+                       tv_row: np.ndarray) -> None:
+        """Stage a freshly computed verdict row as a resident plane.
+
+        ``tv_row`` is the int8 ``[P]`` three-valued result of a ladder
+        rung above passthrough (passthrough verdicts are uncertified and
+        never recorded).  Capacity-padded with the NO_MATCH sentinel like
+        every delta-synced family, so appended partitions repair in place.
+        """
+        with self._lock:
+            key = (table.name, table.stats.uid, ckey)
+            P = table.stats.num_partitions
+            row = np.full(plane_capacity(P), NO_MATCH, dtype=np.int8)
+            row[:P] = np.asarray(tv_row, dtype=np.int8)
+            cols = tuple(pred.columns()) if pred is not None else ()
+
+            def build():
+                return _PlaneEntry(self._table_version(table), P, (row,),
+                                   meta=dict(cols=cols))
+
+            self._plane_fresh("verdict", self.verdict_planes, key, build)
+
     # ---- invalidation and the DML hooks ----------------------------------
 
     def invalidate(self, table_name: str, column: Optional[str] = None
@@ -1509,7 +1593,8 @@ class DeviceStatsCache:
         ``column=None`` drops everything (insert/delete semantics); a
         column drops the [C, P] planes and the tree planes (they carry
         every column) plus only that column's join-key / enumeration /
-        block-top-k planes.
+        block-top-k planes and the verdict rows of the predicates that
+        read it (a verdict key names a predicate, not a column).
         """
         with self._lock:
             for family, store in (("stat", self.entries),
@@ -1526,6 +1611,12 @@ class DeviceStatsCache:
                 for k in stale:
                     del store[k]
                     self.memory.release(family, k)
+            stale = [k for k, e in self.verdict_planes.items()
+                     if k[0] == table_name
+                     and (column is None or column in e.meta["cols"])]
+            for k in stale:
+                del self.verdict_planes[k]
+                self.memory.release("verdict", k)
 
     # Legacy DML hooks (a mutation made without the table's own DML
     # methods, so without a delta log): every mutation invalidates.

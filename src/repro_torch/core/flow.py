@@ -510,6 +510,9 @@ class PruningPipeline:
                                      # every table on the flat rungs;
                                      # tests shrink it so small tables
                                      # take the tree rung).
+        shard_planes: bool = False,  # partition-shard the lazily-built
+                                     # service's batched launches over
+                                     # launch.mesh.make_plane_mesh().
     ):
         if filter_mode not in ("host", "device"):
             raise ValueError(f"unknown filter_mode {filter_mode!r}")
@@ -523,17 +526,20 @@ class PruningPipeline:
         self.filter_mode = filter_mode
         if service is not None and (budget_bytes is not None
                                     or device is not None
-                                    or tree_fanout is not None):
-            # silently dropping these would run the service unbounded, on
-            # another device or with another geometry than asked
+                                    or tree_fanout is not None
+                                    or shard_planes):
+            # silently dropping these would run the service unbounded,
+            # unsharded, on another device or with another geometry than
+            # asked
             raise ValueError(
-                "budget_bytes / device / tree_fanout configure the "
-                "lazily-built service; pass them to the PruningService "
-                "itself when providing one")
+                "budget_bytes / device / tree_fanout / shard_planes "
+                "configure the lazily-built service; pass them to the "
+                "PruningService itself when providing one")
         self._service = service
         self._budget_bytes = budget_bytes
         self._tree_fanout = tree_fanout
         self._device = device
+        self._shard_planes = shard_planes
         self.techniques: List[Technique] = [
             FilterTechnique(), LimitTechnique(),
             JoinTechnique(), TopKTechnique(),
@@ -545,13 +551,16 @@ class PruningPipeline:
         Built on the GPU unless the pipeline was given ``device='cpu'``;
         without a card it raises rather than carrying on on the CPU.
         Sharing one service across pipelines shares its DeviceStatsCache —
-        tables are staged once per version, not once per pipeline.
+        tables are staged once per version, not once per pipeline.  With
+        ``shard_planes`` its batched launches partition-shard over the
+        plane mesh (on the CPU a one-device mesh: unsharded).
         """
         if self._service is None:
             from ..serve.prune_service import PruningService
-            self._service = PruningService(budget_bytes=self._budget_bytes,
-                                           device=self._device,
-                                           tree_fanout=self._tree_fanout)
+            self._service = PruningService(
+                budget_bytes=self._budget_bytes, device=self._device,
+                tree_fanout=self._tree_fanout,
+                shard_mesh=True if self._shard_planes else None)
         return self._service
 
     # -- shape gates shared by executors -------------------------------------

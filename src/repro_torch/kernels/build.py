@@ -41,10 +41,12 @@ class KernelError(RuntimeError):
     through instead of demoting the work to a host rung."""
 
 
-def check_tensor(name: str, t, dtype, shape, device) -> None:
+def check_tensor(name: str, t, dtype, shape, device,
+                 rows: bool = False) -> None:
     """Raise ``KernelError`` unless ``t`` is a contiguous tensor of this
     dtype and shape on this device: what every kernel's wrapper checks
-    before it launches."""
+    before it launches.  ``rows=True`` also takes a 2-D block of wider
+    rows: each row contiguous, the row stride the caller's to check."""
     if not isinstance(t, torch.Tensor):
         raise KernelError(f"{name} must be a torch.Tensor")
     if t.dtype != dtype:
@@ -54,6 +56,8 @@ def check_tensor(name: str, t, dtype, shape, device) -> None:
                           f"got {tuple(t.shape)}")
     if t.device != device:
         raise KernelError(f"{name} is on {t.device}, expected {device}")
+    if rows and t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1):
+        return
     if not t.is_contiguous():
         raise KernelError(f"{name} must be contiguous")
 

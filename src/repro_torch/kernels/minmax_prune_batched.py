@@ -6,6 +6,11 @@ is 0 (NO) when a constraint's range misses the partition interval or the
 interval is empty, 2 (FULL) when every constraint contains it and its
 demote flag is 0, else 1 (PARTIAL); ``(-inf, +inf)`` slots are padding.
 
+The planes may be a column block of wider resident planes (a partition
+shard, ``ops.prune_ranges_batched_device`` with a mesh): the kernel reads
+row c at ``c * stride``, so the block is passed as a view with the wider
+planes' row stride, never copied.
+
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/minmax_prune_batched.cu`` (built at first use, see ``build.py``);
 on a CPU tensor it runs the plain PyTorch version
@@ -52,7 +57,8 @@ def minmax_prune_batched(
     demote: torch.Tensor,    # [C, Pc] f32 1.0 where FULL must be suppressed
     num_partitions: Optional[int] = None,   # logical P <= Pc (default Pc)
 ) -> torch.Tensor:
-    """Returns tv [Q, P] int8 in {0, 1, 2} on the planes' device."""
+    """Returns tv [Q, P] int8 in {0, 1, 2} on the planes' device.  The
+    three planes are contiguous or column blocks of one row stride."""
     if mins.dim() != 2 or lo.dim() != 2:
         raise KernelError("planes must be [C, Pc] and constraints [Q, Kb]")
     Q, Kb = lo.shape
@@ -68,7 +74,13 @@ def minmax_prune_batched(
             ("mins", mins, torch.float32, (C, Pc)),
             ("maxs", maxs, torch.float32, (C, Pc)),
             ("demote", demote, torch.float32, (C, Pc))):
-        check_tensor(name, t, dtype, shape, dev)
+        check_tensor(name, t, dtype, shape, dev, rows=name in
+                     ("mins", "maxs", "demote"))
+    stride = int(mins.stride(0)) if C > 1 else Pc
+    if C > 1 and (maxs.stride(0) != stride or demote.stride(0) != stride
+                  or stride < Pc):
+        raise KernelError(f"planes must share one row stride >= {Pc}, got "
+                          f"{(mins.stride(0), maxs.stride(0), demote.stride(0))}")
     if not build.runs_kernel(dev):
         return _plain_slabbed(cids, lo, hi, mins, maxs, demote, P)
     tv = torch.empty((Q, P), dtype=torch.int8, device=dev)
@@ -77,7 +89,7 @@ def minmax_prune_batched(
     if Kb == 0:
         return tv.fill_(2)              # empty conjunction: all FULL
     build.launch(KERNEL, dev, cids, lo, hi, mins, maxs, demote, tv,
-                 Q, Kb, P, Pc, C)
+                 Q, Kb, P, stride, C)
     minmax_prune_batched.launches += 1
     return tv
 

@@ -39,6 +39,9 @@ and a *batch* of queries is packed into one launch per table group.
 Each has a ``*_tree`` form (``prune_ranges_batched_tree`` and siblings)
 that first prunes whole groups of partitions on the tree planes and
 evaluates only what survives; see "Hierarchical (tree) pruning path".
+Each of the eight takes ``mesh=`` (``launch.mesh.make_plane_mesh``) and
+then shards the planes' partition dim over it; see "Partition-dim
+sharding".
 
 Kernel modes: ``auto`` dispatches on the planes' device (CUDA tensors
 launch the kernel, CPU tensors run the plain torch version; the choice is
@@ -61,6 +64,7 @@ exactly equal to the f64 host oracle on the paper's workloads.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -143,6 +147,143 @@ def bloom_bucket(n_blocks: int) -> int:
 # bigger filters (build NDV > ~32k at 16 bits/key) keep the host matcher,
 # counted per technique, as in the reference engine.
 BLOOM_MAX_BLOCKS = 1024
+
+
+# ---------------------------------------------------------------------------
+# Partition-dim sharding (launch/mesh.make_plane_mesh)
+# ---------------------------------------------------------------------------
+#
+# Every batched kernel evaluates queries x partitions with no coupling
+# across partitions except the top-k heap (a pure selection, mergeable by
+# rank).  A mesh -- an ordered tuple of devices -- therefore shards the
+# resident planes on the partition (capacity) dim: shard i evaluates its
+# [*, cap/n] slice on ``mesh[i]`` with the same kernel wrapper, verdict
+# and hit rows concatenate, and the per-shard top-k heaps [n, Q, k] merge
+# by rank.  Capacity padding and drop sentinels are position-independent,
+# so a sentinel on a shard edge behaves as it does mid-plane.  A shard
+# evaluates only its partitions below the logical P (the unsharded
+# launch's ``num_partitions``): one wholly in the capacity tail launches
+# nothing.
+#
+# A shard on the planes' own device is a view, never a copy: a column
+# block of the [C, cap] planes (the kernel takes the planes' row stride
+# apart from the shard's width) or a contiguous slice of the [cap] and
+# [cap, K] rows.  On another device the slice is copied once per write of
+# the plane and cached (``_shard_of``).
+
+def mesh_shards(mesh, cap: int) -> int:
+    """Usable partition-shard count for a capacity-``cap`` plane: the
+    mesh's device count when it divides ``cap`` (capacities and meshes
+    from ``make_plane_mesh`` are powers of two), else 1 -- the launch
+    stays unsharded, the same math on one device."""
+    if mesh is None:
+        return 1
+    n = len(mesh)
+    return n if (n > 1 and cap % n == 0) else 1
+
+
+# Shard count the most recent batched launch on THIS thread used (1 =
+# unsharded): a wrapper can demote a mesh-eligible launch back to
+# unsharded, and the service's ``sharded_launches`` reports what ran.
+_shard_note = threading.local()
+
+
+def last_launch_shards() -> int:
+    return getattr(_shard_note, "n", 1)
+
+
+def _note_shards(n: int) -> int:
+    _shard_note.n = int(n)
+    return n
+
+
+def _usable_shards(mesh, cap: int, dev, plain_elems: int) -> int:
+    """The shard count a launch runs with, noted for
+    ``last_launch_shards``.  Off the card a sharded plain body whose
+    per-shard footprint (``plain_elems / n``) passes the slab bound runs
+    unsharded instead, where the plain versions slab their work."""
+    n = mesh_shards(mesh, cap)
+    if n > 1 and not build.runs_kernel(dev) \
+            and plain_elems // n > _REF_SLAB_ELEMS:
+        n = 1
+    return _note_shards(n)
+
+
+def _shard_spans(cap: int, n: int, P: int) -> List[Tuple[int, int, int]]:
+    """(start, end, live) of each of the n shards of a capacity-``cap``
+    plane: live is the count of the shard's partitions below P."""
+    w = cap // n
+    return [(i * w, (i + 1) * w, max(0, min(P - i * w, w)))
+            for i in range(n)]
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current CUDA device)."""
+    def idx(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and idx(a) == idx(b)
+
+
+# plane id -> (weak reference to the plane, {(dim, start, end, device):
+# (plane version, copy)}): shard copies on another device than the plane's
+_shard_copies: dict = {}
+_shard_copies_lock = threading.Lock()
+
+
+def _shard_of(plane: torch.Tensor, dim: int, start: int, end: int,
+              dev) -> torch.Tensor:
+    """Partitions [start, end) of ``plane`` along ``dim`` on ``dev``: a view
+    on the plane's own device; elsewhere a copy, made again only after
+    the plane is written (an in-place delta replay bumps its version)."""
+    view = plane.narrow(dim, start, end - start)
+    if same_device(plane.device, dev):
+        return view
+    key = (dim, start, end, str(dev))
+    with _shard_copies_lock:
+        ref, copies = _shard_copies.get(id(plane), (None, None))
+        if ref is None or ref() is not plane:
+            copies = {}
+            _shard_copies[id(plane)] = (weakref.ref(plane), copies)
+            weakref.finalize(plane, _shard_copies.pop, id(plane), None)
+        hit = copies.get(key)
+        if hit is not None and hit[0] == plane._version:
+            return hit[1]
+        copy = view.contiguous().to(dev)
+        copies[key] = (plane._version, copy)
+        return copy
+
+
+def _gather(parts: Sequence[torch.Tensor], dev) -> List[torch.Tensor]:
+    """Per-shard outputs on the planes' device ``dev``."""
+    return [t if same_device(t.device, dev) else t.to(dev) for t in parts]
+
+
+def _sharded_rows(kernel, host_args, planes, dim: int, mesh, P: int,
+                  name: str) -> np.ndarray:
+    """``kernel(*host_args, *plane shards, num_partitions=live)`` on each
+    shard of ``planes`` (partition dim ``dim``) on its mesh device, the
+    [Q, live] rows concatenated into [Q, P] on the host."""
+    dev = planes[0].device
+    parts = []
+    for (s, e, live), sdev in zip(
+            _shard_spans(int(planes[0].shape[dim]), len(mesh), P), mesh):
+        args = [torch.from_numpy(a).to(sdev) for a in host_args]
+        args += [_shard_of(p, dim, s, e, sdev) for p in planes]
+        parts.append(kernel(*args, num_partitions=live))
+    return _read_back(torch.cat(_gather(parts, dev), dim=1), name)
+
+
+def merge_heaps(heaps: torch.Tensor, k: int) -> torch.Tensor:
+    """Rank merge of per-shard top-k heaps [n, Q, k] into [Q, k]: the k
+    largest of the union, descending, -inf padded.  Top-k is a pure
+    selection, so the k largest of the shard-local heaps are exactly the
+    k largest of all candidates."""
+    n, Q, _ = heaps.shape
+    allv = heaps.permute(1, 0, 2).reshape(Q, n * k)
+    return torch.sort(allv, dim=1, descending=True,
+                      stable=True).values[:, :k].contiguous()
 
 
 def load_kernels() -> None:
@@ -274,6 +415,7 @@ def prune_ranges_batched_device(
     range_lists: Sequence[List[Tuple[int, float, float]]],
     dstats: DeviceStats,
     mode: str = "auto",          # 'auto' | 'cuda' | 'torch'
+    mesh=None,                   # plane mesh: shard the partition dim
 ) -> np.ndarray:
     """Evaluate Q queries' conjunctive ranges in one batched launch.
 
@@ -281,7 +423,9 @@ def prune_ranges_batched_device(
     oracle on int/dictionary workloads (bounds snap to integers and cast
     exactly).  Bounds that are inexact in f32 demote FULL to PARTIAL —
     never a false NO_MATCH or false FULL (core.device_stats precision
-    contract).
+    contract).  With ``mesh`` each shard evaluates its column block of the
+    planes and the verdict rows concatenate, bit-identical to the
+    unsharded launch (partitions are independent).
     """
     Q = len(range_lists)
     # one consistent snapshot of (planes, logical P)
@@ -290,13 +434,18 @@ def prune_ranges_batched_device(
     dev = mins.device
     check_mode(mode, dev)
     cids, lo, hi, full_safe = pack_ranges(range_lists, dstats)
+    Pc = int(mins.shape[1])
+    shards = _usable_shards(mesh, Pc, dev, cids.shape[0] * Pc)
     # the padded query rows of the bucket are no-ops: launch the Q real ones
-    cids_d = torch.from_numpy(np.ascontiguousarray(cids[:Q])).to(dev)
-    lo_d = torch.from_numpy(np.ascontiguousarray(lo[:Q])).to(dev)
-    hi_d = torch.from_numpy(np.ascontiguousarray(hi[:Q])).to(dev)
-    tv_d = minmax_prune_batched(cids_d, lo_d, hi_d, mins, maxs, demote,
-                                num_partitions=P)
-    tv = _read_back(tv_d, "minmax_prune_batched")
+    host = [np.ascontiguousarray(a[:Q]) for a in (cids, lo, hi)]
+    if shards > 1:
+        tv = _sharded_rows(minmax_prune_batched, host, planes, 1, mesh, P,
+                           "minmax_prune_batched")
+    else:
+        cids_d, lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in host)
+        tv = _read_back(minmax_prune_batched(
+            cids_d, lo_d, hi_d, mins, maxs, demote, num_partitions=P),
+            "minmax_prune_batched")
     if not full_safe.all():
         tv[~full_safe] = np.minimum(tv[~full_safe], 1)
     return tv
@@ -497,6 +646,7 @@ def join_overlap_batched_device(
     num_partitions: int,     # logical P of the plane
     mode: str = "auto",
     part_ids_lists: Optional[Sequence[np.ndarray]] = None,
+    mesh=None,               # plane mesh: shard the partition dim
 ) -> np.ndarray:
     """hit [Q, P] int8 — Q build summaries vs the resident key plane, one
     launch for the whole table group.  The device path can keep extra
@@ -507,10 +657,17 @@ def join_overlap_batched_device(
     consult (its scan set).  The kernel ignores it — it evaluates the
     resident plane dense, the batched design — while the plain version
     evaluates only the listed positions; other entries are then 0 and
-    must not be read."""
+    must not be read.  A sharded launch evaluates each shard's rows dense
+    (the plain version too) and concatenates the hit rows."""
     dev = pmin.device
     check_mode(mode, dev)
-    dist = torch.from_numpy(pack_distinct(distinct_lists)).to(dev)
+    Pc = int(pmin.shape[0])
+    packed = pack_distinct(distinct_lists)
+    shards = _usable_shards(mesh, Pc, dev, q_bucket(len(distinct_lists)) * Pc)
+    if shards > 1:
+        return _sharded_rows(join_overlap_batched, [packed], (pmin, pmax),
+                             0, mesh, num_partitions, "join_overlap_batched")
+    dist = torch.from_numpy(packed).to(dev)
     if part_ids_lists is None or build.runs_kernel(dev):
         hit = join_overlap_batched(dist, pmin, pmax,
                                    num_partitions=num_partitions)
@@ -550,6 +707,7 @@ def bloom_probe_batched_device(
     num_partitions: int,     # logical P of the plane
     mode: str = "auto",
     part_ids_lists: Optional[Sequence[np.ndarray]] = None,
+    mesh=None,               # plane mesh: shard the partition dim
 ) -> np.ndarray:
     """hit [Q, P] int8 — Q Bloom summaries vs the resident enumeration
     plane; row q equals the host matcher's narrow-range enumeration for
@@ -559,13 +717,28 @@ def bloom_probe_batched_device(
     ``part_ids_lists`` as in ``join_overlap_batched_device``: the kernel
     evaluates dense and ignores it; the plain version probes only the
     listed positions, and other entries are 1 (keep) and must not be
-    read."""
+    read.  A sharded launch probes each shard's rows dense (the plain
+    version too) and concatenates the hit rows; the kernel builds its
+    bit-sliced filter table in each shard's launch."""
     dev = pmin.device
     check_mode(mode, dev)
-    words = torch.from_numpy(pack_blooms(blooms)).to(dev)
+    Pc = int(pmin.shape[0])
+    packed = pack_blooms(blooms)
     # partitions wider than the enumeration limit are kept, never probed
     width_eff = torch.where(width <= int(enum_limit), width,
                             torch.zeros_like(width))
+    # the plain version's candidates a query: the widest enumerated
+    # partition, at least a 128-lane bucket (the reference's enum_bucket)
+    enum_w = (0 if build.runs_kernel(dev) else
+              _pow2_at_least(max(1, min(int(width.max()) if Pc else 0,
+                                        int(enum_limit))), floor=128))
+    shards = _usable_shards(mesh, Pc, dev,
+                            q_bucket(len(blooms)) * Pc * enum_w)
+    if shards > 1:
+        return _sharded_rows(bloom_probe_batched, [packed],
+                             (pmin, width_eff), 0, mesh, num_partitions,
+                             "bloom_probe_batched")
+    words = torch.from_numpy(packed).to(dev)
     if part_ids_lists is None or build.runs_kernel(dev):
         hit = bloom_probe_batched(words, pmin, width_eff,
                                   num_partitions=num_partitions)
@@ -593,22 +766,61 @@ def pack_candidates(candidate_lists: Sequence[np.ndarray]
     return offsets, ids
 
 
+def split_candidates(offsets: torch.Tensor, ids: torch.Tensor, cap: int,
+                     n: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """A CSR candidate list (int64 offsets [Q + 1], int32 ids, on the
+    planes' device) cut into the n shards of a capacity-``cap`` plane: per
+    shard (offsets [Q + 1], ids rebased to the shard's first partition),
+    each query's ids kept in their order.  Computed where the lists are:
+    on the card a few passes over them, no host loop over candidates."""
+    Q = int(offsets.shape[0]) - 1
+    w = cap // n
+    qidx = torch.repeat_interleave(
+        torch.arange(Q, device=ids.device), offsets.diff())
+    shard = torch.div(ids, w, rounding_mode="floor")
+    out = []
+    for i in range(n):
+        sel = shard == i
+        off = torch.zeros(Q + 1, dtype=torch.int64, device=ids.device)
+        torch.cumsum(torch.bincount(qidx[sel], minlength=Q), 0, out=off[1:])
+        out.append((off, ids[sel] - i * w))
+    return out
+
+
 def topk_init_batched_device(
     plane: torch.Tensor,     # [Pc, K] resident block-top-k rows (signed f32)
     candidate_lists: Sequence[np.ndarray],   # per query: candidate ids
     k: int,
     mode: str = "auto",
+    mesh=None,               # plane mesh: shard the partition dim
 ) -> np.ndarray:
     """heap [Q, k] f32 — per-query top-k over its candidates' resident
     plane rows.  Query q's Sec. 5.4 upfront boundary for any effective
     kq <= k is ``heap[q, kq - 1]`` (-inf when fewer than kq values exist).
+    With ``mesh`` each shard selects over its own rows with its share of
+    the candidates (rebased to the shard), and the per-shard heaps merge
+    by rank (``merge_heaps``); a shard without a candidate launches
+    nothing.
     """
     dev = plane.device
     check_mode(mode, dev)
-    offsets, ids = pack_candidates(candidate_lists)
-    heap = topk_init_batched(plane, torch.from_numpy(offsets).to(dev),
-                             torch.from_numpy(ids).to(dev), k)
-    return _read_back(heap, "topk_init_batched")
+    offsets, ids = (torch.from_numpy(a).to(dev)
+                    for a in pack_candidates(candidate_lists))
+    Q, Pc = len(candidate_lists), int(plane.shape[0])
+    shards = _usable_shards(mesh, Pc, dev, Q * Pc * int(plane.shape[1]))
+    if shards > 1:
+        heaps = torch.full((shards, Q, k), float("-inf"),
+                           dtype=torch.float32, device=dev)
+        for i, ((off, sid), (s, e, _live), sdev) in enumerate(zip(
+                split_candidates(offsets, ids, Pc, shards),
+                _shard_spans(Pc, shards, Pc), mesh)):
+            if sid.numel():
+                heaps[i] = topk_init_batched(
+                    _shard_of(plane, 0, s, e, sdev), off.to(sdev),
+                    sid.to(sdev), k).to(dev)
+        return _read_back(merge_heaps(heaps, k), "topk_init_batched")
+    return _read_back(topk_init_batched(plane, offsets, ids, k),
+                      "topk_init_batched")
 
 
 # ---------------------------------------------------------------------------
@@ -702,6 +914,7 @@ def prune_ranges_batched_tree(
     dstats: DeviceStats,
     tree_entry,                  # DeviceStatsCache.tree_plane(...) entry
     mode: str = "auto",
+    mesh=None,
 ) -> np.ndarray:
     """tv [Q, P] int8 via the hierarchical group pre-pass.
 
@@ -710,7 +923,8 @@ def prune_ranges_batched_tree(
     Falls back to the flat launch when the table is too small for the
     tree geometry or the coarse survivor density exceeds
     ``TREE_DENSE_CUTOFF`` (priced on the host coarse level, so the fallback
-    pays no pre-pass).
+    pays no pre-pass).  The gathered evaluations are unsharded: a mesh is
+    forwarded to the flat fallback only.
     """
     Q = len(range_lists)
     planes, P = dstats.planes_state
@@ -724,7 +938,7 @@ def prune_ranges_batched_tree(
     if Q == 0 or int(mins.shape[1]) != G * fanout \
             or P < fanout * TREE_MIN_GROUPS:
         _note_tree(path="flat_small", groups=G)
-        return prune_ranges_batched_device(range_lists, dstats, mode)
+        return prune_ranges_batched_device(range_lists, dstats, mode, mesh)
     cids, lo, hi, full_safe = pack_ranges(range_lists, dstats)
     cids, lo, hi = cids[:Q], lo[:Q], hi[:Q]
     # Level 0 — the host coarse hulls price the pre-pass
@@ -733,7 +947,7 @@ def prune_ranges_batched_tree(
     cdens = csurv.sum(axis=1).max() / G2
     if cdens > TREE_DENSE_CUTOFF:
         _note_tree(path="flat_dense", groups=G, coarse_density=float(cdens))
-        return prune_ranges_batched_device(range_lists, dstats, mode)
+        return prune_ranges_batched_device(range_lists, dstats, mode, mesh)
     cids_d, lo_d, hi_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                           for a in (cids, lo, hi))
     # Level 1 — fine group pre-pass over the coarse survivors' children
@@ -764,6 +978,7 @@ def prune_ranges_batched_tree(
     rows = torch.arange(Q, device=dev)[:, None].expand(Q, W)
     tv_d[rows[live], pos[live]] = tvl[live]
     tv = _read_back(tv_d, "tree leaves")
+    _note_shards(1)
     if not full_safe.all():
         tv[~full_safe] = np.minimum(tv[~full_safe], 1)
     _note_tree(path="tree", groups=G, coarse_density=float(cdens),
@@ -793,6 +1008,7 @@ def join_overlap_batched_tree(
     key_ci: int,
     mode: str = "auto",
     part_ids_lists: Optional[Sequence[np.ndarray]] = None,
+    mesh=None,
 ) -> np.ndarray:
     """hit [Q, P] — group pre-pass wrapper over the batched join overlap.
 
@@ -811,7 +1027,7 @@ def join_overlap_batched_tree(
         _note_tree(path="flat_small", groups=G)
         return join_overlap_batched_device(distinct_lists, pmin, pmax,
                                            num_partitions, mode,
-                                           part_ids_lists)
+                                           part_ids_lists, mesh)
     hg_lo = to_host(tree_entry.arrays[0][key_ci])      # [G] group hulls
     hg_hi = to_host(tree_entry.arrays[1][key_ci])
     ghit = np.empty((Q, G), dtype=bool)
@@ -826,12 +1042,13 @@ def join_overlap_batched_tree(
         _note_tree(path="flat_dense", groups=G, fine_density=float(dens))
         return join_overlap_batched_device(distinct_lists, pmin, pmax,
                                            num_partitions, mode,
-                                           part_ids_lists)
+                                           part_ids_lists, mesh)
     _note_tree(path="tree", groups=G, fine_density=float(dens))
     restricted = (part_ids_lists if build.runs_kernel(pmin.device) else
                   _restrict(part_ids_lists, Q, num_partitions, ghit, fanout))
     return join_overlap_batched_device(distinct_lists, pmin, pmax,
-                                       num_partitions, mode, restricted)
+                                       num_partitions, mode, restricted,
+                                       mesh)
 
 
 def bloom_probe_batched_tree(
@@ -843,6 +1060,7 @@ def bloom_probe_batched_tree(
     tree_entry,
     mode: str = "auto",
     part_ids_lists: Optional[Sequence[np.ndarray]] = None,
+    mesh=None,
 ) -> np.ndarray:
     """hit [Q, P] — group pre-pass wrapper over the batched Bloom probe.
 
@@ -862,7 +1080,7 @@ def bloom_probe_batched_tree(
         _note_tree(path="flat_small", groups=G)
         return bloom_probe_batched_device(blooms, pmin, width, enum_limit,
                                           num_partitions, mode,
-                                          part_ids_lists)
+                                          part_ids_lists, mesh)
     genum = to_host(((width > 0) & (width <= int(enum_limit)))
                     .reshape(G, fanout).any(dim=1))
     _note_tree(path="tree", groups=G, fine_density=float(genum.mean()))
@@ -870,7 +1088,7 @@ def bloom_probe_batched_tree(
                   _restrict(part_ids_lists, Q, num_partitions, genum,
                             fanout))
     return bloom_probe_batched_device(blooms, pmin, width, enum_limit,
-                                      num_partitions, mode, restricted)
+                                      num_partitions, mode, restricted, mesh)
 
 
 def topk_init_batched_tree(
@@ -879,6 +1097,7 @@ def topk_init_batched_tree(
     k: int,
     tree_entry,
     mode: str = "auto",
+    mesh=None,
 ) -> np.ndarray:
     """heap [Q, k] — group-compacted wrapper over the batched top-k init.
 
@@ -887,14 +1106,17 @@ def topk_init_batched_tree(
     K]`` slice of the plane (``index_select`` of the S surviving groups)
     with each candidate id remapped into it — ``rank(group) * fanout + id
     % fanout`` — and returns the identical value multisets (top-k is a
-    pure selection).  Dense unions fall back flat.
+    pure selection).  Dense unions fall back flat.  A mesh shards the
+    compacted plane where the mesh divides its rows, else the launch runs
+    unsharded.
     """
     Q = len(candidate_lists)
     fanout = int(tree_entry.meta["fanout"])
     G = int(tree_entry.meta["groups"])
     if Q == 0 or int(plane.shape[0]) != G * fanout:
         _note_tree(path="flat_small", groups=G)
-        return topk_init_batched_device(plane, candidate_lists, k, mode)
+        return topk_init_batched_device(plane, candidate_lists, k, mode,
+                                        mesh)
     lists = [np.asarray(c, dtype=np.int64) for c in candidate_lists]
     gunion = np.zeros(G, dtype=bool)
     for c in lists:
@@ -902,10 +1124,12 @@ def topk_init_batched_tree(
     dens = gunion.sum() / G
     if dens > TREE_DENSE_CUTOFF:
         _note_tree(path="flat_dense", groups=G, fine_density=float(dens))
-        return topk_init_batched_device(plane, candidate_lists, k, mode)
+        return topk_init_batched_device(plane, candidate_lists, k, mode,
+                                        mesh)
     gids = np.nonzero(gunion)[0]
     _note_tree(path="tree", groups=G, fine_density=float(dens))
     if not gids.size:
+        _note_shards(1)
         return np.full((Q, k), -np.inf, dtype=np.float32)
     rank = np.zeros(G, dtype=np.int64)
     rank[gids] = np.arange(gids.size)
@@ -913,4 +1137,4 @@ def topk_init_batched_tree(
     cplane = plane.index_select(0, torch.from_numpy(pos).to(plane.device))
     return topk_init_batched_device(
         cplane, [rank[c // fanout] * fanout + c % fanout for c in lists], k,
-        mode)
+        mode, mesh)

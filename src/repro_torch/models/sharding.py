@@ -4,8 +4,8 @@ Every parameter is declared as a ``ParamSpec(shape, logical_axes)``, as in
 the JAX package; ``init_params`` materialises a tree of specs on one
 device.  The logical axes are kept (they name what each dimension is), but
 the mesh rules, ``constrain`` and the shardings of the JAX package wait for
-the fleet work (ROADMAP queue 1, item 10): the port's layers run on one
-card and never constrain an activation.
+the rest of the LM substrate (ROADMAP queue 1, item 15): the port's layers
+run on one card and never constrain an activation.
 """
 
 from __future__ import annotations

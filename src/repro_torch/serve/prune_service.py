@@ -39,6 +39,25 @@ gathered leaves are plain torch and count there alone).  ``run_batch``
 attaches a snapshot to every report (``PruningReport.counters``) so a run
 can show which rung served each stage.
 
+Verdict cache (``verdict_cache=True``, the default): a table group's
+filter jobs are deduped by canonical predicate before any launch, and the
+``verdict`` rung on top of the filter chain serves resident verdict rows
+(``DeviceStatsCache.verdict_plane``), launching the ordinary chain only
+for the predicates it misses; a predicate earns a resident row on its
+second sighting (``_verdict_group``).  The rows are repaired in place on
+the table's appends and drops.
+
+Fleet scale: ``budget_bytes`` puts every resident plane family under one
+device-memory budget (``core.device_stats.PlaneMemoryManager``: LRU
+eviction, in-flight pinning around each launch, counters in
+``counters["memory"]``); ``cache=`` shares one ``DeviceStatsCache``
+between services, and ``shard_mesh`` partition-shards every batched
+launch over a plane mesh (``launch.mesh.make_plane_mesh``: the
+``sharded`` and ``sharded_tree`` rungs, ``counters.sharded_launches``).
+``run_fleet`` drives a many-table workload and ``fleet_summary`` reports
+the budget-sizing view.  ``prestage`` is the async front-end's staging
+seam (``serve.frontend.ServingFrontend``).
+
 Tree rungs: with ``tree_fanout`` given, for a table of at least
 ``tree_fanout * TREE_MIN_GROUPS`` partitions every stage enters at the
 ``tree`` rung, which prunes whole groups of partitions on the resident
@@ -84,8 +103,9 @@ from ..kernels.build import KernelError
 # the plane (each partition contributes at most KPLANE=64 witnessed
 # rows); such queries keep the host-only init.
 from ..kernels.topk_boundary import MAX_K as TOPK_INIT_MAX_K
-from .resilience import (DegradationLadder, new_resilience_counters,
-                         resilience_delta, resilience_snapshot)
+from .resilience import (DegradationLadder, new_latency_counters,
+                         new_resilience_counters, resilience_delta,
+                         resilience_snapshot)
 
 # Registered DegradationLadder launch sites: the only methods allowed to
 # call ``kops.*_batched_*`` entrypoints (the tree forms included).  Each
@@ -93,9 +113,14 @@ from .resilience import (DegradationLadder, new_resilience_counters,
 # ``self.ladder.execute``.
 LADDER_LAUNCH_SITES = frozenset({
     "PruningService._filter_rungs",
+    "PruningService._verdict_group",
     "PruningService.join_hit_batch",
     "PruningService.bloom_hit_batch",
     "PruningService.topk_init_batch",
+    # the async front-end's dispatch (serve/frontend.py): every launch it
+    # triggers goes through run_batch, whose stages execute only through
+    # the rung builders above
+    "ServingFrontend._execute",
 })
 
 
@@ -105,24 +130,27 @@ class ServiceCounters:
     scans: int = 0
     launches: int = 0          # batched kernel launches, all techniques
     host_fallbacks: int = 0    # host fallbacks, all techniques
+    sharded_launches: int = 0  # launches that ran partition-sharded
     tree_launches: int = 0     # evaluations that ran a tree rung
     # per-technique attribution: {'filter': {'launches': n, 'fallbacks': m}}
     technique: Dict[str, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
 
     def bump(self, tech: str, launches: int = 0, fallbacks: int = 0,
-             tree: int = 0) -> None:
+             sharded: int = 0, tree: int = 0) -> None:
         t = self.technique.setdefault(tech, dict(launches=0, fallbacks=0))
         t["launches"] += launches
         t["fallbacks"] += fallbacks
         self.launches += launches
         self.host_fallbacks += fallbacks
+        self.sharded_launches += sharded
         self.tree_launches += tree
 
     def snapshot(self) -> dict:
         return dict(queries=self.queries, scans=self.scans,
                     launches=self.launches,
                     host_fallbacks=self.host_fallbacks,
+                    sharded_launches=self.sharded_launches,
                     tree_launches=self.tree_launches,
                     technique={k: dict(v) for k, v in self.technique.items()})
 
@@ -131,7 +159,7 @@ class ServiceCounters:
         """after - before of two snapshots: the activity in between."""
         out = {k: after[k] - before[k]
                for k in ("queries", "scans", "launches", "host_fallbacks",
-                         "tree_launches")}
+                         "sharded_launches", "tree_launches")}
         zero = dict(launches=0, fallbacks=0)
         out["technique"] = {
             t: {f: v - before["technique"].get(t, zero)[f]
@@ -141,17 +169,25 @@ class ServiceCounters:
 
 
 class PruningService:
-    # bound on the memo of clean (stats, predicate) validations
+    # bound on the memo of clean (stats, predicate) validations, and the
+    # doorkeeper bound: past this many distinct (table, predicate) keys
+    # the seen-set resets rather than grow without bound
     VALIDATED_CAP = 1 << 17
+    VERDICT_SEEN_CAP = 1 << 17
 
     def __init__(
         self,
         mode: str = "auto",            # kernel mode: auto|cuda|torch
         device=None,                   # None: the GPU (raises without
                                        # one); 'cpu': the plain path
+        cache: Optional[DeviceStatsCache] = None,  # a cache shared with
+                                       # other services (on this device)
         budget_bytes: Optional[int] = None,  # device-memory budget for the
                                              # resident planes (None:
                                              # unbounded)
+        shard_mesh=None,               # plane mesh (True: build
+                                       # make_plane_mesh()) — partition-
+                                       # shards every batched launch
         fault_injector=None,           # serve.resilience.FaultInjector chaos
                                        # seam (None: zero-overhead disabled)
         backoff=None,                  # resilience.BackoffPolicy for the
@@ -168,19 +204,60 @@ class PruningService:
                                        # keeps every table on the flat
                                        # rungs (tests shrink it so small
                                        # tables take the tree rungs)
+        verdict_cache: bool = True,    # resident verdict rows: dedupe
+                                       # canonical predicates per batch and
+                                       # serve repeats without a launch
     ):
         dev = resolve_device(device)
         kops.check_mode(mode, dev)
         self.mode = mode
         self.device = dev
         self.tree_fanout = tree_fanout
-        self.cache = DeviceStatsCache(
-            budget_bytes=budget_bytes, fault_injector=fault_injector,
-            device=dev,
-            **({} if integrity_sample is None
-               else dict(integrity_sample=integrity_sample)),
-            **({} if tree_fanout is None
-               else dict(tree_fanout=tree_fanout)))
+        if cache is None:
+            cache = DeviceStatsCache(
+                budget_bytes=budget_bytes, fault_injector=fault_injector,
+                device=dev,
+                **({} if integrity_sample is None
+                   else dict(integrity_sample=integrity_sample)),
+                **({} if tree_fanout is None
+                   else dict(tree_fanout=tree_fanout)))
+        else:
+            if not kops.same_device(cache.device, dev):
+                raise ValueError(f"cache holds its planes on {cache.device}, "
+                                 f"the service runs on {dev}")
+            if tree_fanout is not None and cache.tree_fanout != tree_fanout:
+                # safe on a shared cache: the tree getter's geometry check
+                # rebuilds any entry staged under the old fanout
+                cache.tree_fanout = int(tree_fanout)
+            # adopt the chaos / integrity configuration onto a shared cache
+            # only where it has none of its own (as for the budget)
+            if fault_injector is not None and cache.fault_injector is None:
+                cache.fault_injector = fault_injector
+            if integrity_sample is not None:
+                cache.integrity_sample = int(integrity_sample)
+            if budget_bytes is not None:
+                # a shared cache's budget belongs to whoever set it: only
+                # adopt ours when none is set — silently re-budgeting a
+                # cache other services share would evict planes they sized
+                # their budget for
+                if cache.memory.budget_bytes is None:
+                    cache.memory.budget_bytes = budget_bytes
+                elif cache.memory.budget_bytes != budget_bytes:
+                    raise ValueError(
+                        f"cache already budgeted at "
+                        f"{cache.memory.budget_bytes} bytes; refusing to "
+                        f"re-budget to {budget_bytes}")
+        self.cache = cache
+        if shard_mesh is True:
+            from ..launch.mesh import make_plane_mesh
+            shard_mesh = (make_plane_mesh() if dev.type == "cuda"
+                          else make_plane_mesh([dev]))
+        if shard_mesh is not None:
+            shard_mesh = tuple(shard_mesh)
+            if any(d.type != dev.type for d in shard_mesh):
+                raise ValueError(f"shard mesh {shard_mesh} is not on the "
+                                 f"service's device type ({dev.type})")
+        self.shard_mesh = shard_mesh
         # service-side table versions (register / notify_*), handed to the
         # stat-plane getter so a legacy notify forces a restage
         self.versions: Dict[str, TableVersion] = {}
@@ -189,19 +266,28 @@ class PruningService:
             # here, not inside a ladder rung that would demote past it
             kops.load_kernels()
         self.counters = ServiceCounters()
-        self.fault_injector = fault_injector
+        self.fault_injector = (fault_injector if fault_injector is not None
+                               else cache.fault_injector)
+        self.verdict_cache = bool(verdict_cache)
+        # doorkeeper of seen-once verdict admission (_verdict_group)
+        self._verdict_seen: set = set()
         # (stats uid, pred repr) pairs that validated clean (_validate_query)
         self._validated: set = set()
         # The resilience layer: every batched launch executes through the
-        # degradation ladder (tree -> device -> host kernel -> host oracle
-        # -> passthrough; the tree rung only for tables large enough to
-        # carry a group plane), so an injected fault, a torn plane, or a
-        # deadline costs pruning quality, never correctness and never an
-        # exception out of run_batch; a KernelError is let through, never
-        # demoted.
+        # degradation ladder (verdict -> sharded tree -> tree -> sharded ->
+        # device -> host kernel -> host oracle -> passthrough; the verdict
+        # rung only with the verdict cache on, the sharded rungs only with
+        # a mesh, the tree rungs only for tables large enough to carry a
+        # group plane), so an injected fault, a torn plane, or a deadline
+        # costs pruning quality, never correctness and never an exception
+        # out of run_batch; a KernelError is let through, never demoted.
         # Demotions and retries surface per batch under
         # ``PruningReport.counters["resilience"]``.
         self.resilience = new_resilience_counters()
+        # service-lifetime latency / SLO block, written by the async
+        # front-end and surfaced through fleet_summary()["latency"]; all
+        # zero for synchronous use
+        self.latency = new_latency_counters()
         self.ladder = DegradationLadder(
             policy=backoff, deadline_s=deadline_s, clock=clock, sleep=sleep,
             counters=self.resilience)
@@ -209,6 +295,13 @@ class PruningService:
     def _fire(self, site: str) -> None:
         if self.fault_injector is not None:
             self.fault_injector.fire(site)
+
+    @staticmethod
+    def _sharded() -> int:
+        """1 when the launch that just returned ran sharded (a wrapper can
+        demote a mesh-eligible launch to unsharded: the counter reports
+        what ran)."""
+        return 1 if kops.last_launch_shards() > 1 else 0
 
     # -- DML bookkeeping ----------------------------------------------------
 
@@ -259,6 +352,31 @@ class PruningService:
     def _stat_plane(self, table):
         return self.cache.get(table, self.versions.get(table.name))
 
+    def prestage(self, queries: Sequence) -> int:
+        """Prefetch the stat planes a batch of queries will read: the
+        front-end's staging seam, run before the batch's launches on the
+        same stream (a delta replay writes the resident planes in place,
+        so it must be ordered with the launches that read them).
+
+        A ``pin_scope`` around the prefetches keeps the memory manager
+        from evicting a plane this very call just staged while admitting
+        the next table under the budget.  Advisory and never raises;
+        returns the number of planes that staged bytes (also counted in
+        ``staging_snapshot()["prefetch_stages"]``).
+        """
+        staged = 0
+        seen: set = set()
+        with self.cache.pin_scope():
+            for q in queries:
+                for spec in q.scans.values():
+                    if id(spec.table) in seen:
+                        continue
+                    seen.add(id(spec.table))
+                    if self.cache.prefetch(spec.table,
+                                           self.versions.get(spec.table.name)):
+                        staged += 1
+        return staged
+
     # -- filter stage -------------------------------------------------------
 
     @staticmethod
@@ -290,15 +408,25 @@ class PruningService:
                 >= self.tree_fanout * TREE_MIN_GROUPS)
 
     def _device_rungs(self, tech: str, launch_fn, table) -> list:
-        """The device rungs of a ladder chain: the tree rung first when
-        the table is large enough to carry a resident group plane, then
-        the flat rung.  ``launch_fn(site, tree)`` builds the thunk; a
+        """The device rungs of a ladder chain: the tree rungs first when
+        the table is large enough to carry a resident group plane (the
+        sharded one only with a mesh), then the flat sharded / unsharded
+        rungs.  ``launch_fn(mesh, site, tree)`` builds the thunk; a
         tree-plane fault (staging failure, torn plane) demotes to the
-        flat rung, which never consults the tree family."""
+        flat rungs, which never consult the tree family."""
         rungs = []
+        mesh = self.shard_mesh
         if self._tree_eligible(table):
-            rungs.append(("tree", launch_fn(f"launch.{tech}:tree", True)))
-        rungs.append(("device", launch_fn(f"launch.{tech}:device", False)))
+            if mesh is not None:
+                rungs.append(("sharded_tree", launch_fn(
+                    mesh, f"launch.{tech}:sharded_tree", True)))
+            rungs.append(("tree",
+                          launch_fn(None, f"launch.{tech}:tree", True)))
+        if mesh is not None:
+            rungs.append(("sharded", launch_fn(
+                mesh, f"launch.{tech}:sharded", False)))
+        rungs.append(("device",
+                      launch_fn(None, f"launch.{tech}:device", False)))
         return rungs
 
     def _tree_entry(self, table):
@@ -318,7 +446,7 @@ class PruningService:
         predicates, so stopping at any rung costs latency, not pruning
         quality.
         """
-        def launch(site, tree):
+        def launch(mesh, site, tree):
             def thunk():
                 self._fire(site)
                 # Pin scope: the planes this launch reads must not be
@@ -329,15 +457,17 @@ class PruningService:
                     if tree:
                         tv = kops.prune_ranges_batched_tree(
                             range_lists, dstats,
-                            self.cache.tree_plane(table, dstats), self.mode)
+                            self.cache.tree_plane(table, dstats), self.mode,
+                            mesh=mesh)
                         # the gathered pre-pass launches no kernel; its
                         # flat fallbacks launch the batched one
                         gathered = kops.last_tree_stats()["path"] == "tree"
                     else:
                         tv = kops.prune_ranges_batched_device(
-                            range_lists, dstats, self.mode)
+                            range_lists, dstats, self.mode, mesh=mesh)
                         gathered = False
                     self.counters.bump("filter", launches=int(not gathered),
+                                       sharded=self._sharded(),
                                        tree=int(tree))
                 return tv
             return thunk
@@ -385,6 +515,78 @@ class PruningService:
             return None
         return tv_rows[0]
 
+    def _verdict_group(self, table, jobs) -> list:
+        """One table group's filter verdicts through the verdict cache.
+
+        Jobs are deduped by canonical predicate key *before any launch*
+        (``verdict_deduped`` counts the saved duplicates), then the
+        unique predicates run through the ladder with the ``verdict``
+        rung on top: it serves resident verdict rows (a full-hit batch
+        launches no kernel), launches only the missing predicates through
+        the ordinary ``_filter_rungs`` chain, and records the fresh
+        verdicts.  A verdict-plane integrity failure fails the rung and
+        the ladder demotes to the flat chain — cache-off is a demotion,
+        never a wrong answer.  Returns one ``[P]`` int8 row (or None for
+        passthrough) per job, duplicates sharing one row object.
+
+        Admission is seen-once (a doorkeeper, as in TinyLFU): a predicate
+        earns a resident row only on its *second* sighting — repetition
+        within the batch counts — so repeated dashboard traffic is
+        admitted on its first batch, while one-shot predicates never pay
+        the record cost on top of their launch.
+        """
+        ckeys = [E.canonical_key(pred) for _, _, _, pred in jobs]
+        uniq: Dict[str, int] = {}
+        counts: Dict[str, int] = {}
+        u_ranges: list = []
+        u_preds: list = []
+        for (_, _, ranges, pred), ck in zip(jobs, ckeys):
+            counts[ck] = counts.get(ck, 0) + 1
+            if ck not in uniq:
+                uniq[ck] = len(u_preds)
+                u_ranges.append(ranges)
+                u_preds.append(pred)
+        self.resilience["verdict_deduped"] += len(jobs) - len(u_preds)
+        u_keys = list(uniq)
+        admit = [counts[ck] > 1 or (table.name, ck) in self._verdict_seen
+                 for ck in u_keys]
+        if len(self._verdict_seen) > self.VERDICT_SEEN_CAP:
+            self._verdict_seen.clear()      # doorkeeper reset
+        self._verdict_seen.update((table.name, ck) for ck in u_keys)
+
+        def verdict_rung():
+            rows: list = [None] * len(u_keys)
+            miss: list = []
+            # Pin scope: served verdict rows stay resident while the
+            # misses' launch reads the stat planes.
+            with self.cache.pin_scope():
+                for i, (ck, pred) in enumerate(zip(u_keys, u_preds)):
+                    row = self.cache.verdict_plane(table, pred, ck)
+                    if row is None:
+                        miss.append(i)
+                    else:
+                        rows[i] = row
+                self.resilience["verdict_hits"] += len(u_keys) - len(miss)
+                self.resilience["verdict_misses"] += len(miss)
+                if miss:
+                    tv_rows, rung = self.ladder.execute(self._filter_rungs(
+                        table, [u_ranges[i] for i in miss],
+                        [u_preds[i] for i in miss]))
+                    if tv_rows is not None:
+                        for mi, tv in zip(miss, tv_rows):
+                            row = np.asarray(tv, dtype=np.int8)
+                            rows[mi] = row
+                            if rung != "passthrough" and admit[mi]:
+                                self.cache.verdict_record(
+                                    table, u_preds[mi], u_keys[mi], row)
+            return rows
+
+        u_rows, _rung = self.ladder.execute(
+            [("verdict", verdict_rung)]
+            + self._filter_rungs(table, u_ranges, u_preds))
+        u_rows = [None] * len(u_keys) if u_rows is None else list(u_rows)
+        return [u_rows[uniq[ck]] for ck in ckeys]
+
     def prune_batch(self, queries: Sequence) -> List[Dict[str, ScanSet]]:
         """Filter-prune a batch of queries; per-query scan_name -> ScanSet.
 
@@ -419,14 +621,26 @@ class PruningService:
                 groups.setdefault(id(spec.table), (spec.table, []))[1].append(
                     (qi, name, ranges, spec.pred))
         for table, jobs in groups.values():
-            tv_rows, _rung = self.ladder.execute(self._filter_rungs(
-                table, [ranges for _, _, ranges, _ in jobs],
-                [pred for _, _, _, pred in jobs]))
-            rows = [None] * len(jobs) if tv_rows is None else list(tv_rows)
+            if self.verdict_cache:
+                rows = self._verdict_group(table, jobs)
+            else:
+                tv_rows, _rung = self.ladder.execute(self._filter_rungs(
+                    table, [ranges for _, _, ranges, _ in jobs],
+                    [pred for _, _, _, pred in jobs]))
+                rows = ([None] * len(jobs) if tv_rows is None
+                        else list(tv_rows))
+            # deduped jobs share one row OBJECT: build the O(P) scan set
+            # once per unique row and give each query its own ScanSet over
+            # the shared (read-only) arrays
+            memo: Dict[int, ScanSet] = {}
             for (qi, name, _ranges, _pred), tv in zip(jobs, rows):
-                results[qi][name] = (self._passthrough_set(table)
-                                     if tv is None
-                                     else self._scan_set(tv, table))
+                if tv is None:
+                    results[qi][name] = self._passthrough_set(table)
+                    continue
+                ss = memo.get(id(tv))
+                if ss is None:
+                    memo[id(tv)] = ss = self._scan_set(tv, table)
+                results[qi][name] = ScanSet(ss.part_ids, ss.match)
         for qi, name, spec in fallbacks:
             self.counters.bump("filter", fallbacks=1)
             try:
@@ -484,7 +698,7 @@ class PruningService:
         (``prune_probe`` recomputes the overlap from host truth, so a
         degraded join loses latency, never pruning quality).
         """
-        def launch(site, tree):
+        def launch(mesh, site, tree):
             def thunk():
                 self._fire(site)
                 with self.cache.pin_scope():
@@ -495,12 +709,14 @@ class PruningService:
                         hit = kops.join_overlap_batched_tree(
                             dist, pmin, pmax, P, self._tree_entry(table),
                             table.stats.col_id(key_col), self.mode,
-                            part_ids_lists=part_ids)
+                            part_ids_lists=part_ids, mesh=mesh)
                     else:
                         hit = kops.join_overlap_batched_device(
                             dist, pmin, pmax, P, self.mode,
-                            part_ids_lists=part_ids)
-                    self.counters.bump("join", launches=1, tree=int(tree))
+                            part_ids_lists=part_ids, mesh=mesh)
+                    self.counters.bump("join", launches=1,
+                                       sharded=self._sharded(),
+                                       tree=int(tree))
                 return hit
             return thunk
 
@@ -524,7 +740,7 @@ class PruningService:
         ladder degraded to the exact host matcher.  The enumeration limit
         is the host matcher's (``prune_probe``'s ``DEFAULT_ENUM_LIMIT``),
         so both give the same verdicts."""
-        def launch(site, tree):
+        def launch(mesh, site, tree):
             def thunk():
                 self._fire(site)
                 with self.cache.pin_scope():
@@ -536,12 +752,13 @@ class PruningService:
                         hit = kops.bloom_probe_batched_tree(
                             blooms, pmin, width, DEFAULT_ENUM_LIMIT, P,
                             self._tree_entry(table), self.mode,
-                            part_ids_lists=part_ids)
+                            part_ids_lists=part_ids, mesh=mesh)
                     else:
                         hit = kops.bloom_probe_batched_device(
                             blooms, pmin, width, DEFAULT_ENUM_LIMIT, P,
-                            self.mode, part_ids_lists=part_ids)
+                            self.mode, part_ids_lists=part_ids, mesh=mesh)
                     self.counters.bump("join_bloom", launches=1,
+                                       sharded=self._sharded(),
                                        tree=int(tree))
                 return hit
             return thunk
@@ -605,7 +822,7 @@ class PruningService:
             return out                     # nothing to bound; skip the launch
         kb = kops.k_bucket(max(k for _, _, k in live))
 
-        def launch(site, tree):
+        def launch(mesh, site, tree):
             def thunk():
                 self._fire(site)
                 with self.cache.pin_scope():
@@ -615,11 +832,13 @@ class PruningService:
                     if tree:
                         heap = kops.topk_init_batched_tree(
                             plane, lists, kb, self._tree_entry(table),
-                            self.mode)
+                            self.mode, mesh=mesh)
                     else:
                         heap = kops.topk_init_batched_device(
-                            plane, lists, kb, self.mode)
-                    self.counters.bump("topk", launches=1, tree=int(tree))
+                            plane, lists, kb, self.mode, mesh=mesh)
+                    self.counters.bump("topk", launches=1,
+                                       sharded=self._sharded(),
+                                       tree=int(tree))
                 return heap
             return thunk
 
@@ -794,8 +1013,11 @@ class PruningService:
         return reports
 
     def run_fleet(self, batches: Sequence[Sequence], pipeline=None) -> List:
-        """A sequence of query batches driven through ``run_batch``
-        under the configured memory budget; one report list per batch."""
+        """The fleet-scale entry point: a sequence of query batches over
+        many tables driven through ``run_batch`` under the configured
+        memory budget and shard mesh; one report list per batch (each
+        batch's ``counters["memory"]`` shows the hits, misses, evictions
+        and restage storms it paid for)."""
         return [self.run_batch(b, pipeline) for b in batches]
 
     def fleet_summary(self) -> dict:
@@ -809,4 +1031,5 @@ class PruningService:
                     counters=self.counters.snapshot(),
                     resilience=resilience_snapshot(self.resilience),
                     integrity=self.cache.integrity_snapshot(),
+                    latency=dict(self.latency),
                     plane_hit_rate=(mem["hits"] / total) if total else 0.0)

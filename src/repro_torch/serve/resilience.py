@@ -9,10 +9,12 @@ Skipping makes for its indexes: skipping metadata may only
 over-approximate).  This module turns that property into machinery:
 
   * ``DegradationLadder`` executes a per-table batched launch through an
-    ordered fallback chain (``RUNGS``): tree pre-pass (tables large
-    enough to carry a resident group plane) -> device kernel -> host
-    kernel fallback (``kernels/ops.py``) -> host oracle technique ->
-    no-prune passthrough.  The filter stage has all the rungs; the JOIN
+    ordered fallback chain (``RUNGS``): resident verdict rows (the filter
+    stage, with the verdict cache on) -> sharded tree pre-pass -> tree
+    pre-pass (tables large enough to carry a resident group plane) ->
+    sharded device kernel (a service with a shard mesh) -> device kernel
+    -> host kernel fallback (``kernels/ops.py``) -> host oracle technique
+    -> no-prune passthrough.  The filter stage has all the rungs; the JOIN
     and top-k stages go from the device rungs straight to
     ``host_oracle``, which hands the stage back to its exact host matcher
     / host boundary.  Each rung gets a
@@ -60,14 +62,22 @@ from ..core.device_stats import PlaneIntegrityError  # noqa: F401  re-export
 from ..core.device_stats import to_host
 from ..kernels.build import KernelError
 
-# The ordered fallback chain.  A launch enters at the top rung and only
-# ever moves down; the bottom rung keeps every live partition as PARTIAL
-# — a superset of any correct answer, never FULL (so LIMIT cannot trust
-# uncertified rows).  The tree rung runs the hierarchical group pre-pass
-# over the [C, G] tree plane before touching leaves; a tree-plane fault
-# (integrity error, staging failure) demotes to the flat device rung,
-# which never consults the tree family.
-RUNGS = ("tree", "device", "host_kernel", "host_oracle", "passthrough")
+# The ordered fallback chain.  A launch enters at the highest rung its
+# configuration supports (the verdict rung only with the service's
+# verdict cache on, tree rungs only for tables large enough to carry a
+# resident group plane, sharded rungs only when the service has a shard
+# mesh) and only ever moves down; the bottom rung keeps every live
+# partition as PARTIAL — a superset of any correct answer, never FULL
+# (so LIMIT cannot trust uncertified rows).  The ``verdict`` top rung
+# serves resident cached verdict rows (a full-hit batch launches
+# nothing); a verdict-plane fault (integrity error) demotes to the
+# ordinary kernel chain — cache-off is a demotion, never a wrong answer.
+# The tree rungs run the hierarchical group pre-pass over the [C, G]
+# tree plane before touching leaves; a tree-plane fault (integrity
+# error, staging failure) demotes to the flat device rungs, which never
+# consult the tree family.
+RUNGS = ("verdict", "sharded_tree", "tree", "sharded", "device",
+         "host_kernel", "host_oracle", "passthrough")
 
 # Single registry of every counter key the serving layer may write —
 # dict keys of the resilience / integrity counter stores, report-section
@@ -78,23 +88,53 @@ COUNTER_REGISTRY = frozenset({
     # resilience counters (new_resilience_counters / DegradationLadder)
     "retries", "deadline_hits", "passthroughs", "errors",
     "salvaged_batches", "demotions",
+    # verdict-cache counters: batch hits / misses per unique canonical
+    # predicate, within-batch duplicates saved before any launch
+    # (verdict_deduped), append repairs applied by the verdict getter
+    # (core.device_stats integrity store)
+    "verdict_hits", "verdict_misses", "verdict_deduped", "verdict_repairs",
     # plane-integrity counters (core.device_stats.DeviceStatsCache)
     "verifications", "checksum_failures", "quarantines",
     # per-technique attribution (ServiceCounters.bump / .technique) and
     # the launches that ran the tree path (ServiceCounters.tree_launches)
     "filter", "join", "join_bloom", "topk", "launches", "fallbacks",
-    "tree_launches",
+    "tree_launches", "sharded_launches",
     # staging work (DeviceStatsCache.staging_snapshot, counters["staging"])
     "staged_bytes", "delta_stages", "full_restages", "prefetch_stages",
     # report sections attached to each batch (PruningService.run_batch)
     "technique", "staging", "memory", "resilience", "integrity", "planes",
+    # latency / SLO counters (new_latency_counters; serve.frontend attaches
+    # the per-batch block as counters["latency"] and the service exposes
+    # the lifetime block through fleet_summary()["latency"])
+    "latency", "requests", "batches", "deadline_fired", "size_fired",
+    "flush_fired", "queue_depth_peak", "prefetches",
+    "p50_ms", "p99_ms", "max_ms",
 })
 
 
 def new_resilience_counters() -> dict:
     return dict(retries=0, deadline_hits=0, passthroughs=0, errors=0,
-                salvaged_batches=0,
+                salvaged_batches=0, verdict_hits=0, verdict_misses=0,
+                verdict_deduped=0,
                 demotions={r: 0 for r in RUNGS[1:]})
+
+
+def new_latency_counters() -> dict:
+    """The serving front-end's latency / saturation family (every key is
+    declared in COUNTER_REGISTRY).
+
+    requests / batches      admitted submissions and dispatched batches
+    deadline_fired /        what closed each batch: the deadline timer,
+    size_fired /            the size cap, or an explicit flush / drain
+    flush_fired
+    queue_depth_peak        deepest pending queue observed at any submit
+    prefetches              submissions whose planes were prestaged
+    p50_ms / p99_ms /       end-to-end latency percentiles over the
+    max_ms                  retained sample window (max is lifetime-true)
+    """
+    return dict(requests=0, batches=0, deadline_fired=0, size_fired=0,
+                flush_fired=0, queue_depth_peak=0, prefetches=0,
+                p50_ms=0.0, p99_ms=0.0, max_ms=0.0)
 
 
 def resilience_snapshot(c: dict) -> dict:

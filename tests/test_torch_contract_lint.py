@@ -143,10 +143,17 @@ def test_port_registries_are_the_ports_own():
     assert not any(m.path.startswith("src/repro/") for m in project.modules)
     from tools.contract_lint.engine import collect_registry
     sites = collect_registry(project, "LADDER_LAUNCH_SITES")
-    assert "PruningService._filter_rungs" in sites
+    assert {"PruningService._filter_rungs", "PruningService._verdict_group",
+            "ServingFrontend._execute"} <= sites
     families = collect_registry(project, "PLANE_FAMILIES")
-    assert "tree_stat" in families
-    assert "tree_launches" in collect_registry(project, "COUNTER_REGISTRY")
+    assert {"tree_stat", "verdict"} <= families
+    counters = collect_registry(project, "COUNTER_REGISTRY")
+    assert {"tree_launches", "sharded_launches", "verdict_hits",
+            "verdict_repairs", "latency", "p99_ms"} <= counters
+    # the new modules are linted with the rest
+    paths = {m.path for m in project.modules}
+    assert {"src/repro_torch/serve/frontend.py",
+            "src/repro_torch/launch/mesh.py"} <= paths
 
 
 # ---------------------------------------------------------------------------

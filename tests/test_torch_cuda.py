@@ -11,6 +11,8 @@ the card with
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1275,3 +1277,157 @@ def test_tree_wrappers_on_card_equal_cpu(cuda):
     # fallback, the join, the Bloom probe and the top-k launch once each
     assert paths[:2] == ["tree", "flat_dense"], paths
     assert all(after[n] == before[n] + 1 for n in before), (before, after)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_wrappers_on_card_equal_cpu(cuda, n):
+    """A logical mesh of n shards on the card: each batched wrapper and
+    tree wrapper equals its unsharded CPU run; every live shard launches
+    its kernel once, on a view of the resident plane; and each shard's
+    launch equals the plain version of the same shard."""
+    from repro_torch.launch.mesh import make_plane_mesh
+    mesh = make_plane_mesh([cuda] * n)
+    rng = np.random.default_rng(2)
+    d_cpu, te_cpu, mins, keys_cpu, enum_cpu, plane_cpu = _tree_planes("cpu")
+    d_gpu, te_gpu, _, keys_gpu, enum_gpu, plane_gpu = _tree_planes(cuda)
+    P, cap = d_cpu.num_partitions, d_cpu.capacity
+    live_shards = sum(1 for s in ops._shard_spans(cap, n, P) if s[2])
+    filters = [[(1, -200.0, 200.0)], [(0, 5000.0, 9000.0), (2, 100.0, 300.0)]]
+    dist = [np.unique(rng.integers(0, 100_000, 300)).astype(np.float64)
+            for _ in range(3)]
+    blooms = []
+    for _ in range(3):
+        b = BlockedBloom(64)
+        b.add(rng.integers(0, 500, 40))
+        blooms.append(b)
+    lists = [np.sort(rng.choice(P, 900, replace=False)) for _ in range(4)]
+    for fn, args_cpu, args_gpu, name, launches in (
+            (ops.prune_ranges_batched_device, (filters, d_cpu),
+             (filters, d_gpu), "minmax_prune_batched", live_shards),
+            (ops.join_overlap_batched_device, (dist, *keys_cpu, P),
+             (dist, *keys_gpu, P), "join_overlap_batched", live_shards),
+            (ops.bloom_probe_batched_device, (blooms, *enum_cpu, 1024, P),
+             (blooms, *enum_gpu, 1024, P), "bloom_probe_batched",
+             live_shards),
+            (ops.topk_init_batched_device, (plane_cpu, lists, 8),
+             (plane_gpu, lists, 8), "topk_init_batched", live_shards)):
+        want = fn(*args_cpu)
+        before = getattr(ops, name).launches
+        got = fn(*args_gpu, mesh=mesh)
+        assert ops.last_launch_shards() == n
+        assert getattr(ops, name).launches - before == launches, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    for fn, args_cpu, args_gpu in (
+            (ops.prune_ranges_batched_tree, (filters, d_cpu, te_cpu),
+             (filters, d_gpu, te_gpu)),
+            (ops.join_overlap_batched_tree, (dist, *keys_cpu, P, te_cpu, 0),
+             (dist, *keys_gpu, P, te_gpu, 0)),
+            (ops.bloom_probe_batched_tree,
+             (blooms, *enum_cpu, 1024, P, te_cpu),
+             (blooms, *enum_gpu, 1024, P, te_gpu)),
+            (ops.topk_init_batched_tree, (plane_cpu, lists, 8, te_cpu),
+             (plane_gpu, lists, 8, te_gpu))):
+        np.testing.assert_array_equal(fn(*args_gpu, mesh=mesh),
+                                      fn(*args_cpu), err_msg=fn.__name__)
+    # each shard's launch against the plain version of that shard
+    cids, lo, hi, _ = ops.pack_ranges(filters, d_gpu)
+    Q = len(filters)
+    for s, e, live in ops._shard_spans(cap, n, P):
+        views = [ops._shard_of(a, 1, s, e, cuda) for a in d_gpu.planes]
+        assert views[0].data_ptr() == d_gpu.mins.data_ptr() + 4 * s
+        args = [torch.from_numpy(np.ascontiguousarray(a[:Q])).to(cuda)
+                for a in (cids, lo, hi)]
+        got = minmax_prune_batched(*args, *views, num_partitions=live)
+        want = minmax_prune_batched_ref(
+            *(a.cpu() for a in args),
+            *(v.cpu()[:, :live] for v in views))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_verdict_cache_on_card_equals_cpu(cuda):
+    """The verdict cache on the card: a repeated batch is served from
+    resident rows with no filter launch, an append is repaired in place,
+    and every batch equals the CPU service's."""
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import Query, TableScanSpec
+    from repro_torch.data.generator import make_events_table
+    from repro_torch.serve.prune_service import PruningService
+    ev = make_events_table(np.random.default_rng(0), n_rows=20000,
+                           rows_per_partition=20)
+    rng = np.random.default_rng(1)
+    preds = [E.col("ts") >= float(rng.integers(0, 10_000_000))
+             for _ in range(8)]
+    qs = [Query(scans={"e": TableScanSpec(ev, preds[i % 8])})
+          for i in range(24)]
+    gpu, cpu = PruningService(), PruningService(device="cpu")
+
+    def check():
+        got, want = gpu.run_batch(qs), cpu.run_batch(qs)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.scan_sets["e"].part_ids,
+                                          w.scan_sets["e"].part_ids)
+            np.testing.assert_array_equal(g.scan_sets["e"].match,
+                                          w.scan_sets["e"].match)
+        return got[0].counters
+
+    c = check()                         # every key seen 3x: admitted
+    assert c["resilience"]["verdict_deduped"] == 16
+    before = ops.minmax_prune_batched.launches
+    c = check()
+    assert ops.minmax_prune_batched.launches == before
+    assert c["resilience"]["verdict_hits"] == 8
+    row = next(iter(gpu.cache.verdict_planes.values())).arrays[0]
+    assert row.device.type == "cuda"
+    ev.append_partitions({c: ev.decode(c, ev.data[c][:400])
+                          for c in ev.columns}, rows_per_partition=20)
+    c = check()
+    assert ops.minmax_prune_batched.launches == before
+    assert gpu.cache.integrity["verdict_repairs"] == 8
+    assert next(iter(gpu.cache.verdict_planes.values())).arrays[0] is row
+
+
+def test_frontend_prestage_shares_the_launch_stream(cuda):
+    """Threaded front-end on the card: the batcher thread's prestage and
+    the worker's launches run on one CUDA stream, the front-end's."""
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import Query, TableScanSpec
+    from repro_torch.data.generator import make_events_table
+    from repro_torch.serve.frontend import ServingFrontend
+    from repro_torch.serve.prune_service import PruningService
+    ev = make_events_table(np.random.default_rng(0), n_rows=20000,
+                           rows_per_partition=20)
+    svc = PruningService(verdict_cache=False)
+    streams = []
+    real_prestage, real_kernel = svc.prestage, ops.minmax_prune_batched
+
+    def prestage(queries):
+        streams.append(("prestage", torch.cuda.current_stream()))
+        return real_prestage(queries)
+
+    def kernel(*a, **kw):
+        streams.append(("launch", torch.cuda.current_stream()))
+        return real_kernel(*a, **kw)
+
+    svc.prestage = prestage
+    ops.minmax_prune_batched = kernel
+    try:
+        # a deadline batch: the batcher stages the pending queries while
+        # it waits (a burst that fills the size cap dispatches unstaged)
+        with ServingFrontend(svc, max_batch=64, deadline_s=0.5) as fe:
+            futs = []
+            for i in range(8):
+                futs.append(fe.submit(Query(scans={"e": TableScanSpec(
+                    ev, E.col("ts") >= float(100_000 * i))})))
+                time.sleep(0.02)
+            resps = [f.result(timeout=60) for f in futs]
+    finally:
+        ops.minmax_prune_batched = real_kernel
+    kinds = {k for k, _ in streams}
+    assert kinds == {"prestage", "launch"}
+    assert all(s == fe.stream for _, s in streams)
+    want = PruningService(device="cpu", verdict_cache=False).run_batch(
+        [Query(scans={"e": TableScanSpec(
+            ev, E.col("ts") >= float(100_000 * i))}) for i in range(8)])
+    for r, w in zip(resps, want):
+        np.testing.assert_array_equal(r.report.scan_sets["e"].part_ids,
+                                      w.scan_sets["e"].part_ids)

@@ -253,7 +253,8 @@ def _resident_pair(n=240, seed=0, rows_per_partition=10, tree_fanout=None):
     fact = _pair(RTable.build("f", _rows(rng, n),
                               rows_per_partition=rows_per_partition))
     kw = {} if tree_fanout is None else dict(tree_fanout=tree_fanout)
-    tsvc, rsvc = TService(device="cpu", **kw), _rservice(**kw)
+    tsvc = TService(device="cpu", verdict_cache=False, **kw)
+    rsvc = _rservice(**kw)
 
     def queries(i, E, Query, Spec):
         return [Query(scans={"f": Spec(fact[i], E.col("v") >= 0)}),
@@ -350,7 +351,7 @@ def test_update_restages_only_the_column_rows():
 
     rq = queries(0, RE, RQuery, RSpec, RJoin)
     tq = queries(1, TE, TQuery, TSpec, TJoin)
-    tsvc, rsvc = TService(device="cpu"), _rservice()
+    tsvc, rsvc = TService(device="cpu", verdict_cache=False), _rservice()
     _run(tsvc, tq)
     _run(rsvc, rq)
     misses = tsvc.cache.plane_misses
@@ -405,7 +406,7 @@ def test_prefetch_stages_ahead_of_the_launch():
     follows finds it current (no stat-plane miss)."""
     rng = np.random.default_rng(3)
     fact, dim = _base_tables(3)
-    tsvc, rsvc = TService(device="cpu"), _rservice()
+    tsvc, rsvc = TService(device="cpu", verdict_cache=False), _rservice()
     rq, tq = _both_queries(fact, dim, rng)
     for step in ("stage", "append"):
         if step == "append":

@@ -49,6 +49,7 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import repro_torch.core, repro_torch.kernels, repro_torch.data.generator\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.models.convert\n"
         "import repro_torch.serve.batcher, repro_torch.serve.serve_step\n"
+        "import repro_torch.serve.frontend, repro_torch.launch.mesh\n"
         "assert repro_torch.configs.get_config('glm4-9b').n_kv_heads == 2\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
