@@ -296,6 +296,16 @@ class DeviceStats:
     def nbytes(self) -> int:
         return int(sum(a.numel() * a.element_size() for a in self.planes))
 
+    def gather(self, cids) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+        """On-device row gather -> per-constraint [K, cap] planes.
+
+        ``index_select`` on the planes' device: the resident [C, cap]
+        tensors never leave it."""
+        idx = torch.from_numpy(np.asarray(cids, dtype=np.int64)).to(
+            self.mins.device)
+        return tuple(p.index_select(0, idx) for p in self.planes)
+
     @staticmethod
     def stage(stats: PartitionStats, table_name: str = "",
               version: int = 0, capacity: Optional[int] = None,
@@ -585,6 +595,28 @@ class PlaneMemoryManager:
                 return
             self._evict_one(victim)
 
+    @contextlib.contextmanager
+    def transient(self, family: str, key: Tuple, nbytes: int):
+        """Count a replay's second copy of a resident plane while it
+        exists: the replay writes a clone and swaps it in, so for its
+        duration the plane is resident twice.  The plane itself is pinned
+        (room is made by evicting others, never it), the copy's bytes
+        count toward ``bytes_in_use`` and ``peak_bytes``, and leave it
+        when the old copy is dropped at the swap."""
+        pinned = self.pin(family, key)
+        self._make_room(int(nbytes))
+        self.bytes_in_use += int(nbytes)
+        self.peak_bytes = max(self.peak_bytes, self.bytes_in_use)
+        if self.budget_bytes is not None \
+                and self.bytes_in_use > self.budget_bytes:
+            self.over_budget_events += 1
+        try:
+            yield
+        finally:
+            self.bytes_in_use -= int(nbytes)
+            if pinned:
+                self.unpin(family, key)
+
     # -- pinning ---------------------------------------------------------
 
     def pin(self, family: str, key: Tuple) -> bool:
@@ -658,9 +690,25 @@ class DeviceStatsCache:
 
     ``staged_bytes`` / ``delta_stages`` / ``full_restages`` count the
     work.  A service ``TableVersion`` bump without a covering delta log
-    (the legacy ``notify_*`` flow) always restages in full.  A replay
-    writes the resident tensors in place: a launch enqueued before it on
-    the same stream reads the planes as they were.
+    (the legacy ``notify_*`` flow) always restages in full.
+
+    A replay never writes a tensor a launch may be reading: it writes a
+    clone of the resident tensors and publishes it under the lock in one
+    store, with the stamp computed from the new tensors (the JAX
+    package's immutable arrays give the same guarantee).  A launch that
+    got the old tensors (``get``'s entry's ``planes_state``, read once,
+    or another getter's tensor tuple) reads them whole and unchanged;
+    ``tree_plane`` follows the flat entry it is given, so a caller that
+    froze that entry (``dataclasses.replace``) gets group hulls of the
+    same planes.  Tensors derived from a plane (a mesh shard's copy on
+    another device, a verdict row's host copy) follow the swap.  While a
+    replay runs the clone counts under the memory budget
+    (``PlaneMemoryManager.transient``).  On the card every getter records the tensors it hands
+    out on the caller's current stream (``Tensor.record_stream``), so the
+    caching allocator never gives a swapped-out tensor's memory to a new
+    one while a kernel enqueued on another stream may still read it, and
+    every staging or replay finishes on the device before it is
+    published.
 
     Runtime-technique planes
     ------------------------
@@ -685,7 +733,8 @@ class DeviceStatsCache:
     and re-aggregated only for the groups a delta dirtied; and one
     *verdict* family (``verdict_plane`` / ``verdict_record``): int8 [cap]
     rows of a filter predicate's three-valued verdicts, keyed by (table
-    identity, canonical predicate), repaired in place on append and drop.
+    identity, canonical predicate), repaired on append and drop by the
+    same clone-and-swap.
 
     ``budget_bytes`` hands residency to a ``PlaneMemoryManager``: one
     byte budget across all six families, per-plane LRU eviction, and
@@ -893,6 +942,28 @@ class DeviceStatsCache:
         return torch.from_numpy(np.ascontiguousarray(np.stack(host))).to(
             self.device)
 
+    def _hold(self, tensors) -> None:
+        """Tie the tensors a getter hands out to the caller's current
+        CUDA stream (``record_stream``): when a later swap drops the
+        cache's reference, their memory is not reused before the work
+        that stream has enqueued by then is done.  A no-op on the CPU."""
+        if self.device.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(self.device)
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(stream)
+
+    def _settle(self) -> None:
+        """Finish the staging or replay this thread enqueued before it is
+        published, so a launch on any stream reads complete planes."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    @staticmethod
+    def _clone(arrays) -> Tuple:
+        return tuple(a.clone() for a in arrays)
+
     def staging_snapshot(self) -> dict:
         return dict(staged_bytes=self.staged_bytes,
                     delta_stages=self.delta_stages,
@@ -932,9 +1003,10 @@ class DeviceStatsCache:
         dm = ((stats.null_counts[lo:hi].T > 0) | inexact).astype(np.float32)
         return m32, x32, dm
 
-    def _replay_stats(self, e: DeviceStats, table, deltas) -> bool:
+    def _replay_stats(self, key: Tuple, e: DeviceStats, table,
+                      deltas) -> bool:
         """Bring a resident [C, cap] entry current by replaying deltas into
-        its tensors in place.
+        a clone of its tensors and swapping the clone in.
 
         Returns False, having written nothing, when a full restage is
         required (a rewrite, an unknown column or kind, capacity
@@ -947,7 +1019,28 @@ class DeviceStatsCache:
             if d.kind not in ("append", "drop", "update") or (
                     d.kind == "update" and not _has_column(stats, d.column)):
                 return False
-        mins, maxs, dem = e.planes
+        with self.memory.transient("stat", key, e.nbytes):
+            planes, nbytes = self._stat_deltas(self._clone(e.planes), stats,
+                                               deltas)
+            checksum = plane_checksum(planes)
+        self._settle()
+        # publish: the stamp from the clean replayed tensors, then the
+        # chaos seam may tear bytes *after* the stamp (the corruption the
+        # verifier must catch); one tuple store of (planes, P), so a later
+        # read never pairs the new planes with the old partition count
+        e.checksum = checksum
+        e.planes_state = (self._corrupt("stage.stat", planes),
+                          stats.num_partitions)
+        e.live_count = self._live_count(table)
+        self.staged_bytes += nbytes
+        self.delta_stages += 1
+        return True
+
+    def _stat_deltas(self, planes: Tuple, stats: PartitionStats,
+                     deltas) -> Tuple[Tuple, int]:
+        """Write ``deltas`` into ``planes`` (a clone nothing reads yet);
+        returns the planes and the bytes staged."""
+        mins, maxs, dem = planes
         nbytes = 0
         for d in deltas:
             if d.kind == "append":
@@ -961,7 +1054,7 @@ class DeviceStatsCache:
                 mins.index_fill_(1, ids, float(_F32_MAX))
                 maxs.index_fill_(1, ids, -float(_F32_MAX))
                 dem.index_fill_(1, ids, 1.0)
-                nbytes += 3 * e.num_columns * len(d.part_ids) * 4
+                nbytes += 3 * int(mins.shape[0]) * len(d.part_ids) * 4
             else:                       # update: that column's three rows
                 ci = stats.col_id(d.column)
                 P = stats.num_partitions
@@ -973,17 +1066,7 @@ class DeviceStatsCache:
                 for plane, row in zip((mins, maxs, dem), rows):
                     plane[ci, :P] = row
                 nbytes += 3 * P * 4
-        # re-stamp from the clean replayed tensors, then let the chaos
-        # seam tear bytes *after* the stamp (the corruption the verifier
-        # must catch); one tuple store of (planes, P), so a later read
-        # never pairs the new planes with the old partition count
-        e.checksum = plane_checksum((mins, maxs, dem))
-        e.planes_state = (self._corrupt("stage.stat", (mins, maxs, dem)),
-                          stats.num_partitions)
-        e.live_count = self._live_count(table)
-        self.staged_bytes += nbytes
-        self.delta_stages += 1
-        return True
+        return (mins, maxs, dem), nbytes
 
     def get(self, table, tv: Optional[TableVersion] = None) -> DeviceStats:
         """The table's resident DeviceStats: staged on first touch,
@@ -994,6 +1077,9 @@ class DeviceStatsCache:
         would break NO_MATCH safety, the one direction that loses rows.
         A service ``TableVersion`` bump without a covering table delta
         log (the legacy invalidation flow) also forces a restage.
+
+        A replay publishes new tensors into the entry with one store of
+        ``planes_state``: a caller that read it keeps whole planes.
         """
         with self._lock:
             self._fire("get.stat")
@@ -1011,8 +1097,8 @@ class DeviceStatsCache:
                     served = True
                 elif e.version < tver:
                     deltas = self._deltas_since(table, e.version)
-                    if deltas is not None and self._replay_stats(e, table,
-                                                                 deltas):
+                    if deltas is not None and self._replay_stats(
+                            key, e, table, deltas):
                         e.version = tver
                         e.tv_version = tvv
                         self.hits += 1
@@ -1022,6 +1108,7 @@ class DeviceStatsCache:
                     self._touch("stat", key)
                     if not self._verify_due() or self._verify(e.planes,
                                                               e.checksum):
+                        self._hold(e.planes)
                         return e
                     # sampled verify caught a torn resident plane:
                     # quarantine it and restage fresh below (verified)
@@ -1040,6 +1127,7 @@ class DeviceStatsCache:
                     capacity=plane_capacity(table.stats.num_partitions),
                     live=getattr(table, "live", None), device=self.device)
                 e.tv_version = tvv
+                self._settle()
                 planes, logical_p = e.planes_state
                 e.planes_state = (self._corrupt("stage.stat", planes),
                                   logical_p)
@@ -1059,6 +1147,7 @@ class DeviceStatsCache:
                     or self._verify_due()
                 if not force or self._verify(e.planes, e.checksum):
                     self._quarantined.discard(("stat", key))
+                    self._hold(e.planes)
                     return e
                 if retried:
                     self._quarantined.discard(("stat", key))
@@ -1077,12 +1166,14 @@ class DeviceStatsCache:
                        ) -> Optional[_PlaneEntry]:
         """The resident plane entry brought current, or None.
 
-        Replays the table's delta log into the entry: appends stage only
-        the new partitions (``append_fn``), drops scatter the family's
-        sentinel (``drop_fn``), updates of columns the plane does not read
-        are free version advances.  An update of one of ``columns``, a
-        rewrite, a log gap or capacity overflow drops the entry (the
-        caller stages fresh, counted as a plane miss and a full restage).
+        Replays the table's delta log into a clone of the entry's tensors
+        and swaps it in: appends stage only the new partitions
+        (``append_fn``), drops scatter the family's sentinel (``drop_fn``),
+        each writing the working entry it is handed; updates of columns
+        the plane does not read are free version advances.  An update of
+        one of ``columns``, a rewrite, a log gap or capacity overflow
+        drops the entry (the caller stages fresh, counted as a plane miss
+        and a full restage).
         """
         e = store.get(key)
         if e is None:
@@ -1097,24 +1188,29 @@ class DeviceStatsCache:
                             or (d.kind == "update"
                                 and d.column not in columns)
                             for d in deltas):
-                nbytes = 0
-                staged = False
-                for d in deltas:
-                    if d.kind == "append":
-                        nbytes += append_fn(e, table, d.part_lo, d.part_hi)
-                        staged = True
-                    elif d.kind == "drop":
-                        nbytes += drop_fn(e, table, d.part_ids)
-                        staged = True
+                staging = [d for d in deltas if d.kind in ("append", "drop")]
+                if staging:
+                    with self.memory.transient(family, key, e.nbytes):
+                        work = dataclasses.replace(
+                            e, arrays=self._clone(e.arrays),
+                            meta=dict(e.meta))
+                        nbytes = 0
+                        for d in staging:
+                            if d.kind == "append":
+                                nbytes += append_fn(work, table, d.part_lo,
+                                                    d.part_hi)
+                            else:
+                                nbytes += drop_fn(work, table, d.part_ids)
+                        # the stamp from the clean replayed tensors; the
+                        # chaos seam may tear bytes after it
+                        work.meta["checksum"] = plane_checksum(work.arrays)
+                    self._settle()
+                    e.meta = work.meta
+                    e.arrays = self._corrupt(f"stage.{family}", work.arrays)
+                    self.staged_bytes += nbytes
+                    self.delta_stages += 1
                 e.version = tver
                 e.logical_p = table.stats.num_partitions
-                self.staged_bytes += nbytes
-                if staged:
-                    self.delta_stages += 1
-                    # re-stamp from the clean replayed tensors, then the
-                    # chaos seam may tear bytes after the stamp
-                    e.meta["checksum"] = plane_checksum(e.arrays)
-                    e.arrays = self._corrupt(f"stage.{family}", e.arrays)
                 served = True
         if served:
             self.plane_hits += 1
@@ -1122,6 +1218,7 @@ class DeviceStatsCache:
             self._touch(family, key)
             if not self._verify_due() or self._verify(e.arrays,
                                                       e.meta.get("checksum")):
+                self._hold(e.arrays)
                 return e
             # torn resident plane: quarantine; the caller stages fresh
             # (and _plane_fresh force-verifies that restage)
@@ -1151,6 +1248,7 @@ class DeviceStatsCache:
             e.arrays = self._corrupt(f"stage.{family}", tuple(
                 torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                 if isinstance(a, np.ndarray) else a for a in e.arrays))
+            self._settle()
             e = self._plane_put(family, store, key, e)
             fk = (family, key)
             force = fk in self._quarantined \
@@ -1158,6 +1256,7 @@ class DeviceStatsCache:
                 or self._verify_due()
             if not force or self._verify(e.arrays, e.meta["checksum"]):
                 self._quarantined.discard(fk)
+                self._hold(e.arrays)
                 return e
             if retried:
                 self._quarantined.discard(fk)
@@ -1398,21 +1497,21 @@ class DeviceStatsCache:
 
     def _tree_replay(self, e: _PlaneEntry, table, dstats: DeviceStats,
                      deltas) -> Optional[int]:
-        """Re-aggregate only the dirtied groups from the current flat
-        planes, in place; returns the staged bytes, or None (having
-        written nothing) when a full rebuild is required (a rewrite, an
-        unknown kind or column).
+        """Re-aggregate only the dirtied groups from the flat planes of
+        ``dstats`` into a clone of the group arrays; returns the new
+        arrays and the staged bytes, or None (having written nothing)
+        when a full rebuild is required (a rewrite, an unknown kind or
+        column).
 
-        ``dstats`` is already current (the caller syncs it first), so the
-        group hulls re-derive on the device with no H2D of plane data:
+        ``dstats`` reflects every delta in ``deltas``, so the group hulls
+        re-derive on the device with no H2D of plane data:
         appends dirty only the touched tail groups, drops only the dropped
         ids' groups, and a column update re-aggregates that column's group
         row.  The host coarse level re-derives from the group arrays
         afterwards (one small copy back).
         """
         fanout = e.meta["fanout"]
-        gm, gx, gd = e.arrays[:3]
-        C, G = int(gm.shape[0]), int(gm.shape[1])
+        C, G = (int(n) for n in e.arrays[0].shape)
         mins, maxs, dem = dstats.planes
         dirty: set = set()
         rows: set = set()
@@ -1428,6 +1527,7 @@ class DeviceStatsCache:
                 rows.add(table.stats.col_id(d.column))
             else:                  # rewrite (or unknown): full rebuild
                 return None
+        gm, gx, gd = self._clone(e.arrays[:3])
         nbytes = 0
         if dirty:
             gids = np.fromiter(sorted(dirty), dtype=np.int64)
@@ -1450,28 +1550,33 @@ class DeviceStatsCache:
             gd[ci] = dem[ci, span].reshape(G, fanout).amax(dim=1)
             nbytes += 3 * G * 4
         cmins, cmaxs = coarse_from_groups(gm, gx)
-        e.arrays = (gm, gx, gd, cmins, cmaxs)
-        return nbytes
+        return (gm, gx, gd, cmins, cmaxs), nbytes
 
     def tree_plane(self, table, dstats: DeviceStats) -> _PlaneEntry:
-        """The table's resident hierarchical plane entry, brought current.
+        """The table's hierarchical plane entry at ``dstats``'s version.
 
-        ``dstats`` must be the table's *current* flat entry (from
-        ``get``): the tree arrays are pure aggregations of it, so delta
-        maintenance re-aggregates dirtied groups from the resident flat
-        planes instead of restaging from host truth.  A full member of
-        the integrity protocol: stamped at build and after every replay
-        (the stamp covers the host coarse level too: it takes part in
-        pruning decisions), sampled-verified on read, force-verified after
-        a quarantine or eviction restage, ``PlaneIntegrityError`` on a
-        second failure (the serving ladder demotes to the flat rungs).  A
-        geometry change (capacity growth, another fanout) rebuilds.
+        ``dstats`` is the stat entry from ``get``, frozen by the caller
+        (``dataclasses.replace``): the tree arrays are pure
+        aggregations of it, so delta maintenance re-aggregates dirtied
+        groups from its flat planes instead of restaging from host truth,
+        and the entry handed back (a snapshot too) always matches the
+        flat planes the caller launches on — even when another thread
+        replayed the resident planes since its ``get``.  A resident tree
+        ahead of the snapshot (another thread's later ``get``) is left as
+        it is, and an entry aggregated from the snapshot is handed back
+        unstored.  A full member of the integrity protocol: stamped at
+        build and after every replay (the stamp covers the host coarse
+        level too: it takes part in pruning decisions), sampled-verified
+        on read, force-verified after a quarantine or eviction restage,
+        ``PlaneIntegrityError`` on a second failure (the serving ladder
+        demotes to the flat rungs).  A geometry change (capacity growth,
+        another fanout) rebuilds.
         """
         with self._lock:
             self._fire("get.tree_stat")
             key = (table.name, table.stats.uid)
             fanout = self.tree_fanout
-            tver = self._table_version(table)
+            tver = dstats.version
             e = self.tree_planes.get(key)
             if e is not None:
                 served = False
@@ -1479,26 +1584,36 @@ class DeviceStatsCache:
                                and e.meta["cap"] == dstats.capacity)
                 if geometry_ok and e.version == tver:
                     served = True
-                elif geometry_ok and e.version < tver:
+                elif geometry_ok and e.version > tver:
+                    return tree_entry_for(dstats, fanout=fanout,
+                                          version=tver)
+                elif geometry_ok:
                     deltas = self._deltas_since(table, e.version)
+                    done = None
                     if deltas is not None:
-                        nbytes = self._tree_replay(e, table, dstats, deltas)
-                        if nbytes is not None:
-                            e.version = tver
-                            e.logical_p = table.stats.num_partitions
-                            self.staged_bytes += nbytes
-                            self.delta_stages += 1
-                            e.meta["checksum"] = plane_checksum(e.arrays)
-                            e.arrays = self._corrupt("stage.tree_stat",
-                                                     e.arrays)
-                            served = True
+                        with self.memory.transient("tree_stat", key,
+                                                   e.nbytes):
+                            done = self._tree_replay(
+                                e, table, dstats,
+                                [d for d in deltas if d.version <= tver])
+                    if done is not None:
+                        arrays, nbytes = done
+                        self._settle()
+                        e.meta["checksum"] = plane_checksum(arrays)
+                        e.arrays = self._corrupt("stage.tree_stat", arrays)
+                        e.version = tver
+                        e.logical_p = dstats.logical_p
+                        self.staged_bytes += nbytes
+                        self.delta_stages += 1
+                        served = True
                 if served:
                     self.plane_hits += 1
                     self.tree_planes.move_to_end(key)
                     self._touch("tree_stat", key)
                     if not self._verify_due() or self._verify(
                             e.arrays, e.meta.get("checksum")):
-                        return e
+                        self._hold(e.arrays)
+                        return dataclasses.replace(e, meta=dict(e.meta))
                     self._quarantine("tree_stat", key)
                 else:
                     self.tree_planes.pop(key, None)
@@ -1506,11 +1621,10 @@ class DeviceStatsCache:
                     self.full_restages += 1
 
             def build():
-                return tree_entry_for(dstats, fanout=fanout, version=tver,
-                                      logical_p=table.stats.num_partitions)
+                return tree_entry_for(dstats, fanout=fanout, version=tver)
 
-            return self._plane_fresh("tree_stat", self.tree_planes, key,
-                                     build)
+            e = self._plane_fresh("tree_stat", self.tree_planes, key, build)
+            return dataclasses.replace(e, meta=dict(e.meta))
 
     # ---- verdict planes (Sec. 8.2 predicate cache, device-resident) -----
 
@@ -1528,9 +1642,10 @@ class DeviceStatsCache:
         the restage, ``PlaneIntegrityError`` on a second failure (the
         serving ladder demotes to the kernel chain).
 
-        Delta repair from the table's ``TableDelta`` log, written into the
-        resident row in place: an append's partitions are the only unknown
-        slots — their verdicts are evaluated on the host (f64 ``eval_tv``
+        Delta repair from the table's ``TableDelta`` log, written into a
+        clone of the resident row that is then swapped in (a hit copying
+        the old row reads it whole): an append's partitions are the only
+        unknown slots — their verdicts are evaluated on the host (f64 ``eval_tv``
         over just the ``[part_lo, part_hi)`` stats slice) and written by
         index assignment, counted in ``integrity["verdict_repairs"]``; a
         drop scatters the NO_MATCH sentinel; an update of a column the
@@ -1569,7 +1684,8 @@ class DeviceStatsCache:
         ``tv_row`` is the int8 ``[P]`` three-valued result of a ladder
         rung above passthrough (passthrough verdicts are uncertified and
         never recorded).  Capacity-padded with the NO_MATCH sentinel like
-        every delta-synced family, so appended partitions repair in place.
+        every delta-synced family, so appended partitions are repaired
+        into the row's next copy.
         """
         with self._lock:
             key = (table.name, table.stats.uid, ckey)
@@ -1631,6 +1747,15 @@ class DeviceStatsCache:
         # include the updated column), while the other columns' join-key /
         # enumeration / block-top-k planes stay resident.
         self.invalidate(table_name, column=column)
+
+    @property
+    def hit_rate(self) -> float:
+        """The ``[C, cap]`` stat planes' getter hit rate (``get``: hits
+        over hits + misses), the reference's meaning; the other families'
+        rate is ``plane_hits`` over ``plane_hits + plane_misses``, and the
+        budget's is ``memory.hits`` over its hits + misses."""
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
 
     @property
     def resident_bytes(self) -> int:

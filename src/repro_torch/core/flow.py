@@ -45,6 +45,7 @@ from .prune_filter import eval_tv
 from .prune_join import BuildSummary, prune_probe, summarize_build
 from .prune_limit import limit_prune
 from .prune_topk import TopKResult, run_topk
+from .prune_tree import AdaptivePruner
 from .rowval import matches
 
 
@@ -94,6 +95,10 @@ class TechniqueReport:
     applied: bool
     detail: dict = dataclasses.field(default_factory=dict)
 
+    @property
+    def ratio(self) -> float:
+        return pruning_ratio(self.before, self.after)
+
 
 @dataclasses.dataclass
 class PruningReport:
@@ -103,6 +108,14 @@ class PruningReport:
     topk_scan: Optional[str] = None   # scan name the top-k technique targeted
     counters: Optional[dict] = None   # this batch's ServiceCounters delta
                                       # (attached by PruningService.run_batch)
+
+    def technique_totals(self) -> Dict[str, Tuple[int, int]]:
+        out: Dict[str, Tuple[int, int]] = {}
+        for scans in self.per_scan.values():
+            for tech, rep in scans.items():
+                b, a = out.get(tech, (0, 0))
+                out[tech] = (b + rep.before, a + rep.after)
+        return out
 
     @property
     def overall_ratio(self) -> float:
@@ -206,13 +219,19 @@ class FilterTechnique(Technique):
                 ss = ScanSet(ss.part_ids,
                              np.full(len(ss), PARTIAL_MATCH, dtype=np.int8))
             return ss, TechniqueReport(P, len(ss), applied=False)
-        tv = None
-        if pipe.filter_mode == "device":
-            # Delegate to the PruningService: resident device stats
-            # (staged once per table version) + the batched kernel.
-            tv = pipe.device_service().scan_tv(spec)
-        if tv is None:
-            tv = eval_tv(spec.pred, table.stats)
+        if pipe.adaptive:
+            # Sec. 3.2's adaptive tree: host f64, whatever the mode
+            res = AdaptivePruner(spec.pred).run(table.stats,
+                                               batch_size=max(P // 8, 1))
+            tv = res.tv
+        else:
+            tv = None
+            if pipe.filter_mode == "device":
+                # Delegate to the PruningService: resident device stats
+                # (staged once per table version) + the batched kernel.
+                tv = pipe.device_service().scan_tv(spec)
+            if tv is None:
+                tv = eval_tv(spec.pred, table.stats)
         # Dropped partitions never enter a scan set, on any path — the
         # same mask the device plane encodes as sentinel slots.
         tv = mask_dead_partitions(tv, table)
@@ -221,7 +240,7 @@ class FilterTechnique(Technique):
         return ss, TechniqueReport(P, len(ss), applied=True)
 
     def run_batch(self, pipe, states, service=None):
-        if (service is not None and pipe.enable_filter
+        if (service is not None and pipe.enable_filter and not pipe.adaptive
                 and pipe.filter_mode == "device"):
             batch_sets = service.prune_batch([st.query for st in states])
             for st, fs in zip(states, batch_sets):
@@ -323,7 +342,7 @@ class JoinTechnique(Technique):
         if summary is None:
             return
         hit = None
-        if pipe.filter_mode == "device":
+        if pipe.filter_mode == "device" and not pipe.adaptive:
             q = state.query
             hit = pipe.device_service().join_hit(
                 q.scans[q.join.probe].table, q.join.probe_key, summary,
@@ -405,8 +424,11 @@ class TopKTechnique(Technique):
     def _device_eligible(self, pipe, state, extra) -> bool:
         # Upfront boundaries are only valid without interposed operators
         # (Sec. 5.4) — mirroring run_topk's own use_upfront_init gate.
+        # Adaptive pipelines keep their own (host) semantics throughout,
+        # like the filter stage.
         q = state.query
-        return (pipe.filter_mode == "device" and pipe.topk_upfront_init
+        return (pipe.filter_mode == "device" and not pipe.adaptive
+                and pipe.topk_upfront_init
                 and extra is None and q.effective_k > 0)
 
     def _apply(self, pipe, state, extra, b_floor: float, path: str) -> None:
@@ -442,7 +464,7 @@ class TopKTechnique(Technique):
                 q.scans[scan_name].table, state.scan_sets[scan_name],
                 order_col, bool(desc), q.effective_k)
             path = "device"
-        elif pipe.filter_mode == "device":
+        elif pipe.filter_mode == "device" and not pipe.adaptive:
             pipe.device_service().counters.bump(self.name, fallbacks=1)
         self._apply(pipe, state, extra, b_floor, path)
 
@@ -484,6 +506,7 @@ class PruningPipeline:
         self,
         topk_strategy: str = "sort",
         topk_upfront_init: bool = True,
+        adaptive: bool = False,
         enable_filter: bool = True,
         enable_limit: bool = True,
         enable_join: bool = True,
@@ -518,6 +541,7 @@ class PruningPipeline:
             raise ValueError(f"unknown filter_mode {filter_mode!r}")
         self.topk_strategy = topk_strategy
         self.topk_upfront_init = topk_upfront_init
+        self.adaptive = adaptive
         self.enable_filter = enable_filter
         self.enable_limit = enable_limit
         self.enable_join = enable_join

@@ -128,8 +128,16 @@ def eval_pred(pred, ctx: RowContext) -> np.ndarray:
         cm = ctx.columns[pred.col.name]
         v, nm = ctx.col(pred.col.name)
         rx = _like_regex(pred.pattern)
-        strings = cm.dictionary[v.astype(np.int64)]
-        hit = np.fromiter((bool(rx.match(s)) for s in strings), dtype=bool, count=ctx.n)
+        codes = v.astype(np.int64)
+        if len(cm.dictionary) <= ctx.n:
+            # match each dictionary entry once and look the rows up: the
+            # same verdicts as matching every row's string
+            hit = np.fromiter((bool(rx.match(s)) for s in cm.dictionary),
+                              dtype=bool, count=len(cm.dictionary))[codes]
+        else:
+            hit = np.fromiter((bool(rx.match(s))
+                               for s in cm.dictionary[codes]),
+                              dtype=bool, count=ctx.n)
         k = np.where(hit, K_TRUE, K_FALSE).astype(np.int8)
         return np.where(nm, K_UNKNOWN, k).astype(np.int8)
     if isinstance(pred, E.InSet):

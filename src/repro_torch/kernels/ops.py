@@ -236,7 +236,8 @@ def _shard_of(plane: torch.Tensor, dim: int, start: int, end: int,
               dev) -> torch.Tensor:
     """Partitions [start, end) of ``plane`` along ``dim`` on ``dev``: a view
     on the plane's own device; elsewhere a copy, made again only after
-    the plane is written (an in-place delta replay bumps its version)."""
+    the plane is written (a delta replay swaps in a new tensor, whose
+    copies start afresh)."""
     view = plane.narrow(dim, start, end - start)
     if same_device(plane.device, dev):
         return view
@@ -931,8 +932,8 @@ def prune_ranges_batched_tree(
     mins, maxs, demote = planes
     dev = mins.device
     check_mode(mode, dev)
-    gm, gx, gd = tree_entry.arrays[:3]
-    cmins, cmaxs = (to_host(a) for a in tree_entry.arrays[3:])
+    gm, gx, gd, cmins, cmaxs = tree_entry.arrays
+    cmins, cmaxs = to_host(cmins), to_host(cmaxs)
     fanout = int(tree_entry.meta["fanout"])
     G = int(gm.shape[1])
     if Q == 0 or int(mins.shape[1]) != G * fanout \

@@ -21,13 +21,13 @@ shape of LLM serving systems applied to the pruning service:
     the prefetches so the ``PlaneMemoryManager`` can never evict a plane
     an in-flight launch is reading (pins are global refcounts; the
     launch scope's own pins are taken on the worker thread).  A delta
-    replay writes the resident planes in place, so the prestage runs on
-    the same CUDA stream as the launches (the stream current where the
-    front-end was built, entered by both threads): a replay enqueued
-    after a launch is ordered after it on the card, and never rewrites a
-    plane that launch is still reading.  The overlap is the host work of
-    staging (the host slices, casts and stamps) with the worker's host
-    stages and launches, not two streams on the card.
+    replay writes a clone of the resident planes and swaps it in, so a
+    launch the worker already started keeps reading the planes it got,
+    whole (``core.device_stats``).  Both threads enter one CUDA stream
+    (the stream current where the front-end was built), so the card
+    also runs a replay's copies in order with the launches.  The overlap
+    is the host work of staging (the host slices, casts and stamps) with
+    the worker's host stages and launches, not two streams on the card.
   * Every response carries queue/stage/launch timestamps, and a
     ``counters["latency"]`` block (keys registered in
     ``COUNTER_REGISTRY``) accumulates per-batch p50/p99/max and

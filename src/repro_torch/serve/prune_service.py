@@ -44,8 +44,8 @@ filter jobs are deduped by canonical predicate before any launch, and the
 ``verdict`` rung on top of the filter chain serves resident verdict rows
 (``DeviceStatsCache.verdict_plane``), launching the ordinary chain only
 for the predicates it misses; a predicate earns a resident row on its
-second sighting (``_verdict_group``).  The rows are repaired in place on
-the table's appends and drops.
+second sighting (``_verdict_group``).  The rows are repaired on the
+table's appends and drops (into a copy that is swapped in).
 
 Fleet scale: ``budget_bytes`` puts every resident plane family under one
 device-memory budget (``core.device_stats.PlaneMemoryManager``: LRU
@@ -350,13 +350,17 @@ class PruningService:
         return self.cache.plane_epoch(table)
 
     def _stat_plane(self, table):
-        return self.cache.get(table, self.versions.get(table.name))
+        """The table's stat entry, frozen: a launch reads one set of
+        planes and the tree plane built from them, even when another
+        thread's replay swaps new planes into the resident entry."""
+        return dataclasses.replace(
+            self.cache.get(table, self.versions.get(table.name)))
 
     def prestage(self, queries: Sequence) -> int:
         """Prefetch the stat planes a batch of queries will read: the
-        front-end's staging seam, run before the batch's launches on the
-        same stream (a delta replay writes the resident planes in place,
-        so it must be ordered with the launches that read them).
+        front-end's staging seam, run before the batch's launches (a
+        delta replay swaps new planes in, so a launch already running
+        keeps the planes it got).
 
         A ``pin_scope`` around the prefetches keeps the memory manager
         from evicting a plane this very call just staged while admitting
@@ -934,8 +938,9 @@ class PruningService:
         if pipeline is None:
             pipeline = PruningPipeline(filter_mode="device", service=self)
         # Only batch device stages when the pipeline itself declares the
-        # device path — a host pipeline keeps its own semantics.
-        device = pipeline.filter_mode == "device"
+        # device path — a host or adaptive pipeline keeps its own
+        # semantics (the adaptive tree is host f64: it launches nothing).
+        device = not pipeline.adaptive and pipeline.filter_mode == "device"
         before = self.counters.snapshot()
         before_staging = self.cache.staging_snapshot()
         before_memory = self.cache.memory.snapshot()

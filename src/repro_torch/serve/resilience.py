@@ -212,6 +212,11 @@ class FaultInjector:
                                 fired=0))
         return self
 
+    def clear(self) -> "FaultInjector":
+        """Drop every rule (the log survives) — wave-style chaos runs."""
+        self._rules.clear()
+        return self
+
     def _match(self, site: str, kinds: Tuple[str, ...]):
         for r in self._rules:
             if r["kind"] not in kinds:

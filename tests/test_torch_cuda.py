@@ -1383,7 +1383,8 @@ def test_verdict_cache_on_card_equals_cpu(cuda):
     c = check()
     assert ops.minmax_prune_batched.launches == before
     assert gpu.cache.integrity["verdict_repairs"] == 8
-    assert next(iter(gpu.cache.verdict_planes.values())).arrays[0] is row
+    # repaired into a copy that is swapped in: the old row is untouched
+    assert next(iter(gpu.cache.verdict_planes.values())).arrays[0] is not row
 
 
 def test_frontend_prestage_shares_the_launch_stream(cuda):
@@ -1431,3 +1432,158 @@ def test_frontend_prestage_shares_the_launch_stream(cuda):
     for r, w in zip(resps, want):
         np.testing.assert_array_equal(r.report.scan_sets["e"].part_ids,
                                       w.scan_sets["e"].part_ids)
+
+
+# ---------------------------------------------------------------------------
+# F1: a replay on one thread never tears a launch on another (the CPU
+# side is tests/test_torch_replay_race.py; its inputs, on the card)
+# ---------------------------------------------------------------------------
+
+RACE_P, RACE_FANOUT = 1 << 14, 16
+
+
+def _race_versions():
+    p = np.arange(RACE_P, dtype=np.int64)
+    a = np.stack([10 * p, 10 * p + 9], axis=1).reshape(-1)
+    return a, a + 5
+
+
+def _race_ranges(n=64):
+    rng = np.random.default_rng(0)
+    ps = rng.integers(0, RACE_P, n)
+    gs = rng.integers(1, RACE_P // RACE_FANOUT, n // 2)
+    return ([[(0, float(10 * p + 5), float(10 * p + 9))] for p in ps]
+            + [[(0, float(10 * RACE_FANOUT * g),
+                 float(10 * RACE_FANOUT * g + 4))] for g in gs])
+
+
+def _race_table():
+    from repro_torch.data.table import Table
+    return Table.build("t", {"v": _race_versions()[0],
+                             "w": np.arange(2 * RACE_P) % 7},
+                       rows_per_partition=2)
+
+
+@pytest.mark.parametrize("streams", ["one", "two"])
+def test_held_replay_never_tears_a_launch_on_the_card(cuda, monkeypatch,
+                                                      streams):
+    """The launcher takes the planes; a replay to version B on another
+    thread (on the launcher's stream, or on a stream of its own) is held
+    after its first row write while the kernel launches on the old
+    planes: its verdicts are A's, none FULL."""
+    import dataclasses
+    import threading
+    t = _race_table()
+    want_a = ops.prune_ranges_batched_device(
+        _race_ranges(), TD.DeviceStatsCache(device="cpu").get(t),
+        mode="torch")
+    cache = TD.DeviceStatsCache(tree_fanout=RACE_FANOUT)
+    launch_stream = torch.cuda.Stream()
+    replay_stream = launch_stream if streams == "one" else torch.cuda.Stream()
+    with torch.cuda.stream(launch_stream):
+        dstats = dataclasses.replace(cache.get(t))
+    t.update_column("v", _race_versions()[1])
+    paused, resume = threading.Event(), threading.Event()
+    armed = []
+    real = torch.Tensor.__setitem__
+
+    def setitem(x, idx, value):
+        real(x, idx, value)
+        if armed and threading.current_thread() is armed[0]:
+            armed.clear()
+            paused.set()
+            assert resume.wait(60)
+
+    monkeypatch.setattr(torch.Tensor, "__setitem__", setitem)
+
+    def replay():
+        armed.append(threading.current_thread())
+        with torch.cuda.stream(replay_stream):
+            cache.get(t)
+
+    th = threading.Thread(target=replay)
+    th.start()
+    assert paused.wait(60)
+    before = ops.minmax_prune_batched.launches
+    try:
+        with torch.cuda.stream(launch_stream):
+            got = ops.prune_ranges_batched_device(_race_ranges(), dstats)
+    finally:
+        resume.set()
+        th.join(60)
+    assert ops.minmax_prune_batched.launches == before + 1
+    assert not (got == 2).any()
+    np.testing.assert_array_equal(got, want_a)
+    want_b = ops.prune_ranges_batched_device(
+        _race_ranges(), TD.DeviceStatsCache(device="cpu").get(t),
+        mode="torch")
+    np.testing.assert_array_equal(
+        ops.prune_ranges_batched_device(_race_ranges(), cache.get(t)),
+        want_b)
+
+
+def test_two_services_sharing_a_cache_on_two_streams(cuda):
+    """Two services share ``cache=`` from two threads, each on its own
+    stream: one launches batch after batch, the other alternates the
+    table between versions A and B (its DML under the cache lock, so
+    only plane reads race) and replays.  Every answer is A's or B's; the
+    swapped-out planes' memory is not reused under a running kernel
+    (``record_stream``)."""
+    import threading
+    from repro_torch.core import expr as E
+    from repro_torch.core.flow import Query, TableScanSpec
+    from repro_torch.serve.prune_service import PruningService
+    t = _race_table()
+    a, b = _race_versions()
+    preds = [(E.col("v") >= lo) & (E.col("v") <= hi)
+             for ((_c, lo, hi),) in _race_ranges(32)]
+    qs = [Query(scans={"t": TableScanSpec(t, p)}) for p in preds]
+
+    def rows(reports):
+        out = np.zeros((len(reports), t.num_partitions), dtype=np.int8)
+        for i, r in enumerate(reports):
+            ss = r.scan_sets["t"]
+            out[i, ss.part_ids] = ss.match
+        return out
+
+    truth = []
+    for vals in (b, a):
+        t.update_column("v", vals)
+        truth.append(rows(PruningService(device="cpu", verdict_cache=False)
+                          .run_batch(qs)))
+    s1 = PruningService(verdict_cache=False)
+    s2 = PruningService(verdict_cache=False, cache=s1.cache)
+    answers, errors = [], []
+    stop = threading.Event()
+
+    def launcher():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            try:
+                while not stop.is_set():
+                    answers.append(rows(s1.run_batch(qs)))
+            except BaseException as exc:          # pragma: no cover
+                errors.append(exc)
+
+    def writer():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            try:
+                for i in range(24):
+                    with s1.cache._lock:
+                        t.update_column("v", b if i % 2 == 0 else a)
+                    s2.prestage(qs[:1])
+            except BaseException as exc:          # pragma: no cover
+                errors.append(exc)
+
+    th = [threading.Thread(target=launcher), threading.Thread(target=writer)]
+    for x in th:
+        x.start()
+    th[1].join(600)
+    stop.set()
+    th[0].join(600)
+    torch.cuda.synchronize()
+    assert not errors
+    assert len(answers) > 0
+    for got in answers:
+        assert any(np.array_equal(got, w) for w in truth)
+    assert s1.cache.delta_stages > 0
+

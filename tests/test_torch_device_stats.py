@@ -299,13 +299,17 @@ def test_runtime_plane_hit_and_version_bump_restage(family):
     first, _ = _planes_of(cache, family, tt, "v")
     again, _ = _planes_of(cache, family, tt, "v")
     assert all(a is b for a, b in zip(first, again)) and cache.plane_hits == 1
+    before = [TD.to_host(a).copy() for a in first]
     tt.append_partitions({"k": np.arange(30, dtype=np.int64),
                           "f": np.zeros(30), "v": np.arange(30) * 7,
                           "s": np.array(["ok-1"] * 30)}, rows_per_partition=30)
     after, _ = _planes_of(cache, family, tt, "v")
-    # an in-capacity append replays into the resident tensors in place
+    # an in-capacity append replays into a copy of the resident tensors
+    # and swaps it in: the tensors handed out before stay as they were
     assert cache.full_restages == 0 and cache.delta_stages == 1
-    assert all(a is b for a, b in zip(first, after))
+    assert all(a is not b for a, b in zip(first, after))
+    assert all(np.array_equal(TD.to_host(a), b)
+               for a, b in zip(first, before))
     fresh, _ = _planes_of(TD.DeviceStatsCache(device=CPU), family, tt, "v")
     for x, y in zip(after, fresh):
         assert TD.to_host(x).tobytes() == TD.to_host(y).tobytes()

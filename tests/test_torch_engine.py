@@ -280,9 +280,6 @@ def test_service_rejects_arguments_it_cannot_honour():
         TService(device="cpu", mode="cuda")
     with pytest.raises(ValueError):
         TService(device="cpu", mode="pallas")
-    # the adaptive filter tree (Sec. 3.2) is not ported yet
-    with pytest.raises(TypeError):
-        TPipeline(adaptive=True)
 
 
 def _failing_kernel(*_args, **_kw):

@@ -10,6 +10,8 @@ The predicate and table builders here are shared by the other
 ``test_torch_*`` modules.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -112,6 +114,25 @@ def both_tables(raw, rows_pp, nulls, name="t"):
             TTable.build(name, raw, rows_pp, nulls))
 
 
+def port_pred(node):
+    """The port's copy of a reference predicate (or expression): each
+    node rebuilt as the port's class of the same name."""
+    if isinstance(node, (list, tuple)):
+        return tuple(port_pred(c) for c in node)
+    if dataclasses.is_dataclass(node):
+        cls = getattr(TE, type(node).__name__)
+        return cls(**{f.name: port_pred(getattr(node, f.name))
+                      for f in dataclasses.fields(node)})
+    return node
+
+
+def port_table(rt):
+    """The port's copy of a reference table, carried over array for array
+    (``Table.from_arrays``; the stats are recomputed)."""
+    return TTable.from_arrays(rt.name, rt.columns, rt.data, rt.nulls,
+                              rt.part_bounds)
+
+
 def assert_stats_equal(a, b):
     for f in ("mins", "maxs", "null_counts", "row_counts"):
         x, y = getattr(a, f), getattr(b, f)
@@ -145,6 +166,26 @@ def test_eval_tv_and_extract_ranges_match_reference(seed):
         np.testing.assert_array_equal(got, want, err_msg=repr(rp))
         assert TF.extract_ranges(tp, tt.stats) == \
             RF.extract_ranges(rp, rt.stats), repr(rp)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_row_matches_equal_reference(seed):
+    """Row-level evaluation, LIKE included, over a whole table (LIKE
+    matched once a dictionary entry) and over single partitions (fewer
+    rows than dictionary entries: matched a row at a time)."""
+    from repro.core.rowval import matches as r_matches
+    from repro_torch.core.rowval import matches as t_matches
+    rng = np.random.default_rng(300 + seed)
+    rt, tt = both_tables(*table_raw(rng, n=int(rng.integers(30, 200))))
+    for _ in range(24):
+        spec = pred_spec(rng)
+        rp, tp = build_pred(spec, RE), build_pred(spec, TE)
+        np.testing.assert_array_equal(t_matches(tp, tt.global_ctx()),
+                                      r_matches(rp, rt.global_ctx()))
+        for p in range(min(tt.num_partitions, 4)):
+            np.testing.assert_array_equal(
+                t_matches(tp, tt.partition_ctx(p)),
+                r_matches(rp, rt.partition_ctx(p)))
 
 
 @pytest.mark.parametrize("seed", range(4))

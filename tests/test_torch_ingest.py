@@ -470,19 +470,23 @@ def test_dropped_partitions_never_scanned(seed):
 
 def test_tree_plane_append_replays_in_place():
     """An in-capacity append re-aggregates only the tail groups: the tree
-    plane replays beside the flat plane, with the reference's bytes."""
+    plane replays beside the flat plane, with the reference's bytes, into
+    a copy of its group arrays that is swapped in (the arrays handed out
+    before stay as they were)."""
     fact, tsvc, rsvc, tq, rq, rng = _resident_pair(
         n=640, tree_fanout=TREE_FANOUT)
     assert tsvc.cache.tree_planes and rsvc.cache.tree_planes
     (te,) = tsvc.cache.tree_planes.values()
     arrays = te.arrays[:3]
+    before = [a.clone() for a in arrays]
     _apply(fact, ("append", 30, 3), rng)
     got, want = _staging(tsvc, tq), _staging(rsvc, rq)
     assert got == want
     assert got["full_restages"] == 0 and got["delta_stages"] >= 2
-    assert all(a is b for a, b in
+    assert all(a is not b for a, b in
                zip(arrays, tsvc.cache.tree_planes[
                    ("f", fact[1].stats.uid)].arrays[:3]))
+    assert all(torch.equal(a, b) for a, b in zip(arrays, before))
     fresh = TService(device="cpu", tree_fanout=TREE_FANOUT)
     _run(fresh, tq)
     _assert_planes_equal(tsvc.cache, fresh.cache, "tree append fresh")

@@ -46,7 +46,7 @@ def test_port_imports_with_jax_and_reference_blocked():
         "for m in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[m] = None\n"
         "import repro_torch.serve.prune_service as s\n"
-        "import repro_torch.core, repro_torch.kernels, repro_torch.data.generator\n"
+        "import repro_torch.core, repro_torch.kernels, repro_torch.data\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.models.convert\n"
         "import repro_torch.serve.batcher, repro_torch.serve.serve_step\n"
         "import repro_torch.serve.frontend, repro_torch.launch.mesh\n"

@@ -168,6 +168,7 @@ def test_append_repairs_in_place_instead_of_relaunching():
         _run(rsvc, rq)
     (key, entry), = tsvc.cache.verdict_planes.items()
     row = entry.arrays[0]
+    before = row.clone()
     raw = {"v": rng.integers(-200, 1000, 30).astype(np.int64),
            "w": rng.integers(0, 100, 30).astype(np.int64)}
     for t in tables:
@@ -180,11 +181,13 @@ def test_append_repairs_in_place_instead_of_relaunching():
     assert tsvc.resilience["verdict_hits"] == 1          # repaired, not missed
     assert tsvc.cache.integrity["verdict_repairs"] == 1
     assert tsvc.counters.launches == launches            # no relaunch
-    # written into the resident row in place: the dropped partition holds
+    # written into a copy of the resident row that is swapped in (the row
+    # a hit may be copying stays as it was): the dropped partition holds
     # the NO_MATCH sentinel, the capacity tail too
-    assert tsvc.cache.verdict_planes[key].arrays[0] is row
+    new = tsvc.cache.verdict_planes[key].arrays[0]
+    assert new is not row and torch.equal(row, before)
     P = tables[1].num_partitions
-    assert int(row[2]) == 0 and not row[P:].any()
+    assert int(new[2]) == 0 and not new[P:].any()
 
 
 def test_update_of_a_read_column_drops_the_row_others_keep_it():
