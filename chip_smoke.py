@@ -208,6 +208,29 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      ``update_column("score", A / B)`` 20 times: every response's
      verdicts equal version A's or B's, from two fresh card services.
 
+  9. (run after phase 5, its model freed) the MoE family at full width:
+     Qwen3-MoE-30B-A3B (``get_config("qwen3-moe-30b-a3b")``, all 48
+     layers, 128 experts top-8, bf16, 60,158,251,008 bytes of weights
+     from ``init_params`` seeded by ``--seed``, drawn a layer at a time)
+     with phase 5's traffic; the served routes are recorded
+     (``RouteTape``) and slots dropped at capacity counted per prefill
+     chunk and per decode step (more than none at 4 slots, none at B =
+     1); checks: (a) ``flash_attention`` once a layer per prefill; (b) the
+     kernel equals its plain version at every layer's q, k, v; (c) the
+     served logits agree with the f32 forward given the served routes and
+     keep mask (``moe_reference``), and an fp8 control on the same routes
+     does not; (d) the plain attention in place of the kernel on the
+     served routes agrees with the kernel run (its own routes logged);
+     (e) the batcher's decode logits equal a replay of its own decode
+     inputs (``batcher_replay``); bounds and reasons at
+     ``MOE_VS_F32_TOL``.  Then prefill and decode times and tokens/s, the
+     decode step's bound reading every expert and reading only the
+     experts with a kept slot, the batcher's requests/s, and the bytes
+     held before the init, the weights' and the peak.
+  10. the port's six examples (``examples_torch/``) run in process on the
+     card and on the CPU: the same printed counts (times and sampled
+     tokens left out).
+
 Phases 3, 4, 6 and 8 run their services with the verdict cache off, so
 that every batch launches its table groups' kernels.
 
@@ -221,6 +244,7 @@ result is printed.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -3779,14 +3803,18 @@ def fp8_round(t):
     return (t / s).to(torch.float8_e4m3fn).float() * s
 
 
-def reference_logits(params, cfg, tokens, first: int, weight, act=None):
+def reference_logits(params, cfg, tokens, first: int, weight, act=None,
+                     routes=None, same=None):
     """f32 logits [B, T - first, V] at positions first .. T - 1 of
     ``tokens`` [B, T]: the full forward with no cache and no kernel, each
     layer's weights taken through ``weight`` one layer at a time, the
     residual stream through ``act`` after the embedding and each residual
     add (f32 and nothing, or the fp8 control: ``fp8_round`` for both),
     attention one sequence at a time (the plain version in f32 over
-    [H, T, T] scores)."""
+    [H, T, T] scores).  A MoE config's FFN is ``moe_reference`` on
+    ``routes[i]``, layer i's served (idx, keep) [B, T, k]; with ``same`` a
+    list, each layer appends the share of served routes its own router
+    would choose too."""
     import torch
 
     from repro_torch.kernels import ref
@@ -3811,14 +3839,57 @@ def reference_logits(params, cfg, tokens, first: int, weight, act=None):
                 hm = [t[b].transpose(0, 1).contiguous() for t in (q, k, v)]
                 o[b] = ref.flash_attention_ref(*hm, causal=True).transpose(0, 1)
             x = act(x + L._mm("bshk,hkd->bsd", o, lp["attn"]["wo"]))
-            x = act(x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg))
-            del lp, q, k, v, o
+            xn = L.rmsnorm(x, lp["ln2"])
+            if cfg.family == "moe":
+                f = moe_reference(lp["ffn"], xn, *routes[i], cfg, same)
+            else:
+                f = L.mlp(lp["ffn"], xn, cfg)
+            x = act(x + f)
+            del lp, q, k, v, o, xn, f
         hidden = L.rmsnorm(x[:, first:], weight(params["final_norm"]))
         W = weight(_unembed_matrix(params))
         logits = L._mm("bsd,vd->bsv", hidden, W)
         if W.shape[0] > cfg.vocab:
             logits[..., cfg.vocab:] = -1e30
     return logits
+
+
+def moe_reference(p, x, idx, keep, cfg, same=None):
+    """The MoE FFN on ``x`` [B, T, d] in its dtype (f32) with the served
+    routes: each token's experts ``idx`` [B, T, k] and which of its slots
+    the served dispatch kept (``keep``), the combine weights recomputed
+    from this router's own probabilities at those experts and
+    renormalised over all k, as the dispatch does; each expert's kept
+    tokens in one product.  With ``same`` a list, appends the share of the
+    served routes that this router's own top k holds."""
+    import torch
+
+    from repro_torch.models import layers
+    B, T, d = x.shape
+    k = cfg.experts_per_tok
+    xt = x.reshape(B * T, d)
+    probs = torch.softmax(xt @ p["router"], dim=-1)
+    idx, keep = idx.reshape(B * T, k), keep.reshape(B * T, k)
+    w = probs.gather(1, idx)
+    w = (w / w.sum(-1, keepdim=True)) * keep
+    if same is not None:
+        own = torch.topk(probs, k, dim=-1).indices
+        same.append(float((idx[:, :, None] == own[:, None, :]).any(-1)
+                          .float().mean()))
+    flat_e = idx.reshape(-1)
+    tok = torch.arange(B * T, device=x.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    bounds = torch.searchsorted(flat_e[order], torch.arange(
+        cfg.n_experts + 1, device=x.device)).tolist()
+    act = layers.activation(cfg)
+    y = torch.zeros_like(xt)
+    for e in range(cfg.n_experts):
+        sl = order[bounds[e]:bounds[e + 1]]
+        if len(sl):
+            xe = xt[tok[sl]]
+            h = act(xe @ p["wg"][e]) * (xe @ p["wu"][e])
+            y.index_add_(0, tok[sl], (h @ p["wd"][e]) * w.reshape(-1)[sl, None])
+    return y.view(B, T, d)
 
 
 def recording(model, logits, forced=None):
@@ -4165,6 +4236,501 @@ def phase_lm(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
             shape=dict(BH=B * H, S=S, D=Dh, dtype="bfloat16", causal=True))})
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the MoE family at full width
+# ---------------------------------------------------------------------------
+# Qwen3-MoE-30B-A3B at the repo's widths, all 48 layers, bf16, random
+# weights from --seed, served with phase 5's traffic.  Capacity is per
+# dispatch (C = ceil(T * 8 * 1.25 / 128)): a prefill chunk of 4 x 256
+# tokens keeps 80 slots an expert, a 4-slot decode step 1 (two slots that
+# pick one expert: the later is dropped), a decode step at B = 1 drops
+# nothing.  A run that dispatches other tokens together is another
+# computation, so (c)-(e) hold the served run to references that route
+# and drop as it did.
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+
+# Agreement bounds of phase 9, each on max |a - b| / max |b| (b the
+# reference side):
+#  (b) ``FLASH_TOL["bfloat16"]``, as phase 5;
+#  (c) served bf16 logits against the f32 forward given the served routes
+#      and keep mask (its combine weights from its own f32 router at those
+#      experts): MOE_VS_F32_TOL = 5e-2.  With the routes fixed only bf16's
+#      roundings differ, as in phase 5, over 96 residual adds of a narrower
+#      stream (d_model 2,048): seed 0 leaves 1.38e-2 on an H100 (PERF.md),
+#      3.6x below the bound, and the fp8 control (e4m3 weights and
+#      residual stream, the same routes) 0.226, 4.5x above it, which the
+#      phase checks;
+#  (d) the served path with the plain attention in place of the kernel,
+#      given the served routes: MOE_VS_F32_TOL, as (c) (only attention's
+#      summation order differs, grown through 48 bf16 layers as (c)'s
+#      roundings are; seed 0: 1.31e-2); its run with its own routes is
+#      logged, not held (a route flipped by a bf16 step moves a token's
+#      FFN output by a whole expert's share: 4.9e-2 at seed 0);
+#  (e) the batcher against a replay of its own decode inputs (the same
+#      [4, 1] tokens and positions, idle slots included, each slot's cache
+#      prefilled by the replay itself): MOE_REPLAY_TOL = 0, the same
+#      kernels on the same inputs in the same order, so any difference is
+#      the batcher's slot bookkeeping.
+MOE_VS_F32_TOL = 5e-2
+MOE_REPLAY_TOL = 0.0
+
+
+class RouteTape:
+    """``with RouteTape() as tape:`` records the experts of every MoE
+    dispatch the served path runs (``moe.route``'s idx, as [T, k]) in call
+    order; with ``replay`` (such a list), call n routes to the n-th
+    recorded idx instead, its weights from its own router at those experts,
+    and ``flips()`` counts the slots its own top k would have put
+    elsewhere."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.calls, self._flips = [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.orig = moe.route
+
+        def route(p, x, cfg):
+            probs, w, idx = self.orig(p, x, cfg)
+            if self.replay is not None:
+                want = self.replay[len(self.calls)].view(idx.shape)
+                self._flips.append(
+                    (want[..., :, None] != idx[..., None, :]).all(-1).sum())
+                w = probs.gather(-1, want)
+                w, idx = (w / w.sum(-1, keepdim=True)).to(x.dtype), want
+            self.calls.append(idx.reshape(-1, cfg.experts_per_tok))
+            return probs, w, idx
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.orig
+
+    def flips(self) -> int:
+        return int(sum(int(f) for f in self._flips))
+
+
+def dispatch_drops(calls, cfg) -> list:
+    """Dropped slots of each recorded dispatch (idx [T, k], capacity from
+    its T)."""
+    from repro_torch.models import moe
+    return [int((~moe.kept_slots(ix, moe.capacity(ix.shape[0], cfg))).sum())
+            for ix in calls]
+
+
+def served_routes(calls, cfg, B: int, S: int, steps: int):
+    """Per layer, (idx, keep) [B, S + steps, k] of a ``Generator`` run
+    (prefill of S tokens, then ``steps`` decode steps) from its tape: the
+    prefill's dispatches are layer-major, chunk by chunk along S, then
+    each decode step's one a layer."""
+    import torch
+
+    from repro_torch.models import moe
+    L, k, c = cfg.n_layers, cfg.experts_per_tok, cfg.moe_seq_chunk
+    nc = S // c if S > c and S % c == 0 else 1
+    if len(calls) != L * (nc + steps):
+        raise SystemExit(f"the served run made {len(calls)} MoE dispatches, "
+                         f"expected {L * (nc + steps)}")
+    keeps = [moe.kept_slots(ix, moe.capacity(ix.shape[0], cfg))
+             for ix in calls]
+    out = []
+    for i in range(L):
+        at = [i * nc + j for j in range(nc)]
+        at += [L * nc + t * L + i for t in range(steps)]
+        out.append(tuple(torch.cat([t[a].view(B, -1, k) for a in at], dim=1)
+                         for t in (calls, keeps)))
+    return out
+
+
+def moe_batcher(model, params, **kw):
+    """A ``ContinuousBatcher`` and the list its model fills with each
+    decode step's inputs and output: (tokens [n_slots, 1], positions,
+    the request id of each slot or None, logits)."""
+    from repro_torch.serve.batcher import ContinuousBatcher
+    tape = []
+
+    def decode(params, cache, tok, position):
+        out, cache = model.decode_fn(params, cache, tok, position)
+        tape.append((tok, position, tuple(
+            None if r is None else r.rid for r in batcher.slot_req), out))
+        return out, cache
+
+    batcher = ContinuousBatcher(model._replace(decode_fn=decode), params,
+                                **kw)
+    return batcher, tape
+
+
+def batcher_replay(model, params, tape, prompts, n_slots: int, max_seq: int,
+                   V: int, dev):
+    """(largest ``rel_err`` of the batcher's decode logits against a replay
+    of its decode inputs, problems): the replay prefills each request into
+    its slot of a cache of its own when the tape first shows it there, and
+    checks each step's inputs (an idle slot feeds token 0 at position 0, a
+    new request the argmax of its prefill at its prompt's length, a held
+    one the argmax of its previous step one position on)."""
+    import torch
+
+    from repro_torch.models.model import alloc_cache
+    cache = alloc_cache(model.init_cache(n_slots, max_seq), dev)
+    held, want = [None] * n_slots, [None] * n_slots
+    err, problems = 0.0, []
+    for j, (tok, pos, rids, logits) in enumerate(tape):
+        tok_h, pos_h = tok[:, 0].tolist(), pos.tolist()
+        for s, r in enumerate(rids):
+            if r is None:
+                exp = (0, 0)
+            elif r != held[s]:
+                lg, kv = model.prefill_fn(params, {"tokens": torch.as_tensor(
+                    prompts[r][None, :], device=dev)}, max_seq)
+                for name, c in cache.items():
+                    c[:, s:s + 1] = kv[name]
+                exp = (int(torch.argmax(lg[0, :V])), len(prompts[r]))
+            else:
+                exp = want[s]
+            held[s] = r
+            if (tok_h[s], pos_h[s]) != exp:
+                problems.append(f"step {j} slot {s}: fed {tok_h[s]} at "
+                                f"{pos_h[s]}, expected {exp}")
+        out, cache = model.decode_fn(params, cache, tok, pos)
+        active = [s for s, r in enumerate(rids) if r is not None]
+        err = max(err, rel_err(out[active, :V], logits[active, :V]))
+        nxt = torch.argmax(logits[:, :V], dim=-1).tolist()
+        want = [(nxt[s], pos_h[s] + 1) for s in range(n_slots)]
+    return err, problems
+
+
+def phase_moe(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
+              steps: int = 32, n_req: int = 8, req_len=(128, 1024),
+              max_new: int = 16, n_slots: int = 4, solo=(128, 8)) -> dict:
+    """Phase 9: Qwen3-MoE-30B-A3B served at full width (``cfg`` None) with
+    phase 5's traffic (the ``Generator`` on ``B`` prompts of ``S`` tokens,
+    ``steps`` greedy steps; the ``ContinuousBatcher`` on ``n_req`` prompts
+    of ``req_len`` tokens, ``max_new`` each, ``n_slots`` slots), a ``B`` =
+    1 ``Generator`` run (``solo``: prompt length, steps) whose decode drops
+    nothing, and checks (a)-(e)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.sharding import init_params, tree_bytes
+    from repro_torch.serve.serve_step import Generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or get_config(MOE_ARCH)
+    t_phase = time.perf_counter()
+    held_before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_params(model.specs, gen, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = tree_bytes(params)
+    ffn = params["layers"]["ffn"]
+    expert_bytes = sum(tree_bytes(ffn[n]) for n in ("wg", "wu", "wd"))
+    log(f"[moe] {card}: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}, head dim "
+        f"{cfg.resolved_head_dim}), {cfg.n_experts} experts top-"
+        f"{cfg.experts_per_tok}, expert d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+        f"param_count() {cfg.param_count():,} ({2 * cfg.param_count():,} "
+        f"bytes in bf16); {weight_bytes:,} bytes of weights with the final "
+        f"norm, {expert_bytes:,} of them experts, made from seed {seed} in "
+        f"{init_s:.1f} s; {held_before:,} bytes allocated before the init, "
+        f"{torch.cuda.memory_allocated(dev):,} after")
+
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (B, S))
+    seen = []
+    generator = Generator(recording(model, seen), params, max_seq=S + steps,
+                          device=dev)
+    generator.generate(prompts[:, :64], steps=2)          # warm-up
+    seen.clear()
+    fa = ops.flash_attention
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path, with the kernel's count set to 0 just before each run
+    out = {}
+    fa.launches = 0
+    with RouteTape() as tape:
+        total_ms = host_ms(lambda: out.update(toks=generator.generate(
+            prompts, steps)), dev)
+    gen_launches = fa.launches
+    toks = out.pop("toks")
+    served = torch.stack(seen, dim=1)
+    seen.clear()
+    peak_serving = torch.cuda.max_memory_allocated(dev) - held_before
+    if gen_launches != cfg.n_layers:
+        raise SystemExit(f"(a) the Generator's prefill launched "
+                         f"flash_attention {gen_launches} times, expected "
+                         f"{cfg.n_layers}")
+    if tuple(served.shape) != (B, steps + 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(served[..., :cfg.vocab]).all()):
+        raise SystemExit("served logits not finite or not of the expected "
+                         "shape")
+    routes = served_routes(tape.calls, cfg, B, S, steps)
+    drops = dispatch_drops(tape.calls, cfg)
+    L = cfg.n_layers
+    nc = len(tape.calls) // L - steps
+    chunk_drops = [sum(drops[i * nc + j] for i in range(L))
+                   for j in range(nc)]
+    step_drops = [sum(drops[L * nc + t * L:L * nc + (t + 1) * L])
+                  for t in range(steps)]
+    used = []              # experts with a kept slot, a decode step
+    for t in range(steps):
+        used.append(sum(int(torch.unique(routes[i][0][:, S + t][
+            routes[i][1][:, S + t]]).numel()) for i in range(L)))
+
+    lens = rng.integers(req_len[0], req_len[1] + 1, n_req)
+    reqs = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+    max_seq_b = -(-(req_len[1] + max_new + 1) // 64) * 64
+    batcher, btape = moe_batcher(model, params, n_slots=n_slots,
+                                 max_seq=max_seq_b)
+    rids = [batcher.submit(p, max_new=max_new) for p in reqs]
+    fa.launches = 0
+    with RouteTape() as bt:
+        batch_ms = host_ms(batcher.run, dev)
+    batch_launches = fa.launches
+    if batch_launches != n_req * L:
+        raise SystemExit(f"(a) the batcher launched flash_attention "
+                         f"{batch_launches} times for {n_req} prefills, "
+                         f"expected {n_req * L}")
+    if any(len(batcher.finished[r].out) != max_new for r in rids):
+        raise SystemExit("the batcher ended a request early")
+    bdrops = dispatch_drops(bt.calls, cfg)
+    n_b = [ix.shape[0] for ix in bt.calls]
+    b_step_drops = [sum(bdrops[a:a + L]) for a in range(0, len(bdrops), L)
+                    if n_b[a] == n_slots]
+    log(f"[moe] {card}: (a) flash_attention launched {gen_launches} times in "
+        f"the Generator's prefill and {batch_launches} in the batcher's "
+        f"{n_req} prefills ({L} layers)")
+
+    fa.launches = 0
+    prefill_ms = host_ms(lambda: generator.generate(prompts, 0), dev)
+    seen.clear()
+    if fa.launches != L:
+        raise SystemExit(f"(a) the prefill alone launched flash_attention "
+                         f"{fa.launches} times")
+    decode_ms = (total_ms - prefill_ms) / steps
+
+    # the same prompt alone: a decode step of one token drops no slot
+    solo_lg = []
+    with RouteTape() as st:
+        Generator(recording(model, solo_lg), params, max_seq=solo[0] + solo[1],
+                  device=dev).generate(prompts[:1, :solo[0]], solo[1])
+    solo_drops = dispatch_drops(st.calls[L:], cfg)
+    log(f"[moe] {card}: dropped slots: the Generator's prefill "
+        f"{sum(chunk_drops):,} over {nc} chunks of {B} x {S // nc} tokens "
+        f"(C = {moe.capacity(B * S // nc, cfg)}; by chunk {chunk_drops}), "
+        f"its decode at B = {B} {sum(step_drops):,} over {steps} steps (C = "
+        f"{moe.capacity(B, cfg)}; by step {step_drops}); the batcher's "
+        f"{n_slots}-slot decode {sum(b_step_drops):,} over "
+        f"{len(b_step_drops)} steps, its prefills {sum(bdrops) - sum(b_step_drops):,}; "
+        f"B = 1 decode {sum(solo_drops)} over {solo[1]} steps")
+
+    # (b) the kernel against its plain version at every layer's q, k, v
+    err_b = []
+
+    def checked(q, k, v, causal=True):
+        o = fa(q, k, v, causal=causal)
+        err_b.append(require_close(
+            "flash_attention", o,
+            ref.flash_attention_ref(q, k, v, causal=causal),
+            FLASH_TOL["bfloat16"], f"layer {len(err_b)} of the MoE prefill"))
+        return o
+
+    with attention_as(checked), RouteTape(replay=tape.calls):
+        generator.generate(prompts, 0)
+    seen.clear()
+    if len(err_b) != L:
+        raise SystemExit(f"(b) the served prefill called attention "
+                         f"{len(err_b)} times, expected {L}")
+    log(f"[moe] {card}: (b) flash_attention at each of the {L} layers' q, "
+        f"k, v of the served prefill [BH={B * cfg.n_heads}, S={S}, "
+        f"D={cfg.resolved_head_dim}] bf16 causal: kernel == plain version "
+        f"within {FLASH_TOL['bfloat16']} (max abs err {max(err_b):.3g})")
+
+    # (c) served logits against the f32 forward on the served routes, and
+    # the fp8 control on the same routes
+    V = cfg.vocab
+    seq = torch.cat([torch.as_tensor(prompts, device=dev),
+                     torch.as_tensor(toks, device=dev)], dim=1)
+    same = []
+    t0 = time.perf_counter()
+    want = reference_logits(params, cfg, seq, S - 1, lambda w: w.float(),
+                            routes=routes, same=same)
+    ref_s = time.perf_counter() - t0
+    err_c = rel_err(served[..., :V], want[..., :V])
+    per_pos = [rel_err(served[:, j, :V], want[:, j, :V])
+               for j in range(steps + 1)]
+    fp8 = reference_logits(params, cfg, seq, S - 1, fp8_round, fp8_round,
+                           routes=routes)
+    err_fp8 = rel_err(fp8[..., :V], want[..., :V])
+    del fp8
+    log(f"[moe] {card}: (c) served bf16 logits vs the f32 forward on the "
+        f"served routes at {B} x {steps + 1} positions: {err_c:.3e} of max "
+        f"|logit| {float(want[..., :V].abs().max()):.3f} (bound "
+        f"{MOE_VS_F32_TOL}; prefill {per_pos[0]:.3e}, worst step "
+        f"{max(per_pos[1:] or [0.0]):.3e}); fp8 control {err_fp8:.3e}; the "
+        f"f32 router chooses {statistics.fmean(same):.4f} of the served "
+        f"routes too (layer 0 {same[0]:.4f}, layer {L - 1} {same[-1]:.4f}); "
+        f"the f32 forward took {ref_s:.1f} s")
+    del want
+
+    # (d) the plain attention in place of the kernel, on the served routes,
+    # then with its own
+    lg_d, lg_f = [], []
+    with attention_as(ref.flash_attention_ref), \
+            RouteTape(replay=tape.calls) as dt:
+        Generator(recording(model, lg_d, forced=toks), params,
+                  max_seq=S + steps, device=dev).generate(prompts, steps)
+    err_d = rel_err(torch.stack(lg_d, dim=1)[..., :V], served[..., :V])
+    del lg_d
+    with attention_as(ref.flash_attention_ref):
+        Generator(recording(model, lg_f, forced=toks), params,
+                  max_seq=S + steps, device=dev).generate(prompts, steps)
+    err_d_free = rel_err(torch.stack(lg_f, dim=1)[..., :V], served[..., :V])
+    del lg_f
+
+    # (e) the batcher against a replay of its own decode inputs
+    err_e, problems = batcher_replay(model, params, btape, reqs, n_slots,
+                                     max_seq_b, V, dev)
+    log(f"[moe] {card}: (d) plain attention in place of the kernel on the "
+        f"served routes: {err_d:.3e} of max |logit| (its own router would "
+        f"move {dt.flips():,} of {sum(ix.numel() for ix in tape.calls):,} "
+        f"slots); with its own routes {err_d_free:.3e} (logged, not held); "
+        f"(e) the batcher's {len(btape)} decode steps against a replay of "
+        f"their inputs: {err_e:.3e} (bound {MOE_REPLAY_TOL}), "
+        f"{len(problems)} input problems")
+
+    kv_bytes = sum(int(np.prod(c.shape)) * 2 for c in model.init_cache(
+        B, S + steps).values())
+    other = weight_bytes - expert_bytes - tree_bytes(params["embed"])
+    kv_read = kv_bytes * (S + steps / 2) / (S + steps)
+    per_expert = expert_bytes / (L * cfg.n_experts)
+    dense_ms = (other + expert_bytes + kv_read) / HBM_BYTES_PER_S * 1e3
+    used_ms = (other + statistics.fmean(used) * per_expert + kv_read) \
+        / HBM_BYTES_PER_S * 1e3
+    gen_tok_s = B * steps / ((total_ms - prefill_ms) / 1e3)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[moe] {card}: Generator B={B}: prefill {prefill_ms:.1f} ms "
+        f"({B * S / (prefill_ms / 1e3):.0f} tokens/s), decode "
+        f"{decode_ms:.2f} ms a step ({gen_tok_s:.1f} tokens/s; bound "
+        f"{dense_ms:.2f} ms reading every expert's weights, "
+        f"{(other + expert_bytes) / 1e9:.2f} GB of weights a step, "
+        f"{used_ms:.2f} ms reading the {statistics.fmean(used):.1f} experts "
+        f"a step with a kept slot), {steps} steps in {total_ms:.1f} ms; "
+        f"batcher {n_req} requests ({int(lens.sum())} prompt tokens, "
+        f"{n_req * max_new} generated, {n_slots} slots) in {batch_ms:.1f} "
+        f"ms, {n_req / (batch_ms / 1e3):.2f} requests/s; weights "
+        f"{weight_bytes:,} bytes, KV cache {kv_bytes:,} bytes, peak allocated "
+        f"while serving {peak_serving:,} bytes above the {held_before:,} "
+        f"held before; phase 9 took {phase_s:.1f} s")
+
+    failed = [name for name, e, tol in (
+        ("(c)", err_c, MOE_VS_F32_TOL), ("(d)", err_d, MOE_VS_F32_TOL),
+        ("(e)", err_e, MOE_REPLAY_TOL)) if not e <= tol]
+    if not err_fp8 > MOE_VS_F32_TOL:
+        failed.append("(c) fp8 control inside the bound")
+    if problems:
+        failed.append(f"(e) inputs: {problems[:4]}")
+    if not sum(step_drops) > 0 or not sum(b_step_drops) > 0:
+        failed.append("no slot dropped at 4 slots")
+    if sum(solo_drops):
+        failed.append(f"{sum(solo_drops)} slots dropped at B = 1")
+    if failed:
+        raise SystemExit(f"phase 9 failed {failed}")
+    return dict(
+        arch=cfg.name, layers=L, param_count=cfg.param_count(),
+        weight_bytes=weight_bytes, expert_bytes=expert_bytes,
+        held_before_bytes=held_before, init_s=init_s,
+        kv_cache_bytes=kv_bytes, peak_serving_bytes=peak_serving,
+        prefill_ms=prefill_ms,
+        prefill_tokens_per_s=B * S / (prefill_ms / 1e3),
+        decode_ms_per_step=decode_ms, decode_tokens_per_s=gen_tok_s,
+        decode_bound_ms_all_experts=dense_ms,
+        decode_bound_ms_used_experts=used_ms,
+        used_experts_per_step=used, generate_ms=total_ms,
+        batcher_ms=batch_ms, requests_per_s=n_req / (batch_ms / 1e3),
+        drops=dict(prefill_chunks=chunk_drops, decode_steps=step_drops,
+                   batcher_decode_steps=b_step_drops,
+                   batcher_prefills=sum(bdrops) - sum(b_step_drops),
+                   solo_decode=sum(solo_drops)),
+        err_served_vs_f32=err_c, err_served_by_position=per_pos,
+        err_fp8_control=err_fp8, f32_router_same_share=same,
+        err_plain_vs_kernel=err_d, err_plain_free_routes=err_d_free,
+        plain_route_flips=dt.flips(), err_batcher_vs_replay=err_e,
+        err_kernel_by_layer=err_b, reference_s=ref_s, s=phase_s,
+        launches=gen_launches + batch_launches,
+        max_abs_err=max(err_b))
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "fleet_serving", "resilient_serving",
+            "streaming_ingest", "sublinear_pruning", "topk_serving")
+# left out of the comparison of an example's lines: wall times and
+# speed-ups (the host clock) and sampled tokens (the CPU's and the card's
+# torch.Generator draw other numbers)
+EXAMPLE_NOT_COMPARED = (
+    (r"flat\s+[\d.]+ ms\s+tree\s+[\d.]+ ms\s+\(\s*[\d.]+x,",
+     "flat <ms> tree <ms> (<speed-up>,"),
+    (r" in \d+ ms$", " in <ms>"),
+    (r"sample: \[[\d, ]*\]", "sample: <tokens>"),
+)
+
+
+def example_lines(name: str, device: str):
+    """(the lines example ``name`` prints on ``device``, with times and
+    sampled tokens replaced by stand-ins; seconds it took)."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(device=device)
+    s = time.perf_counter() - t0
+    lines = []
+    for line in buf.getvalue().splitlines():
+        for pat, stand_in in EXAMPLE_NOT_COMPARED:
+            line = re.sub(pat, stand_in, line)
+        lines.append(line)
+    return lines, s
+
+
+def phase_examples(card: str, dev) -> dict:
+    """Phase 10: each of the port's six examples run in process on the card
+    (``main(device="cuda")``) and on the CPU; every printed count (
+    partitions, bytes, hits, evictions, retries, ...) must be the same."""
+    out = {}
+    for name in EXAMPLES:
+        got, s_card = example_lines(name, dev.type)
+        want, s_cpu = example_lines(name, "cpu")
+        if got != want:
+            diff = [(g, w) for g, w in zip(got, want) if g != w]
+            raise SystemExit(f"phase 10: {name} on the card printed other "
+                             f"counts than on the CPU ({len(got)} / "
+                             f"{len(want)} lines): {diff[:3]}")
+        log(f"[examples] {card}: {name}: {len(got)} lines, the same counts "
+            f"on the card ({s_card:.1f} s) as on the CPU ({s_cpu:.1f} s)")
+        out[name] = dict(lines=len(got), card_s=s_card, cpu_s=s_cpu)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4220,6 +4786,18 @@ def main() -> int:
     t0 = time.perf_counter()
     lm = phase_lm(args.seed, card, dev)
     log(f"[lm] {card}: phase 5 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()           # phase 5's batcher and its model hold a cycle
+    torch.cuda.empty_cache()
+    mo = phase_moe(args.seed, card, dev)
+    log(f"[moe] {card}: phase 9 took {mo['s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ex = phase_examples(card, dev)
+    log(f"[examples] {card}: phase 10 took {time.perf_counter() - t0:.1f} s")
+    fl = lm["kernels"]["flash_attention"]
+    fl["launches"] += mo["launches"]
+    fl["max_abs_err"] = max(fl["max_abs_err"], mo["max_abs_err"])
     found = {**mp["kernels"], **pq["kernels"], **lm["kernels"]}
     log(f"[done] {card}: {time.perf_counter() - t_start:.1f} s in all")
 
@@ -4244,7 +4822,7 @@ def main() -> int:
             dict(card=card, torch=torch.__version__, build_s=build_s,
                  build=built, kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
                  ingest_tree=it, serving=sv, answers=an, lm_serving=lm,
-                 **kernels), indent=1))
+                 moe_serving=mo, examples=ex, **kernels), indent=1))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -64,7 +64,8 @@ class ModelConfig:
 
     # ---- the JAX package's sharding and layout knobs, kept so that one
     # ModelConfig reads the same in both packages; the port runs on one
-    # card and reads none of them except pad_vocab_to ----
+    # card and reads only pad_vocab_to and moe_dispatch here (with
+    # capacity_factor and moe_seq_chunk above: the MoE dispatch) ----
     moe_sharding: str = "fsdp"
     moe_dispatch: str = "scatter"
     serve_resident: bool = False

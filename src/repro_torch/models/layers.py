@@ -214,7 +214,12 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def activation(cfg: ModelConfig):
+    """The gate's activation: SiLU for ``swiglu``, tanh GELU for ``geglu``."""
+    return F.silu if cfg.activation == "swiglu" else _gelu_tanh
+
+
 def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    act = F.silu if cfg.activation == "swiglu" else _gelu_tanh
+    act = activation(cfg)
     h = act(_mm("bsd,df->bsf", x, p["wg"])) * _mm("bsd,df->bsf", x, p["wu"])
     return _mm("bsf,fd->bsd", h, p["wd"])

@@ -1,4 +1,4 @@
-"""Model assembly: param specs + prefill / decode fns, dense family.
+"""Model assembly: param specs + prefill / decode fns, dense and MoE.
 
 ``build_model(cfg, device)`` returns a ``Model`` bundle, as in the JAX
 package:
@@ -12,8 +12,10 @@ Parameters are a dict tree shaped like the JAX package's, with the layers
 stacked ``[L, ...]``; the layer loop is a Python loop over L (PyTorch runs
 eagerly: no scan, no remat).  The cache is bf16, ``[L, B, max_seq, KV,
 D]``; prefill fills it and decode writes each step into it in place.
-Only the dense family is ported: ``moe``, ``ssm``, ``hybrid``, ``encdec``
-and ``vlm`` raise ``NotImplementedError`` (ROADMAP queue 1, item 15).
+The ``dense`` and ``moe`` families are ported (a MoE layer's FFN is
+``moe.moe_block``, whose aux loss serving drops, as the JAX package's
+does); ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` raise
+``NotImplementedError`` (ROADMAP queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.device_stats import resolve_device
 from . import layers as L
+from .moe import moe_block, moe_specs
 from .sharding import ParamSpec, tree_map
 
 NOT_PORTED = "ROADMAP queue 1, item 15"
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+PORTED = ("dense", "moe")
 
 
 class Model(NamedTuple):
@@ -89,16 +93,25 @@ def _last_logits(params, hidden: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# decoder-only transformer (dense)
+# decoder-only transformer (dense / moe)
 # ---------------------------------------------------------------------------
 
 def _layer_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    return {
+    specs = {
         "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
         "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
         "attn": L.attn_specs(cfg),
-        "ffn": L.mlp_specs(cfg),
     }
+    specs["ffn"] = moe_specs(cfg) if cfg.family == "moe" else L.mlp_specs(cfg)
+    return specs
+
+
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's FFN on the normalised stream: the gated MLP, or the MoE
+    block with its aux loss dropped (serving)."""
+    if cfg.family == "moe":
+        return moe_block(lp["ffn"], x, cfg)[0]
+    return L.mlp(lp["ffn"], x, cfg)
 
 
 def _stack_specs_tree(tree, n: int):
@@ -142,7 +155,7 @@ def _decoder_prefill(params, batch, cfg: ModelConfig, max_seq: int, device):
         ve = L._expand_kv(v, cfg.n_heads)
         o = L.chunked_attention(q, ke, ve, causal=True, chunk=cfg.attn_chunk)
         x = x + L._mm("bshk,hkd->bsd", o, lp["attn"]["wo"])
-        x = x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
+        x = x + _ffn(lp, L.rmsnorm(x, lp["ln2"]), cfg)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     # rmsnorm is per position: normalise only the last one
@@ -163,7 +176,7 @@ def _decoder_decode(params, cache, tokens, position, cfg: ModelConfig, device):
         o, _, _ = L.decode_attention(lp["attn"], xn, cfg, cache["k"][i],
                                      cache["v"][i], position)
         x = x + o
-        x = x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
+        x = x + _ffn(lp, L.rmsnorm(x, lp["ln2"]), cfg)
     hidden = L.rmsnorm(x, params["final_norm"])
     return _last_logits(params, hidden, cfg), cache
 
@@ -178,13 +191,13 @@ def _loss_not_ported(params, batch):
 # ---------------------------------------------------------------------------
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    """The dense family's ``Model`` on ``device`` (None: the GPU, raising
-    without one; ``"cpu"`` for tests): its prefill and decode take tokens
-    as tensors or arrays and allocate the cache there."""
+    """The ``Model`` of a dense or MoE config on ``device`` (None: the GPU,
+    raising without one; ``"cpu"`` for tests): its prefill and decode take
+    tokens as tensors or arrays and allocate the cache there."""
     fam = cfg.family
     if fam not in FAMILIES:
         raise ValueError(f"unknown family {fam!r}")
-    if fam != "dense":
+    if fam not in PORTED:
         raise NotImplementedError(
             f"the {fam!r} family is not ported yet: {NOT_PORTED}")
     dev = resolve_device(device)

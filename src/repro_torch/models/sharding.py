@@ -49,6 +49,12 @@ def init_params(specs, generator: torch.Generator, device=None):
     device), leaf after leaf in the tree's order, so they are not the
     numbers ``jax.random`` gives for the same seed: a parity test carries
     the JAX package's parameters over with ``convert.params_from_numpy``.
+
+    A leaf stacked over the layers (its first logical axis ``"layers"``)
+    is drawn one layer at a time into the finished tensor, so the f32
+    draw never holds more than one layer: a whole f32 draw of a MoE
+    expert leaf at full width (``[48, 128, 2048, 768]``, 38.65 GB) beside
+    the leaves already made would not fit on one card.
     """
     dev = resolve_device(device)
     if generator.device.type != dev.type:
@@ -62,9 +68,18 @@ def init_params(specs, generator: torch.Generator, device=None):
             return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         scale = spec.scale if spec.init == "normal" else 1.0 / math.sqrt(fan_in)
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        return x.mul_(scale).to(spec.dtype)
+
+        def draw(shape):
+            x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=dev)
+            return x.mul_(scale).to(spec.dtype)
+
+        if spec.logical[0] != "layers":
+            return draw(spec.shape)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+        for i in range(spec.shape[0]):
+            out[i] = draw(spec.shape[1:])
+        return out
 
     return tree_map(mk, specs)
 

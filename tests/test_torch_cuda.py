@@ -1587,3 +1587,67 @@ def test_two_services_sharing_a_cache_on_two_streams(cuda):
         assert any(np.array_equal(got, w) for w in truth)
     assert s1.cache.delta_stages > 0
 
+
+
+# ---------------------------------------------------------------------------
+# the MoE block (plain PyTorch, no kernel of its own): the card's run equal
+# to the CPU's, routes and drops included
+# ---------------------------------------------------------------------------
+
+def _moe_inputs(arch, B, S, repeat, seed, **kw):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.sharding import init_params, tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), **kw)
+    specs = build_model(cfg, device="cpu").specs["layers"]["ffn"]
+    p = init_params(specs, torch.Generator().manual_seed(seed), "cpu")
+    p = tree_map(lambda t: t[0].float(), p)
+    rng = np.random.default_rng(seed)
+    if repeat:
+        rows = rng.normal(size=(repeat, cfg.d_model)).astype(np.float32)
+        x = rows[rng.integers(0, repeat, B * S)].reshape(B, S, cfg.d_model)
+    else:
+        x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    return cfg, p, torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("dispatch", ["scatter", "grouped"])
+@pytest.mark.parametrize("arch,B,S,repeat,cf,chunk", [
+    ("qwen3-moe-30b-a3b", 2, 24, 0, 1.25, 256),
+    ("kimi-k2-1t-a32b", 3, 64, 0, 1.25, 16),        # chunked
+    ("qwen3-moe-30b-a3b", 4, 200, 3, 0.5, 256),     # many ties, many drops
+    ("kimi-k2-1t-a32b", 2, 4096, 5, 1.0, 256),      # ties across 16 chunks
+])
+def test_moe_block_on_card_equals_cpu(cuda, arch, B, S, repeat, cf, chunk,
+                                      dispatch):
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import tree_map
+    cfg, p, x = _moe_inputs(arch, B, S, repeat, 0, capacity_factor=cf,
+                            moe_seq_chunk=chunk, moe_dispatch=dispatch)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want, want_aux = moe.moe_block(p, x, cfg)
+    _, _, idx_cpu = moe.route(p, x, cfg)
+    pc = tree_map(lambda t: t.to(cuda), p)
+    got, got_aux = moe.moe_block(pc, x.to(cuda), cfg)
+    _, _, idx_card = moe.route(pc, x.to(cuda), cfg)
+    assert torch.equal(idx_card.cpu(), idx_cpu)
+    flat = idx_cpu.reshape(-1, cfg.experts_per_tok)
+    C = moe.capacity(flat.shape[0], cfg)
+    assert torch.equal(moe.kept_slots(idx_card.reshape(flat.shape), C).cpu(),
+                       moe.kept_slots(flat, C))
+    if repeat:
+        assert not bool(moe.kept_slots(flat, C).all())   # drops among ties
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-5
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-6
+
+
+def test_moe_router_refuses_tf32_on_the_card(cuda, monkeypatch):
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import tree_map
+    cfg, p, x = _moe_inputs("qwen3-moe-30b-a3b", 1, 8, 0, 0)
+    pc = tree_map(lambda t: t.to(cuda), p)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        moe.route(pc, x.to(cuda), cfg)

@@ -40,6 +40,21 @@ def test_no_jax_or_reference_imports(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
 
 
+# the port's examples and its smoke run stand alone too
+SCRIPTS = sorted((ROOT / "examples_torch").glob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=[str(p.relative_to(ROOT))
+                                               for p in SCRIPTS])
+def test_scripts_import_no_jax_or_reference(path):
+    mods = list(_imported_modules(path))
+    assert mods
+    for mod in mods:
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
 def test_port_imports_with_jax_and_reference_blocked():
     code = (
         "import sys\n"

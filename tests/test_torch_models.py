@@ -1,10 +1,12 @@
-"""The port's dense decoder against the JAX package's, on the CPU.
+"""The port's decoder (dense and MoE) against the JAX package's, on the CPU.
 
 The JAX package's ``init_params(PRNGKey(0))`` is carried over with
 ``convert.params_from_numpy``; both packages then run the same prefill and
 three teacher-forced decode steps on the same numpy-seeded tokens, at the
 four dense smoke configs (llama; qwen with ``qkv_bias``; glm4 with kv = 2;
-gemma with ``geglu``, tied embeddings and ``head_dim``).
+gemma with ``geglu``, tied embeddings and ``head_dim``) and the two MoE
+smoke configs (qwen3-moe, kimi-k2), whose routes are recorded in both
+packages: equal in f32, and a bf16 case names any route that flipped.
 
 Tolerances, relative to max |logit|.  f32 (the parameters cast): 1e-4;
 the two packages differ only in the order of f32 sums.  bf16: 2e-2, the
@@ -38,6 +40,7 @@ from repro_torch.models.model import NOT_PORTED
 torch.set_num_threads(1)
 
 DENSE = ["llama3.2-3b", "qwen1.5-4b", "glm4-9b", "gemma-7b"]
+MOE = ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": 1e-4, "bf16": 2e-2}          # relative to max |logit|
@@ -64,9 +67,47 @@ def _both(arch, dtype):
     return rcfg, rmodel, rparams, tmodel, tparams
 
 
+@pytest.fixture
+def routes(monkeypatch):
+    """(jax list, port list): the experts ``idx`` of every MoE dispatch each
+    package runs, in call order (the JAX package's through an ordered
+    debug callback from inside its layer scan)."""
+    from repro.models import moe as RM
+    from repro_torch.models import moe as TM
+    got_r, got_t = [], []
+    r_dispatch, t_route = RM._moe_dispatch, TM.route
+
+    def r_wrapped(p, x, cfg):
+        logits = jnp.einsum("td,de->te",
+                            x.reshape(-1, x.shape[-1]).astype(jnp.float32),
+                            p["router"].astype(jnp.float32))
+        _, idx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1),
+                               cfg.experts_per_tok)
+        jax.debug.callback(lambda i: got_r.append(np.asarray(i)), idx,
+                           ordered=True)
+        return r_dispatch(p, x, cfg)
+
+    def t_wrapped(p, x, cfg):
+        out = t_route(p, x, cfg)
+        got_t.append(out[2].reshape(-1, cfg.experts_per_tok).numpy())
+        return out
+
+    monkeypatch.setattr(RM, "_moe_dispatch", r_wrapped)
+    monkeypatch.setattr(TM, "route", t_wrapped)
+    return got_r, got_t
+
+
+def _flipped(routes) -> int:
+    """Slots routed to another expert by the two packages so far."""
+    got_r, got_t = routes
+    jax.effects_barrier()
+    assert len(got_r) == len(got_t)
+    return sum(int((a != b).sum()) for a, b in zip(got_r, got_t))
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("arch", DENSE)
-def test_prefill_and_decode_match_jax(arch, dtype):
+@pytest.mark.parametrize("arch", DENSE + MOE)
+def test_prefill_and_decode_match_jax(arch, dtype, routes):
     cfg, rmodel, rparams, tmodel, tparams = _both(arch, dtype)
     rng = np.random.default_rng(7)
     B, S, steps = 2, 11, 3
@@ -74,11 +115,19 @@ def test_prefill_and_decode_match_jax(arch, dtype):
     forced = rng.integers(0, cfg.vocab, (B, steps)).astype(np.int32)
     tol = TOL[dtype]
 
+    def where(what):
+        # a MoE case names the routes that differ between the packages
+        if cfg.family != "moe":
+            return what
+        n = _flipped(routes)
+        assert n == 0 or dtype == "bf16", f"{what}: f32 routes differ at {n}"
+        return f"{what}: {n} bf16 routes flipped"
+
     r_logits, r_cache = rmodel.prefill_fn(rparams, {"tokens": jnp.asarray(tokens)},
                                           MAX_SEQ)
     t_logits, t_cache = tmodel.prefill_fn(tparams, {"tokens": tokens}, MAX_SEQ)
     assert t_logits.dtype == torch.float32
-    assert _rel_err(t_logits, r_logits) <= tol
+    assert _rel_err(t_logits, r_logits) <= tol, where("prefill")
     for name in ("k", "v"):
         assert t_cache[name].dtype == torch.bfloat16
         assert tuple(t_cache[name].shape) == tuple(r_cache[name].shape)
@@ -91,7 +140,9 @@ def test_prefill_and_decode_match_jax(arch, dtype):
         r_logits, r_cache = rmodel.decode_fn(rparams, r_cache, jnp.asarray(tok),
                                              jnp.asarray(pos))
         t_logits, t_cache = tmodel.decode_fn(tparams, t_cache, tok, pos)
-        assert _rel_err(t_logits, r_logits) <= tol, f"step {i}"
+        assert _rel_err(t_logits, r_logits) <= tol, where(f"step {i}")
+    if cfg.family == "moe":
+        assert routes[1] and where("the end")
     for name in ("k", "v"):
         assert _rel_err(t_cache[name].float(),
                         np.asarray(r_cache[name], np.float32)) <= CACHE_TOL[dtype]
@@ -125,13 +176,42 @@ def test_params_from_numpy_is_exact_for_bf16():
         assert bool(jnp.array_equal(back, leaf)), path
 
 
-@pytest.mark.parametrize("family_arch", ["qwen3-moe-30b-a3b", "mamba2-1.3b",
-                                         "zamba2-2.7b", "whisper-small",
-                                         "llava-next-34b"])
+@pytest.mark.parametrize("family_arch", ["mamba2-1.3b", "zamba2-2.7b",
+                                         "whisper-small", "llava-next-34b"])
 def test_other_families_are_not_ported(family_arch):
     cfg = get_smoke_config(family_arch)
     with pytest.raises(NotImplementedError, match=NOT_PORTED):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_build_model_admits_moe(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import tree_map
+    cfg = get_config(arch)
+    model = build_model(cfg, device="cpu")
+    ffn = model.specs["layers"]["ffn"]
+    L, E, d, f = cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff
+    assert ffn["router"].shape == (L, d, E)
+    assert ffn["wg"].shape == ffn["wu"].shape == (L, E, d, f)
+    assert ffn["wd"].shape == (L, E, f, d)
+    n = []
+    tree_map(lambda s: n.append(int(np.prod(s.shape))), model.specs)
+    # param_count() leaves the final norm's d_model weights out
+    assert sum(n) == cfg.param_count() + d
+    if arch == "qwen3-moe-30b-a3b":
+        assert cfg.param_count() == 30_079_123_456
+    # the spec trees of both packages hold the same leaves and shapes
+    rspecs = r_build(r_smoke(arch)).specs
+    tspecs = build_model(get_smoke_config(arch), device="cpu").specs
+    r_leaves = jax.tree_util.tree_leaves_with_path(
+        rspecs, is_leaf=lambda x: hasattr(x, "logical"))
+    for path, leaf in r_leaves:
+        t = tspecs
+        for key in path:
+            t = t[key.key]
+        assert t.shape == leaf.shape and t.init == leaf.init, path
+        assert t.scale == leaf.scale, path
 
 
 def test_loss_is_not_ported():
@@ -230,3 +310,47 @@ def test_decode_attention(arch):
                                   np.asarray(jck, np.float32))
     np.testing.assert_array_equal(tcv.float().numpy(),
                                   np.asarray(jcv, np.float32))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "glm4-9b"])
+def test_init_params_draws_stacked_leaves_one_layer_at_a_time(arch,
+                                                              monkeypatch):
+    import dataclasses
+    from repro_torch.models.sharding import init_params, tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=3)
+    model = build_model(cfg, device="cpu")
+    drawn = []
+    randn = torch.randn
+
+    def counted(*a, **kw):
+        out = randn(*a, **kw)
+        drawn.append(out.numel())
+        return out
+
+    monkeypatch.setattr(torch, "randn", counted)
+    params = init_params(model.specs, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.undo()
+    specs, leaves = [], []
+    tree_map(specs.append, model.specs)
+    tree_map(leaves.append, params)
+    largest_layer = max(int(np.prod(s.shape[1:])) for s in specs
+                        if s.logical[0] == "layers")
+    assert max(drawn) == max(largest_layer, cfg.vocab * cfg.d_model)
+    assert sum(drawn) == sum(int(np.prod(s.shape)) for s in specs
+                             if s.init == "normal")
+    for spec, t in zip(specs, leaves):
+        assert tuple(t.shape) == spec.shape and t.dtype == spec.dtype
+        x = t.float()
+        if spec.init != "normal":
+            assert bool((x == (1.0 if spec.init == "ones" else 0.0)).all())
+            continue
+        # each layer's draw is its own: N(0, scale^2) within 5 sigma of
+        # the sample std's spread, and no two layers alike
+        n = x[0].numel() if spec.logical[0] == "layers" else x.numel()
+        rows = x.reshape(spec.shape[0], -1) if spec.logical[0] == "layers" \
+            else x.reshape(1, -1)
+        for r in rows:
+            assert abs(float(r.std()) / spec.scale - 1) <= 5 / np.sqrt(2 * n)
+            assert abs(float(r.mean())) <= 5 * spec.scale / np.sqrt(n)
+        if len(rows) > 1:
+            assert not torch.equal(rows[0], rows[1])
