@@ -60,11 +60,13 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
          at the edges of its tiles (P = 4095-4097, 2**20 +- 1); P up to
          2**21 throughout;
        * ``flash_attention`` in f32 and bf16 at every head dim D in {8,
-         16, 32, 64, 72, 100, 128, 200, 256}: Sq = Sk in {1, 7, 128, 130,
-         256} with and without causal, Sk != Sq without it (up to 2048)
-         and with it (130 x 300, 300 x 130), 2048 causal, BH = 128 at 2048
-         causal for D in {128, 256}, and views at an odd element offset
-         (a data_ptr off 16 bytes: the element-load path);
+         16, 32, 64, 72, 80, 100, 128, 200, 256}: Sq = Sk in {1, 7, 128,
+         130, 256} with and without causal, Sk != Sq without it (up to
+         2048) and with it (130 x 300, 300 x 130), 2048 causal, BH = 128
+         at 2048 causal for D in {128, 256}, Whisper's non-causal 1,500 x
+         1,500 and 64 x 1,500 for D in {64, 80} (80: Zamba2's head dim),
+         and views at an odd element offset (a data_ptr off 16 bytes: the
+         element-load path);
   3. the main path at full size: ``PruningService.run_batch`` over the
      production-like events table (2**24 rows in 1,048,576
      micro-partitions, 6 columns), a 600-row users dimension table and a
@@ -230,6 +232,33 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
   10. the port's six examples (``examples_torch/``) run in process on the
      card and on the CPU: the same printed counts (times and sampled
      tokens left out).
+  11. (run after phase 10, its memory freed) the other four families at
+     full width, each model drawn by ``init_params`` from ``--seed`` in
+     bf16, served through the ``Generator`` and freed before the next:
+     Mamba2-1.3B (ssm; 4 prompts of 2,048 tokens, 32 greedy steps, then
+     one prompt of 32,768 tokens, 8 steps), Zamba2-2.7B (hybrid; 4 x
+     2,048, 32 steps), Whisper-small (encdec; 4 x 1,500 frames as the
+     ``prefix``, a decoder prompt of 64 tokens, 32 steps) and
+     LLaVA-NeXT-34B (vlm; 4 x (576 patch embeddings + 2,048 tokens), 32
+     steps; 68.78 GB of weights), the prefixes standard normal from the
+     seed.  Checks (``serve_family``): (a) ``flash_attention`` launches a
+     prefill = 0, 9, 36 and 60, and the ``ContinuousBatcher`` refuses the
+     family; (b) the kernel equals its plain version at every launch of
+     the served prefill (and is timed at each shape beside its plain
+     version, SDPA and its bound); (c) the served logits at the prefill's
+     last position and every decode step agree with the f32 forward with
+     no cache and no kernel whose SSM layers run the step-by-step
+     recurrence (``family_reference_logits``), teacher-forced on the
+     served tokens, and an fp8 control is logged beside it (a control
+     inside the bound is said, not failed); (d) plain attention in place
+     of the kernel agrees with the kernel run; (e) the chunked scan
+     agrees with the recurrence in f32 on layer 0's served inputs, and
+     after Mamba2's 32,768-token prompt the first decode step's logits
+     agree with a 32,769-token prefill's last.  Bounds and reasons at
+     ``FAMILY_VS_F32_TOL``.  Then prefill and decode times and tokens/s
+     beside the bytes a decode step must read (weights, SSM state, K/V,
+     cross K/V) over the memory rate, Mamba2's decode step after 32,768
+     tokens beside the one after 2,048, weight bytes and peak memory.
 
 Phases 3, 4, 6 and 8 run their services with the verdict cache off, so
 that every batch launches its table groups' kernels.
@@ -1125,7 +1154,9 @@ def flash_cases(rng, dev, sizes) -> dict:
     Sk != Sq without it (1 x 2048, 7 x 130, 130 x 7, 256 x 1, 128 x 256,
     2048 x 130) and with it (130 x 300, 300 x 130); BH = 1 at Sq = Sk =
     2048 causal; BH = 128 at 2048 causal for D in {128, 256}, the serving
-    prefill's shape; and q, k, v that are views at an odd element offset
+    prefill's shape; for D in {64, 80} Whisper's non-causal 1,500 x 1,500
+    encoder and 64 x 1,500 cross-attention; and q, k, v that are views at
+    an odd element offset
     (a data_ptr off 16 bytes) at 130 x 130 causal and 7 x 200."""
     import torch
 
@@ -1145,6 +1176,9 @@ def flash_cases(rng, dev, sizes) -> dict:
         grid.append((1, 2048, 2048, True, D, False))
         if D in (128, 256):
             grid.append((128, 2048, 2048, True, D, False))
+        if D in (64, 80):       # Whisper's encoder and cross-attention
+            grid += [(3, 1500, 1500, False, D, False),
+                     (3, 64, 1500, False, D, False)]
         grid += [(2, 130, 130, True, D, True), (2, 7, 200, False, D, True)]
     cases, err = 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1185,7 +1219,7 @@ def phase_kernel_vs_plain(seed: int, dev, names=tuple(KERNELS)) -> dict:
             ("join_overlap", join_single_cases, SINGLE_SIZES),
             ("topk_boundary", topk_scan_cases, SINGLE_SIZES),
             ("flash_attention", flash_cases,
-             (8, 16, 32, 64, 72, 100, 128, 200, 256))):
+             (8, 16, 32, 64, 72, 80, 100, 128, 200, 256))):
         if name not in names:
             continue
         t0 = time.perf_counter()
@@ -4731,6 +4765,529 @@ def phase_examples(card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the SSM, hybrid, encoder-decoder and VLM families at full width
+# ---------------------------------------------------------------------------
+# Four models at the repo's widths, every layer, bf16, random weights from
+# --seed, each served through the Generator and freed before the next:
+# Mamba2-1.3B (ssm), Zamba2-2.7B (hybrid), Whisper-small (encdec, 1,500
+# frames: 30 s of audio) and LLaVA-NeXT-34B (vlm, 576 patch embeddings).
+# The prefixes are standard normal f32, as the JAX tests draw them.
+
+# arch: the Generator's traffic (B prompts of S tokens, ``steps`` greedy
+# steps), Mamba2's long prompt (tokens, steps) at B = 1, and the rows of
+# each pass of the f32 reference (LLaVA's 34B weights leave room for two)
+FAMILY_TRAFFIC = {
+    "mamba2-1.3b": dict(B=4, S=2048, steps=32, long=(32_768, 8)),
+    "zamba2-2.7b": dict(B=4, S=2048, steps=32),
+    "whisper-small": dict(B=4, S=64, steps=32),
+    "llava-next-34b": dict(B=4, S=2048, steps=32, ref_rows=2),
+}
+
+# Agreement bounds of phase 11, on max |a - b| / max |b| (b the reference
+# side), per model:
+#  (b) ``FLASH_TOL["bfloat16"]`` at every launch of the served prefill;
+#  (c) served bf16 logits against the f32 forward with no cache and no
+#      kernel whose SSM layers run the step-by-step recurrence
+#      (``mamba.ssd_recurrence``): FAMILY_VS_F32_TOL, for the reason of
+#      phase 5's SERVE_VS_F32_TOL: bf16 rounds the residual stream at each
+#      add and a random model grows each rounding, the more the deeper and
+#      wider it is.  Set from run 1 (seed 0, an H100; PERF.md), each bound
+#      about 2x its model's served error and below its fp8 control:
+#      Mamba2 4.18e-2 (fp8 0.531) and Zamba2 4.97e-2 (fp8 0.623) keep phase
+#      5's 1e-1; Whisper's 24 narrow layers 1.15e-2 (fp8 0.146) take 5e-2;
+#      LLaVA-NeXT's 60 layers of d_model 7,168 (120 rounded adds, a bf16
+#      score in every decode step) 0.171 (fp8 0.862) take 0.3;
+#  (d) plain attention in place of the kernel, and (e) Mamba2's first
+#      decode step after 32,768 tokens against a 32,769-token prefill: two
+#      more bf16 runs, held to (c)'s bound;
+#  (e) the chunked scan against the recurrence in f32 on layer 0's served
+#      inputs: SCAN_VS_RECURRENCE_TOL, the JAX tests' bound
+#      (``tests/test_mamba_ssd.py``).
+FAMILY_VS_F32_TOL = {"mamba2-1.3b": 1e-1, "zamba2-2.7b": 1e-1,
+                     "whisper-small": 5e-2, "llava-next-34b": 3e-1}
+SCAN_VS_RECURRENCE_TOL = 2e-4
+PLAIN_BLOCK = 1 << 28       # elements of plain attention's scores a block
+
+
+def flash_per_prefill(cfg) -> int:
+    """``flash_attention`` launches of one prefill: one a layer's
+    attention, the hybrid's shared block once a group, an encdec's
+    encoder, decoder self- and cross-attention."""
+    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+            "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+                cfg.family, cfg.n_layers)
+
+
+def plain_attention(q, k, v, causal=True):
+    """``ref.flash_attention_ref`` over blocks of the BH axis, so that a
+    block's f32 scores hold at most PLAIN_BLOCK elements (LLaVA's whole
+    [224, 2624, 2624] would take 6.2 GB beside 68.8 GB of weights)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    n = max(1, PLAIN_BLOCK // (q.shape[1] * k.shape[1]))
+    return torch.cat([ref.flash_attention_ref(q[i:i + n], k[i:i + n],
+                                              v[i:i + n], causal=causal)
+                      for i in range(0, q.shape[0], n)])
+
+
+class scan_as:
+    """``with scan_as(fn):`` the Mamba2 mixer calls ``fn(x, dt, A, B, C,
+    chunk)`` in place of ``mamba.ssd_scan`` (looked up at each call)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.models import mamba
+        self.scan, mamba.ssd_scan = mamba.ssd_scan, self.fn
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba
+        mamba.ssd_scan = self.scan
+
+
+def recurrence_scan(x, dt, A, B, C, chunk, s0=None):
+    """``ssd_scan``'s arguments, the step-by-step recurrence's result."""
+    from repro_torch.models import mamba
+    return mamba.ssd_recurrence(x, dt, A, B, C, s0)
+
+
+def family_reference_logits(params, cfg, tokens, first: int, weight,
+                            act=None, prefix=None, rows=None):
+    """f32 logits [B, T - first, V] at token positions first .. T - 1 of
+    ``tokens`` [B, T] for an ssm, hybrid, encdec or vlm config: the full
+    forward with no cache and no kernel (attention the plain version in
+    f32, SSM layers the step-by-step recurrence), each layer's weights
+    taken through ``weight`` when it runs, the residual stream through
+    ``act`` after the embedding (and the prefix) and each residual add.
+    ``prefix`` is what the served model was given; it goes in rounded to
+    bf16 as the served model rounds it.  ``rows`` rows at a time (all by
+    default): rows are independent, so this only bounds the memory."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba
+    from repro_torch.models.model import _unembed_matrix, layer_params
+    from repro_torch.models.sharding import tree_map
+
+    B, T = tokens.shape
+    rows = rows or B
+    if rows < B:
+        return torch.cat([family_reference_logits(
+            params, cfg, tokens[i:i + rows], first, weight, act,
+            None if prefix is None else prefix[i:i + rows])
+            for i in range(0, B, rows)])
+    dev = tokens.device
+    act = act or (lambda t: t)
+    fam = cfg.family
+
+    def attention(p, xn, positions, causal, memory=None):
+        if memory is None:
+            q, k, v = L.qkv_project(p, xn, cfg, positions)
+        else:
+            q = L._mm("bsd,dhk->bshk", xn, p["wq"])
+            k = L._mm("btd,dhk->bthk", memory, p["wk"])
+            v = L._mm("btd,dhk->bthk", memory, p["wv"])
+        k, v = (L._expand_kv(t, cfg.n_heads) for t in (k, v))
+        H, D = q.shape[2], q.shape[3]
+
+        def hm(t):
+            return t.transpose(1, 2).reshape(B * H, t.shape[1], D)
+
+        o = plain_attention(hm(q), hm(k), hm(v), causal=causal)
+        o = o.view(B, H, q.shape[1], D).transpose(1, 2)
+        return L._mm("bshk,hkd->bsd", o, p["wo"])
+
+    def block(lp, x, positions, causal=True, memory=None):
+        x = act(x + attention(lp["attn"], L.rmsnorm(x, lp["ln1"]), positions,
+                              causal))
+        if memory is not None:
+            x = act(x + attention(lp["xattn"], L.rmsnorm(x, lp["ln_x"]),
+                                  None, False, memory))
+        return act(x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg))
+
+    def mixer(lp, x):
+        return act(x + mamba.mamba_block(lp["mixer"], L.rmsnorm(x, lp["ln"]),
+                                         cfg))
+
+    with torch.no_grad(), scan_as(recurrence_scan):
+        x = act(weight(params["embed"])[tokens])
+        memory = None
+        if fam == "vlm":
+            x = torch.cat([act(prefix.to(torch.bfloat16).float()), x], dim=1)
+            first += prefix.shape[1]
+        elif fam == "encdec":
+            m = act(prefix.to(torch.bfloat16).float())
+            pos_m = torch.arange(m.shape[1], device=dev)[None, :]
+            for i in range(cfg.n_enc_layers):
+                m = block(tree_map(weight, layer_params(params, i,
+                                                        "enc_layers")),
+                          m, pos_m, causal=False)
+            memory = L.rmsnorm(m, weight(params["enc_norm"]))
+            del m
+        positions = torch.arange(x.shape[1], device=dev)[None, :]
+        if fam == "ssm":
+            for i in range(cfg.n_layers):
+                x = mixer(tree_map(weight, layer_params(params, i)), x)
+        elif fam == "hybrid":
+            shared = tree_map(weight, params["shared_attn"])
+            for g in range(cfg.n_layers // cfg.attn_every):
+                for i in range(cfg.attn_every):
+                    x = mixer(tree_map(weight, layer_params(params, (g, i))),
+                              x)
+                x = block(shared, x, positions)
+        else:
+            key = "dec_layers" if fam == "encdec" else "layers"
+            for i in range(cfg.n_layers):
+                x = block(tree_map(weight, layer_params(params, i, key)), x,
+                          positions, memory=memory)
+        hidden = L.rmsnorm(x[:, first:], weight(params["final_norm"]))
+        W = weight(_unembed_matrix(params))
+        logits = L._mm("bsd,vd->bsv", hidden, W)
+        if W.shape[0] > cfg.vocab:
+            logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def decode_read_bytes(params, cfg, shapes, live: float) -> dict:
+    """Bytes one decode step must read, by kind: the weights it uses (an
+    untied embedding table only at the batch's rows, an encdec's encoder
+    not at all), the SSM state and conv tail, the K/V of ``live``
+    positions on average, and an encdec's cross K/V; ``shapes`` is the
+    model's ``init_cache``."""
+    import torch
+
+    from repro_torch.models.sharding import tree_bytes
+
+    def nbytes(*names):
+        return sum(math.prod(shapes[n].shape)
+                   * torch.empty(0, dtype=shapes[n].dtype).element_size()
+                   for n in names)
+
+    w = tree_bytes(params)
+    if "unembed" in params:
+        w -= tree_bytes(params["embed"])
+    if cfg.family == "encdec":
+        w -= tree_bytes(params["enc_layers"]) + tree_bytes(params["enc_norm"])
+    out = dict(weights=w)
+    if "s" in shapes:
+        out["ssm_state"] = nbytes("s", "conv")
+    if "k" in shapes:               # [L or groups, B, max_seq, KV, D]
+        out["kv"] = int(nbytes("k", "v") / shapes["k"].shape[2] * live)
+    if "xk" in shapes:
+        out["cross_kv"] = nbytes("xk", "xv")
+    return out
+
+
+def serve_family(seed: int, card: str, dev, cfg, B: int, S: int, steps: int,
+                 long=None, ref_rows=None) -> dict:
+    """One model of phase 11: ``cfg`` served through the ``Generator`` on
+    ``B`` prompts of ``S`` tokens (and ``cfg.n_prefix`` prefix rows for a
+    vlm or encdec), ``steps`` greedy steps; for an SSM config, ``long``
+    (tokens, steps) more at B = 1; checks (a)-(e), (c)'s bound
+    ``FAMILY_VS_F32_TOL[cfg.name]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build_model, mamba
+    from repro_torch.models.sharding import init_params, tree_bytes
+    from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.serve.serve_step import Generator
+
+    tol = FAMILY_VS_F32_TOL[cfg.name]
+    t_phase = time.perf_counter()
+    held_before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_params(model.specs, gen, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = tree_bytes(params)
+    fam, V = cfg.family, cfg.vocab
+    tag = f"[families] {card}: {cfg.name}"
+    width = (f"ssm state {cfg.ssm_state}, {cfg.ssm_heads} SSM heads of "
+             f"{cfg.ssm_head_dim}" if fam in ("ssm", "hybrid") else "")
+    if fam != "ssm":
+        width += (f"{', ' if width else ''}{cfg.n_heads} heads (kv "
+                  f"{cfg.n_kv_heads}, head dim {cfg.resolved_head_dim}), "
+                  f"d_ff {cfg.d_ff}")
+    log(f"{tag} ({fam}): {cfg.n_layers} layers"
+        f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.n_enc_layers else ''}"
+        f", d_model {cfg.d_model}, {width}, vocab {V}: param_count() "
+        f"{cfg.param_count():,}; {weight_bytes:,} bytes of weights, made "
+        f"from seed {seed} in {init_s:.1f} s; {held_before:,} bytes "
+        f"allocated before")
+    try:
+        ContinuousBatcher(model, params, n_slots=2, max_seq=64)
+        raise SystemExit(f"{cfg.name}: the batcher admitted the {fam} family")
+    except NotImplementedError:
+        pass
+
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, V, (B, S))
+    prefix = None
+    if cfg.frontend != "none":
+        prefix = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_prefix, cfg.d_model), dtype=np.float32), device=dev)
+    npf = cfg.n_prefix if fam == "vlm" else 0
+    max_seq = npf + S + steps
+    seen = []
+    generator = Generator(recording(model, seen), params, max_seq=max_seq,
+                          device=dev)
+    generator.generate(prompts[:, :64], steps=2, prefix=prefix)   # warm-up
+    seen.clear()
+    fa = ops.flash_attention
+    want_fa = flash_per_prefill(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path, with the kernel's count set to 0 just before
+    out = {}
+    fa.launches = 0
+    total_ms = host_ms(lambda: out.update(toks=generator.generate(
+        prompts, steps, prefix=prefix)), dev)
+    launches = fa.launches
+    toks = out.pop("toks")
+    served = torch.stack(seen, dim=1)           # [B, steps + 1, V]
+    seen.clear()
+    peak_serving = torch.cuda.max_memory_allocated(dev) - held_before
+    if launches != want_fa:
+        raise SystemExit(f"(a) {cfg.name}: the Generator's prefill launched "
+                         f"flash_attention {launches} times, expected "
+                         f"{want_fa}")
+    if tuple(served.shape) != (B, steps + 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(served[..., :V]).all()):
+        raise SystemExit(f"{cfg.name}: served logits "
+                         f"{tuple(served.shape)} not finite or not of the "
+                         f"expected shape")
+    fa.launches = 0
+    prefill_ms = host_ms(lambda: generator.generate(prompts, 0,
+                                                    prefix=prefix), dev)
+    seen.clear()
+    if fa.launches != want_fa:
+        raise SystemExit(f"(a) {cfg.name}: the prefill alone launched "
+                         f"flash_attention {fa.launches} times")
+    decode_ms = (total_ms - prefill_ms) / steps
+    log(f"{tag}: (a) flash_attention launched {launches} times in the "
+        f"Generator's prefill (expected {want_fa}); the batcher refuses the "
+        f"{fam} family")
+
+    # (b) the kernel against its plain version at every launch of the
+    # served prefill; the first launch's inputs are kept for the timing,
+    # and every launch's output for (d)
+    err_b, kept, shapes = [], [], []
+
+    def checked(q, k, v, causal=True):
+        o = fa(q, k, v, causal=causal)
+        err_b.append(require_close(
+            "flash_attention", o, plain_attention(q, k, v, causal=causal),
+            FLASH_TOL["bfloat16"], f"{cfg.name}'s launch {len(err_b)}"))
+        key = (tuple(q.shape), int(k.shape[1]), bool(causal))
+        if key not in shapes:
+            shapes.append(key)
+            kept.append((q, k, v, causal))
+        return o
+
+    # layer 0's inputs of the chunked scan, for (e)
+    mamba_scan, scan_in = mamba.ssd_scan, []
+
+    def recorded_scan(*a):
+        if not scan_in:
+            scan_in.extend(a)
+        return mamba_scan(*a)
+
+    with attention_as(checked), scan_as(recorded_scan):
+        generator.generate(prompts, 0, prefix=prefix)
+    seen.clear()
+    if len(err_b) != want_fa:
+        raise SystemExit(f"(b) {cfg.name}: the served prefill called "
+                         f"attention {len(err_b)} times, expected {want_fa}")
+    timed = []
+    with torch.no_grad():
+        for q, k, v, causal in kept:
+            BH, Sq, D = q.shape
+            Sk = k.shape[1]
+            k_ms = cuda_ms(lambda: fa(q, k, v, causal=causal), 5)
+            p_ms = cuda_ms(lambda: plain_attention(q, k, v, causal=causal), 2)
+            q4, k4, v4 = (t.view(B, BH // B, t.shape[1], D)
+                          for t in (q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), 5)
+            bms, bby, _ = flash_bound(BH, Sq, Sk, D, causal, 2)
+            timed.append(dict(BH=BH, Sq=Sq, Sk=Sk, D=D, causal=causal,
+                              ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                              bound_ms=bms, bound_by=bby))
+            del q4, k4, v4
+    del kept
+    if want_fa:
+        log(f"{tag}: (b) flash_attention at each of its {want_fa} launches "
+            f"of the served prefill, bf16: kernel == plain version within "
+            f"{FLASH_TOL['bfloat16']} (max abs err {max(err_b):.3g}); one "
+            f"launch a shape: " + "; ".join(
+                f"[BH={t['BH']}, Sq={t['Sq']}, Sk={t['Sk']}, D={t['D']}"
+                f"{', causal' if t['causal'] else ''}] {t['ms']:.3f} ms vs "
+                f"bound {t['bound_ms']:.4f} ({t['bound_by']}), plain "
+                f"{t['plain_ms']:.3f}, SDPA {t['library_ms']:.3f}"
+                for t in timed))
+
+    # (c) served logits against the f32 forward, and the fp8 control
+    seq = torch.cat([torch.as_tensor(prompts, device=dev),
+                     torch.as_tensor(toks, device=dev)], dim=1)
+    t0 = time.perf_counter()
+    want = family_reference_logits(params, cfg, seq, S - 1,
+                                   lambda w: w.float(), prefix=prefix,
+                                   rows=ref_rows)
+    ref_s = time.perf_counter() - t0
+    err_c = rel_err(served[..., :V], want[..., :V])
+    per_pos = [rel_err(served[:, j, :V], want[:, j, :V])
+               for j in range(steps + 1)]
+    fp8 = family_reference_logits(params, cfg, seq, S - 1, fp8_round,
+                                  fp8_round, prefix=prefix, rows=ref_rows)
+    err_fp8 = rel_err(fp8[..., :V], want[..., :V])
+    del fp8
+    log(f"{tag}: (c) served bf16 logits vs the f32 forward (no cache, no "
+        f"kernel{', SSM layers by the recurrence' if fam in ('ssm', 'hybrid') else ''}) "
+        f"at {B} x {steps + 1} positions: {err_c:.3e} of max |logit| "
+        f"{float(want[..., :V].abs().max()):.3f} (bound {tol}; prefill "
+        f"{per_pos[0]:.3e}, worst step {max(per_pos[1:] or [0.0]):.3e}); "
+        f"fp8 control (e4m3 weights and residual stream) {err_fp8:.3e}"
+        f"{'' if err_fp8 > tol else ' -- INSIDE the bound'}; the f32 "
+        f"forward took {ref_s:.1f} s"
+        f"{f' ({ref_rows} rows a pass)' if ref_rows else ''}")
+    del want
+
+    # (d) the plain attention in place of the kernel, fed the same tokens
+    err_d = None
+    if want_fa:
+        lg_d = []
+        with attention_as(plain_attention):
+            Generator(recording(model, lg_d, forced=toks), params,
+                      max_seq=max_seq, device=dev).generate(
+                prompts, steps, prefix=prefix)
+        err_d = rel_err(torch.stack(lg_d, dim=1)[..., :V], served[..., :V])
+        del lg_d
+        log(f"{tag}: (d) plain attention in place of the kernel: "
+            f"{err_d:.3e} of max |logit| (bound {tol})")
+
+    # (e) the chunked scan against the recurrence at layer 0's inputs of
+    # the served prefill; Mamba2's long prompt
+    scan = {}
+    if fam in ("ssm", "hybrid"):
+        x, dt, A, Bm, Cm, chunk = scan_in
+        y_s, s_s = mamba_scan(x, dt, A, Bm, Cm, chunk)
+        y_r, s_r = mamba.ssd_recurrence(x, dt, A, Bm, Cm)
+        scan = dict(y=rel_err(y_s, y_r), state=rel_err(s_s, s_r),
+                    shape=list(x.shape), chunk=chunk)
+        log(f"{tag}: (e) chunked scan (chunk {chunk}) vs the step-by-step "
+            f"recurrence in f32 at layer 0's inputs {list(x.shape)} of the "
+            f"served prefill: y {scan['y']:.3e}, final state "
+            f"{scan['state']:.3e} of their largest magnitude (bound "
+            f"{SCAN_VS_RECURRENCE_TOL})")
+        del x, dt, A, Bm, Cm, y_s, s_s, y_r, s_r
+    del scan_in
+    long_run = {}
+    if long:
+        n_long, steps_long = long
+        lp = rng.integers(0, V, (1, n_long))
+        solo = []
+        g1 = Generator(recording(model, solo), params,
+                       max_seq=n_long + steps_long + 1, device=dev)
+        # B = 1 at S: the decode step to set beside the long one
+        short_total = host_ms(lambda: g1.generate(prompts[:1], steps_long),
+                              dev)
+        short_prefill = host_ms(lambda: g1.generate(prompts[:1], 0), dev)
+        solo.clear()
+        lt = {}
+        long_total = host_ms(lambda: lt.update(t=g1.generate(
+            lp, steps_long)), dev)
+        long_logits = torch.stack(solo, dim=1)
+        solo.clear()
+        long_prefill = host_ms(lambda: g1.generate(lp, 0), dev)
+        solo.clear()
+        g1.generate(np.concatenate([lp, lt["t"][:, :1]], axis=1), 0)
+        err_long = rel_err(long_logits[:, 1, :V], solo[0][:, :V])
+        solo.clear()
+        long_run = dict(
+            tokens=n_long, steps=steps_long, prefill_ms=long_prefill,
+            decode_ms_per_step=(long_total - long_prefill) / steps_long,
+            short_prefill_ms=short_prefill,
+            short_decode_ms_per_step=(short_total - short_prefill)
+            / steps_long, err_first_step_vs_prefill=err_long)
+        log(f"{tag}: (e) B = 1, {n_long:,}-token prompt: the first decode "
+            f"step's logits vs a {n_long + 1:,}-token prefill's last: "
+            f"{err_long:.3e} (bound {tol}); prefill {long_prefill:.1f} ms "
+            f"({n_long / (long_prefill / 1e3):.0f} tokens/s), decode "
+            f"{long_run['decode_ms_per_step']:.2f} ms a step against "
+            f"{long_run['short_decode_ms_per_step']:.2f} after {S:,} tokens "
+            f"(prefill {short_prefill:.1f} ms)")
+
+    reads = decode_read_bytes(params, cfg, model.init_cache(B, max_seq),
+                              live=npf + S + steps / 2)
+    read_ms = sum(reads.values()) / HBM_BYTES_PER_S * 1e3
+    gen_tok_s = B * steps / ((total_ms - prefill_ms) / 1e3)
+    phase_s = time.perf_counter() - t_phase
+    log(f"{tag}: Generator B={B}: prefill {prefill_ms:.1f} ms "
+        f"({B * (npf + S) / (prefill_ms / 1e3):.0f} positions/s"
+        f"{f', {npf} of them prefix' if npf else ''}"
+        f"{f', plus {cfg.n_prefix} frames encoded' if fam == 'encdec' else ''}"
+        f"), decode {decode_ms:.2f} ms a step ({gen_tok_s:.1f} tokens/s) "
+        f"against a bound of {read_ms:.3f} ms reading " + ", ".join(
+            f"{n} {b:,}" for n, b in reads.items()) + f" bytes; weights "
+        f"{weight_bytes:,} bytes, peak allocated while serving "
+        f"{peak_serving:,} bytes above the {held_before:,} held before; "
+        f"{phase_s:.1f} s")
+
+    failed = [name for name, e, t in (
+        ("(c)", err_c, tol), ("(d)", err_d, tol),
+        ("(e) scan y", scan.get("y"), SCAN_VS_RECURRENCE_TOL),
+        ("(e) scan state", scan.get("state"), SCAN_VS_RECURRENCE_TOL),
+        ("(e) long prompt", long_run.get("err_first_step_vs_prefill"), tol))
+        if e is not None and not e <= t]
+    if failed:
+        raise SystemExit(f"phase 11 failed {failed} for {cfg.name}")
+    del params, model, generator, served
+    return dict(
+        arch=cfg.name, family=fam, layers=cfg.n_layers,
+        enc_layers=cfg.n_enc_layers, param_count=cfg.param_count(),
+        weight_bytes=weight_bytes, held_before_bytes=held_before,
+        init_s=init_s, peak_serving_bytes=peak_serving,
+        traffic=dict(B=B, S=S, steps=steps, prefix=cfg.n_prefix
+                     if prefix is not None else 0),
+        prefill_ms=prefill_ms,
+        prefill_positions_per_s=B * (npf + S) / (prefill_ms / 1e3),
+        decode_ms_per_step=decode_ms, decode_tokens_per_s=gen_tok_s,
+        decode_read_bytes=reads, decode_bound_ms=read_ms,
+        generate_ms=total_ms, launches=launches, max_abs_err=max(err_b or
+                                                                 [0.0]),
+        err_kernel_by_launch=err_b, flash_by_shape=timed,
+        err_served_vs_f32=err_c, err_served_by_position=per_pos,
+        err_fp8_control=err_fp8, fp8_control_inside=not err_fp8 > tol,
+        err_plain_vs_kernel=err_d, scan_vs_recurrence=scan,
+        long_prompt=long_run, reference_s=ref_s, bound=tol, s=phase_s)
+
+
+def phase_families(seed: int, card: str, dev, cfgs=None,
+                   traffic=None) -> dict:
+    """Phase 11: each of ``FAMILY_TRAFFIC``'s four models (or ``cfgs``, a
+    rehearsal's, with ``traffic`` by name) served at full width by
+    ``serve_family``, each freed before the next is drawn."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfgs = cfgs or [get_config(a) for a in FAMILY_TRAFFIC]
+    out = {}
+    for cfg in cfgs:
+        kw = (traffic or FAMILY_TRAFFIC)[cfg.name]
+        out[cfg.name] = serve_family(seed, card, dev, cfg, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4795,9 +5352,15 @@ def main() -> int:
     t0 = time.perf_counter()
     ex = phase_examples(card, dev)
     log(f"[examples] {card}: phase 10 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fm = phase_families(args.seed, card, dev)
+    log(f"[families] {card}: phase 11 took {time.perf_counter() - t0:.1f} s")
     fl = lm["kernels"]["flash_attention"]
-    fl["launches"] += mo["launches"]
-    fl["max_abs_err"] = max(fl["max_abs_err"], mo["max_abs_err"])
+    fl["launches"] += mo["launches"] + sum(r["launches"] for r in fm.values())
+    fl["max_abs_err"] = max(fl["max_abs_err"], mo["max_abs_err"],
+                            *(r["max_abs_err"] for r in fm.values()))
     found = {**mp["kernels"], **pq["kernels"], **lm["kernels"]}
     log(f"[done] {card}: {time.perf_counter() - t_start:.1f} s in all")
 
@@ -4822,7 +5385,8 @@ def main() -> int:
             dict(card=card, torch=torch.__version__, build_s=build_s,
                  build=built, kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
                  ingest_tree=it, serving=sv, answers=an, lm_serving=lm,
-                 moe_serving=mo, examples=ex, **kernels), indent=1))
+                 moe_serving=mo, examples=ex, families=fm, **kernels),
+            indent=1))
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

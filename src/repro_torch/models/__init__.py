@@ -1,7 +1,8 @@
-"""Model substrate of the port: the dense and MoE decoders
-(``build_model``), their layers and MoE block (``moe``), the ParamSpec
-system and the carry of the JAX package's parameters
-(``convert.params_from_numpy``)."""
+"""Model substrate of the port: every family's serving path
+(``build_model``: dense, MoE, vlm, ssm, hybrid, encdec), their layers, MoE
+block (``moe``) and Mamba2 mixer (``mamba``), the ParamSpec system and the
+carry of the JAX package's parameters (``convert.params_from_numpy``).
+Training is not ported yet."""
 
 from .model import build_model
 

@@ -1,21 +1,27 @@
-"""Model assembly: param specs + prefill / decode fns, dense and MoE.
+"""Model assembly: param specs + prefill / decode fns for all six families.
 
 ``build_model(cfg, device)`` returns a ``Model`` bundle, as in the JAX
 package:
   * ``specs``        — tree of ParamSpec (shapes + logical axes)
   * ``loss_fn``      — training; not ported yet (raises)
-  * ``prefill_fn``   — (params, batch, max_seq) -> (logits_last, cache)
+  * ``prefill_fn``   — (params, batch, max_seq) -> (logits_last, cache);
+                       ``batch`` holds ``tokens`` and, for ``vlm`` and
+                       ``encdec``, the ``prefix`` embeddings
   * ``decode_fn``    — (params, cache, tokens, position) -> (logits, cache)
   * ``init_cache``   — cache spec for a (batch, max_seq) shape
 
 Parameters are a dict tree shaped like the JAX package's, with the layers
-stacked ``[L, ...]``; the layer loop is a Python loop over L (PyTorch runs
-eagerly: no scan, no remat).  The cache is bf16, ``[L, B, max_seq, KV,
-D]``; prefill fills it and decode writes each step into it in place.
-The ``dense`` and ``moe`` families are ported (a MoE layer's FFN is
+stacked ``[L, ...]`` (the hybrid's SSM layers ``[groups, attn_every,
+...]``); the layer loop is a Python loop (PyTorch runs eagerly: no scan,
+no remat).  Every family is ported: ``dense``, ``moe`` (a layer's FFN is
 ``moe.moe_block``, whose aux loss serving drops, as the JAX package's
-does); ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` raise
-``NotImplementedError`` (ROADMAP queue 1, item 15).
+does), ``vlm`` (the decoder with the ``prefix`` prepended), ``ssm`` (Mamba2
+layers, ``mamba.py``), ``hybrid`` (groups of Mamba2 layers, each closed by
+one shared attention + MLP block) and ``encdec`` (a non-causal encoder over
+the ``prefix`` frames, a decoder with cross-attention).  K/V caches are
+bf16 ``[L, B, max_seq, KV, D]``, the SSM state and conv tail f32 with no
+sequence axis; prefill fills them and decode writes each step into them in
+place, where the JAX package returns updated copies.
 """
 
 from __future__ import annotations
@@ -28,12 +34,12 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.device_stats import resolve_device
 from . import layers as L
+from .mamba import SSMState, mamba_block, mamba_decode_step, mamba_specs
 from .moe import moe_block, moe_specs
 from .sharding import ParamSpec, tree_map
 
 NOT_PORTED = "ROADMAP queue 1, item 15"
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-PORTED = ("dense", "moe")
 
 
 class Model(NamedTuple):
@@ -93,7 +99,7 @@ def _last_logits(params, hidden: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# decoder-only transformer (dense / moe)
+# decoder-only transformer (dense / moe / vlm)
 # ---------------------------------------------------------------------------
 
 def _layer_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -126,38 +132,64 @@ def _decoder_specs(cfg: ModelConfig):
     }
 
 
-def layer_params(params, i: int):
-    """Layer ``i``'s parameters: a view of every stacked ``[L, ...]`` leaf."""
-    return tree_map(lambda p: p[i], params["layers"])
+def layer_params(params, i: int, key: str = "layers"):
+    """Layer ``i``'s parameters: a view of every stacked leaf of
+    ``params[key]`` (for the hybrid, ``i`` may be a (group, layer) pair)."""
+    return tree_map(lambda p: p[i], params[key])
+
+
+def _kv_cache_shapes(cfg: ModelConfig, n: int, batch: int, max_seq: int):
+    KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    kv = CacheSpec((n, batch, max_seq, KV, Dh), torch.bfloat16)
+    return {"k": kv, "v": kv}
 
 
 def _decoder_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
-    KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    kv = CacheSpec((cfg.n_layers, batch, max_seq, KV, Dh), torch.bfloat16)
-    return {"k": kv, "v": kv}
+    return _kv_cache_shapes(cfg, cfg.n_layers, batch, max_seq)
+
+
+def _self_attention_prefill(p, xn: torch.Tensor, cfg: ModelConfig,
+                            positions: torch.Tensor, cache_k: torch.Tensor,
+                            cache_v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of a prefill (through the flash kernel on the
+    card): writes the prompt's K/V into ``cache_k`` / ``cache_v`` [B,
+    max_seq, KV, D] and returns the block's output [B, S, d]."""
+    S = xn.shape[1]
+    q, k, v = L.qkv_project(p, xn, cfg, positions)
+    o = L.chunked_attention(q, L._expand_kv(k, cfg.n_heads),
+                            L._expand_kv(v, cfg.n_heads), causal=True,
+                            chunk=cfg.attn_chunk)
+    cache_k[:, :S] = k
+    cache_v[:, :S] = v
+    return L._mm("bshk,hkd->bsd", o, p["wo"])
+
+
+def _embed_tokens(params, tokens, device) -> torch.Tensor:
+    return _embed(params, torch.as_tensor(tokens, device=device))
+
+
+def _prefix(batch, device, dtype) -> torch.Tensor:
+    return torch.as_tensor(batch["prefix"], device=device).to(dtype)
 
 
 @torch.no_grad()
 def _decoder_prefill(params, batch, cfg: ModelConfig, max_seq: int, device):
-    """Run the prompt through the stack, returning (last_logits, cache)."""
-    tokens = torch.as_tensor(batch["tokens"], device=device)
-    B, S = tokens.shape
+    """Run the prompt (after the ``prefix``, for a ``vlm``) through the
+    stack, returning (last_logits, cache)."""
+    x = _embed_tokens(params, batch["tokens"], device)
+    if cfg.frontend != "none" and "prefix" in batch:
+        x = torch.cat([_prefix(batch, device, x.dtype), x], dim=1)
+    B, S = x.shape[0], x.shape[1]
     if S > max_seq:
-        raise ValueError(f"prompt of {S} tokens exceeds max_seq={max_seq}")
-    x = _embed(params, tokens)
+        raise ValueError(f"prompt of {S} positions exceeds max_seq={max_seq}")
     positions = torch.arange(S, device=device)[None, :]
     cache = alloc_cache(_decoder_cache_shapes(cfg, B, max_seq), device)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        xn = L.rmsnorm(x, lp["ln1"])
-        q, k, v = L.qkv_project(lp["attn"], xn, cfg, positions)
-        ke = L._expand_kv(k, cfg.n_heads)
-        ve = L._expand_kv(v, cfg.n_heads)
-        o = L.chunked_attention(q, ke, ve, causal=True, chunk=cfg.attn_chunk)
-        x = x + L._mm("bshk,hkd->bsd", o, lp["attn"]["wo"])
+        x = x + _self_attention_prefill(lp["attn"], L.rmsnorm(x, lp["ln1"]),
+                                        cfg, positions, cache["k"][i],
+                                        cache["v"][i])
         x = x + _ffn(lp, L.rmsnorm(x, lp["ln2"]), cfg)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
     # rmsnorm is per position: normalise only the last one
     hidden = L.rmsnorm(x[:, -1:], params["final_norm"])
     return _last_logits(params, hidden, cfg), cache
@@ -167,9 +199,8 @@ def _decoder_prefill(params, batch, cfg: ModelConfig, max_seq: int, device):
 def _decoder_decode(params, cache, tokens, position, cfg: ModelConfig, device):
     """One decode step for the whole batch (tokens: [B, 1]); writes the
     step's K/V into ``cache`` in place and returns (logits, cache)."""
-    tokens = torch.as_tensor(tokens, device=device)
+    x = _embed_tokens(params, tokens, device)
     position = torch.as_tensor(position, device=device)
-    x = _embed(params, tokens)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         xn = L.rmsnorm(x, lp["ln1"])
@@ -177,6 +208,261 @@ def _decoder_decode(params, cache, tokens, position, cfg: ModelConfig, device):
                                      cache["v"][i], position)
         x = x + o
         x = x + _ffn(lp, L.rmsnorm(x, lp["ln2"]), cfg)
+    hidden = L.rmsnorm(x, params["final_norm"])
+    return _last_logits(params, hidden, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# SSM (mamba2) and hybrid (zamba2)
+# ---------------------------------------------------------------------------
+
+def _ssm_block_specs(cfg: ModelConfig):
+    return {
+        "ln": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "mixer": mamba_specs(cfg),
+    }
+
+
+def _ssm_specs(cfg: ModelConfig):
+    return {**_embed_specs(cfg),
+            "layers": _stack_specs_tree(_ssm_block_specs(cfg), cfg.n_layers)}
+
+
+def _ssm_state_shapes(cfg: ModelConfig, lead: Tuple[int, ...], batch: int):
+    """The f32 SSM state and conv tail of ``lead`` stacked layers: no
+    sequence axis, whatever the prompt's length."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    return {
+        "s": CacheSpec((*lead, batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
+                       torch.float32),
+        "conv": CacheSpec((*lead, batch, cfg.conv_kernel - 1, di + 2 * n),
+                          torch.float32),
+    }
+
+
+def _ssm_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
+    del max_seq  # constant-size state: the point of SSMs
+    return _ssm_state_shapes(cfg, (cfg.n_layers,), batch)
+
+
+def _mamba_prefill(lp, x: torch.Tensor, cfg: ModelConfig, cache, at):
+    """One Mamba2 layer of a prefill: the residual stream after it, with
+    its final state and conv tail written into ``cache[...][at]``."""
+    y, st = mamba_block(lp["mixer"], L.rmsnorm(x, lp["ln"]), cfg,
+                        return_state=True)
+    cache["s"][at] = st.s
+    cache["conv"][at] = st.conv
+    return x + y
+
+
+def _mamba_decode(lp, x: torch.Tensor, cfg: ModelConfig, cache, at):
+    """One Mamba2 layer of a decode step, from and into ``cache[...][at]``
+    (written in place)."""
+    y, st = mamba_decode_step(lp["mixer"], L.rmsnorm(x, lp["ln"]),
+                              SSMState(cache["s"][at], cache["conv"][at]),
+                              cfg)
+    cache["s"][at] = st.s
+    cache["conv"][at] = st.conv
+    return x + y
+
+
+@torch.no_grad()
+def _ssm_prefill(params, batch, cfg: ModelConfig, max_seq: int, device):
+    # Prefill = full forward, carrying out each layer's final SSM state
+    # (the chunked scan produces it for free) + conv tail for decode.
+    x = _embed_tokens(params, batch["tokens"], device)
+    cache = alloc_cache(_ssm_cache_shapes(cfg, x.shape[0], max_seq), device)
+    for i in range(cfg.n_layers):
+        x = _mamba_prefill(layer_params(params, i), x, cfg, cache, i)
+    hidden = L.rmsnorm(x[:, -1:], params["final_norm"])
+    return _last_logits(params, hidden, cfg), cache
+
+
+@torch.no_grad()
+def _ssm_decode(params, cache, tokens, position, cfg: ModelConfig, device):
+    del position  # the state carries it
+    x = _embed_tokens(params, tokens, device)
+    for i in range(cfg.n_layers):
+        x = _mamba_decode(layer_params(params, i), x, cfg, cache, i)
+    hidden = L.rmsnorm(x, params["final_norm"])
+    return _last_logits(params, hidden, cfg), cache
+
+
+# -- hybrid (zamba2): groups of SSM layers + one SHARED attention block ------
+
+def _hybrid_specs(cfg: ModelConfig):
+    assert cfg.n_layers % cfg.attn_every == 0
+    groups = cfg.n_layers // cfg.attn_every
+    stacked = _stack_specs_tree(
+        _stack_specs_tree(_ssm_block_specs(cfg), cfg.attn_every), groups)
+    return {
+        **_embed_specs(cfg),
+        "layers": stacked,                       # [groups, attn_every, ...]
+        "shared_attn": {
+            "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+            "attn": L.attn_specs(cfg),
+            "ffn": L.mlp_specs(cfg),
+        },
+    }
+
+
+def _hybrid_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
+    groups = cfg.n_layers // cfg.attn_every
+    return {**_ssm_state_shapes(cfg, (groups, cfg.attn_every), batch),
+            **_kv_cache_shapes(cfg, groups, batch, max_seq)}
+
+
+@torch.no_grad()
+def _hybrid_prefill(params, batch, cfg: ModelConfig, max_seq: int, device):
+    x = _embed_tokens(params, batch["tokens"], device)
+    B, S = x.shape[0], x.shape[1]
+    if S > max_seq:
+        raise ValueError(f"prompt of {S} tokens exceeds max_seq={max_seq}")
+    positions = torch.arange(S, device=device)[None, :]
+    shared = params["shared_attn"]
+    cache = alloc_cache(_hybrid_cache_shapes(cfg, B, max_seq), device)
+    for g in range(cfg.n_layers // cfg.attn_every):
+        for i in range(cfg.attn_every):
+            x = _mamba_prefill(layer_params(params, (g, i)), x, cfg, cache,
+                               (g, i))
+        # the shared attention block closes the group
+        x = x + _self_attention_prefill(
+            shared["attn"], L.rmsnorm(x, shared["ln1"]), cfg, positions,
+            cache["k"][g], cache["v"][g])
+        x = x + L.mlp(shared["ffn"], L.rmsnorm(x, shared["ln2"]), cfg)
+    hidden = L.rmsnorm(x[:, -1:], params["final_norm"])
+    return _last_logits(params, hidden, cfg), cache
+
+
+@torch.no_grad()
+def _hybrid_decode(params, cache, tokens, position, cfg: ModelConfig, device):
+    x = _embed_tokens(params, tokens, device)
+    position = torch.as_tensor(position, device=device)
+    shared = params["shared_attn"]
+    for g in range(cfg.n_layers // cfg.attn_every):
+        for i in range(cfg.attn_every):
+            x = _mamba_decode(layer_params(params, (g, i)), x, cfg, cache,
+                              (g, i))
+        o, _, _ = L.decode_attention(shared["attn"],
+                                     L.rmsnorm(x, shared["ln1"]), cfg,
+                                     cache["k"][g], cache["v"][g], position)
+        x = x + o
+        x = x + L.mlp(shared["ffn"], L.rmsnorm(x, shared["ln2"]), cfg)
+    hidden = L.rmsnorm(x, params["final_norm"])
+    return _last_logits(params, hidden, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+def _encdec_specs(cfg: ModelConfig):
+    enc_layer = {
+        "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "attn": L.attn_specs(cfg),
+        "ffn": L.mlp_specs(cfg),
+    }
+    dec_layer = {
+        "ln1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "ln_x": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "ln2": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "attn": L.attn_specs(cfg),
+        "xattn": L.attn_specs(cfg),
+        "ffn": L.mlp_specs(cfg),
+    }
+    return {
+        **_embed_specs(cfg),
+        "enc_layers": _stack_specs_tree(enc_layer, cfg.n_enc_layers),
+        "enc_norm": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        "dec_layers": _stack_specs_tree(dec_layer, cfg.n_layers),
+    }
+
+
+def _encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over ``frames`` [B, T, d]: non-causal attention with
+    RoPE (through the flash kernel on the card), then the final norm."""
+    x = frames
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i in range(cfg.n_enc_layers):
+        lp = layer_params(params, i, "enc_layers")
+        x = x + L.attention(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
+                            positions, causal=False, use_rope=True)
+        x = x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
+    return L.rmsnorm(x, params["enc_norm"])
+
+
+def _cross_attention(lp, x, memory, cfg: ModelConfig):
+    """Attention of the decoder stream ``x`` [B, S, d] over the encoder's
+    ``memory`` [B, T, d]: no RoPE, no mask, Sq = S against Sk = T through
+    the flash kernel on the card."""
+    q = L._mm("bsd,dhk->bshk", x, lp["wq"])
+    k = L._mm("btd,dhk->bthk", memory, lp["wk"])
+    v = L._mm("btd,dhk->bthk", memory, lp["wv"])
+    k = L._expand_kv(k, cfg.n_heads)
+    v = L._expand_kv(v, cfg.n_heads)
+    o = L.chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return L._mm("bshk,hkd->bsd", o, lp["wo"])
+
+
+def _encdec_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                         n_prefix: Optional[int] = None):
+    KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    # cross-attention K/V precomputed from the encoder memory
+    xkv = CacheSpec((cfg.n_layers, batch, n_prefix or cfg.n_prefix, KV, Dh),
+                    torch.bfloat16)
+    return {**_kv_cache_shapes(cfg, cfg.n_layers, batch, max_seq),
+            "xk": xkv, "xv": xkv}
+
+
+@torch.no_grad()
+def _encdec_prefill(params, batch, cfg: ModelConfig, max_seq: int, device):
+    # the frames go in as bf16 whatever the parameters' dtype, as in the
+    # JAX package
+    memory = _encode(params, _prefix(batch, device, torch.bfloat16), cfg)
+    x = _embed_tokens(params, batch["tokens"], device)
+    B, S = x.shape[0], x.shape[1]
+    if S > max_seq:
+        raise ValueError(f"prompt of {S} tokens exceeds max_seq={max_seq}")
+    positions = torch.arange(S, device=device)[None, :]
+    cache = alloc_cache(_encdec_cache_shapes(cfg, B, max_seq,
+                                             memory.shape[1]), device)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i, "dec_layers")
+        x = x + _self_attention_prefill(lp["attn"], L.rmsnorm(x, lp["ln1"]),
+                                        cfg, positions, cache["k"][i],
+                                        cache["v"][i])
+        x = x + _cross_attention(lp["xattn"], L.rmsnorm(x, lp["ln_x"]),
+                                 memory, cfg)
+        x = x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
+        cache["xk"][i] = L._mm("btd,dhk->bthk", memory, lp["xattn"]["wk"])
+        cache["xv"][i] = L._mm("btd,dhk->bthk", memory, lp["xattn"]["wv"])
+    hidden = L.rmsnorm(x[:, -1:], params["final_norm"])
+    return _last_logits(params, hidden, cfg), cache
+
+
+@torch.no_grad()
+def _encdec_decode(params, cache, tokens, position, cfg: ModelConfig, device):
+    x = _embed_tokens(params, tokens, device)
+    position = torch.as_tensor(position, device=device)
+    scale = cfg.resolved_head_dim ** -0.5
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i, "dec_layers")
+        o, _, _ = L.decode_attention(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
+                                     cache["k"][i], cache["v"][i], position)
+        x = x + o
+        # cross-attention over the (static) encoder memory: plain, its
+        # softmax in f32 cast back to the cached values' dtype
+        xq = L._mm("bsd,dhk->bshk", L.rmsnorm(x, lp["ln_x"]),
+                   lp["xattn"]["wq"])
+        keys = L._expand_kv(cache["xk"][i], cfg.n_heads)
+        vals = L._expand_kv(cache["xv"][i], cfg.n_heads)
+        s = L._mm("bohk,bthk->bhot", xq, keys) * scale
+        w = torch.softmax(s.float(), dim=-1).to(vals.dtype)
+        xo = L._mm("bhot,bthk->bohk", w, vals)
+        x = x + L._mm("bohk,hkd->bod", xo, lp["xattn"]["wo"])
+        x = x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
     hidden = L.rmsnorm(x, params["final_norm"])
     return _last_logits(params, hidden, cfg), cache
 
@@ -190,23 +476,33 @@ def _loss_not_ported(params, batch):
 # dispatcher
 # ---------------------------------------------------------------------------
 
+_FAMILY_FNS = {
+    # family: (specs, prefill, decode, cache shapes)
+    "dense": (_decoder_specs, _decoder_prefill, _decoder_decode,
+              _decoder_cache_shapes),
+    "ssm": (_ssm_specs, _ssm_prefill, _ssm_decode, _ssm_cache_shapes),
+    "hybrid": (_hybrid_specs, _hybrid_prefill, _hybrid_decode,
+               _hybrid_cache_shapes),
+    "encdec": (_encdec_specs, _encdec_prefill, _encdec_decode,
+               _encdec_cache_shapes),
+}
+_FAMILY_FNS["moe"] = _FAMILY_FNS["vlm"] = _FAMILY_FNS["dense"]
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    """The ``Model`` of a dense or MoE config on ``device`` (None: the GPU,
-    raising without one; ``"cpu"`` for tests): its prefill and decode take
-    tokens as tensors or arrays and allocate the cache there."""
+    """The ``Model`` of a config of any of the six families on ``device``
+    (None: the GPU, raising without one; ``"cpu"`` for tests): its prefill
+    and decode take tokens (and a prefix) as tensors or arrays and allocate
+    the cache there."""
     fam = cfg.family
     if fam not in FAMILIES:
         raise ValueError(f"unknown family {fam!r}")
-    if fam not in PORTED:
-        raise NotImplementedError(
-            f"the {fam!r} family is not ported yet: {NOT_PORTED}")
+    specs, prefill, decode, cache_shapes = _FAMILY_FNS[fam]
     dev = resolve_device(device)
     return Model(
-        cfg, _decoder_specs(cfg),
+        cfg, specs(cfg),
         loss_fn=_loss_not_ported,
-        prefill_fn=lambda p, b, max_seq: _decoder_prefill(p, b, cfg, max_seq,
-                                                          dev),
-        decode_fn=lambda p, c, t, pos: _decoder_decode(p, c, t, pos, cfg, dev),
-        init_cache=lambda batch, max_seq: _decoder_cache_shapes(cfg, batch,
-                                                                max_seq),
+        prefill_fn=lambda p, b, max_seq: prefill(p, b, cfg, max_seq, dev),
+        decode_fn=lambda p, c, t, pos: decode(p, c, t, pos, cfg, dev),
+        init_cache=lambda batch, max_seq: cache_shapes(cfg, batch, max_seq),
     )

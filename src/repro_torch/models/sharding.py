@@ -54,7 +54,9 @@ def init_params(specs, generator: torch.Generator, device=None):
     is drawn one layer at a time into the finished tensor, so the f32
     draw never holds more than one layer: a whole f32 draw of a MoE
     expert leaf at full width (``[48, 128, 2048, 768]``, 38.65 GB) beside
-    the leaves already made would not fit on one card.
+    the leaves already made would not fit on one card.  The hybrid's
+    doubly stacked ``[groups, attn_every, ...]`` leaves are drawn one
+    group at a time.
     """
     dev = resolve_device(device)
     if generator.device.type != dev.type:

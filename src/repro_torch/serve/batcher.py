@@ -7,7 +7,9 @@ recycled at once.  The counterpart of the JAX package's
 ``serve/batcher.py``, with its fixes: an overlong prompt is rejected at
 submit, a request can finish at admit time (``max_new=1``, or eos as the
 first token) and then frees its slot for the queue, and a released slot's
-``last_tok`` and position are zeroed.
+``last_tok`` and position are zeroed.  Decoder-only LMs only: the
+``ssm``, ``hybrid``, ``encdec`` and ``vlm`` families are refused, as the
+JAX package refuses them.
 
 Host-side control, device-side state: the slot caches are one batched
 dict of tensors on the model's device, updated in place by the decode
@@ -38,6 +40,12 @@ class Request:
 class ContinuousBatcher:
     def __init__(self, model: Model, params, n_slots: int = 4,
                  max_seq: int = 128, eos_id: Optional[int] = None):
+        if model.cfg.family in ("ssm", "hybrid", "encdec", "vlm"):
+            # their caches are not [L, slots, ...] K/V regions (the
+            # hybrid's are [groups, attn_every, slots, ...], an encdec's
+            # and a vlm's prefill needs a prefix): as the JAX package
+            raise NotImplementedError(
+                "slot-insert prefill is implemented for decoder-only LMs")
         self.model = model
         self.params = params
         self.n_slots = n_slots

@@ -36,9 +36,15 @@ class Generator:
         steps: int,
         temperature: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        prefix=None,
     ) -> np.ndarray:
         """Generate ``steps`` tokens a row; returns them as [B, steps]
         int64.
+
+        ``prefix`` [B, n_prefix, d_model] (an array or a tensor) is the
+        ``vlm``'s patch embeddings or the ``encdec``'s frames.  A ``vlm``
+        puts it before the prompt, so its first decode position is S +
+        n_prefix; an ``encdec`` encodes it apart, and decodes from S.
 
         Greedy (argmax) unless ``temperature > 0`` and a ``generator`` is
         given: then each token is drawn from softmax(logits / temperature)
@@ -48,13 +54,20 @@ class Generator:
         dev = self.device
         tokens = torch.as_tensor(np.asarray(tokens), device=dev)
         B, S = tokens.shape
-        logits, cache = self.model.prefill_fn(self.params, {"tokens": tokens},
+        batch = {"tokens": tokens}
+        pos0 = S
+        if prefix is not None:
+            batch["prefix"] = torch.as_tensor(prefix, device=dev)
+            if self.model.cfg.family == "vlm":
+                pos0 += batch["prefix"].shape[1]
+        logits, cache = self.model.prefill_fn(self.params, batch,
                                               self.max_seq)
         out = []
         tok = self._sample(logits, temperature, generator)
         for i in range(steps):
             out.append(tok)
-            position = torch.full((B,), S + i, dtype=torch.int64, device=dev)
+            position = torch.full((B,), pos0 + i, dtype=torch.int64,
+                                  device=dev)
             logits, cache = self.model.decode_fn(self.params, cache, tok,
                                                  position)
             tok = self._sample(logits, temperature, generator)

@@ -1651,3 +1651,86 @@ def test_moe_router_refuses_tf32_on_the_card(cuda, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="TF32"):
         moe.route(pc, x.to(cuda), cfg)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 scan and the ssm, hybrid, encdec and vlm families (plain
+# PyTorch but for the flash kernel): the card's run against the CPU's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 11, 3, 4, 5, 4),            # padded
+    (2, 300, 8, 16, 32, 64),        # padded, 5 chunks
+    (1, 2048, 64, 64, 128, 256),    # Mamba2-1.3B's layer at S = 2,048
+])
+def test_ssd_scan_on_card_equals_cpu(cuda, b, s, h, p, n, chunk):
+    from repro_torch.models import mamba
+    rng = np.random.default_rng(s)
+    args = [rng.normal(size=(b, s, h, p)),
+            rng.uniform(0.05, 1.5, size=(b, s, h)),
+            -rng.uniform(0.5, 1.5, size=(h,)),
+            rng.normal(size=(b, s, n)), rng.normal(size=(b, s, n))]
+    args = [torch.from_numpy(a.astype(np.float32)) for a in args]
+    s0 = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(np.float32))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = mamba.ssd_scan(*args, chunk, s0=s0)
+    got = mamba.ssd_scan(*(a.to(cuda) for a in args), chunk, s0=s0.to(cuda))
+    for g, w in zip(got, want):
+        err = float((g.cpu() - w).abs().max() / w.abs().max())
+        assert err <= 2e-4
+    if s <= 300:                    # and the recurrence on the card
+        y, st = mamba.ssd_recurrence(*(a.to(cuda) for a in args),
+                                     s0=s0.to(cuda))
+        assert float((y.cpu() - want[0]).abs().max()
+                     / want[0].abs().max()) <= 2e-4
+
+
+def test_ssd_scan_refuses_tf32_on_the_card(cuda, monkeypatch):
+    from repro_torch.models import mamba
+    x = torch.zeros(1, 4, 2, 3, device=cuda)
+    dt = torch.ones(1, 4, 2, device=cuda)
+    A = -torch.ones(2, device=cuda)
+    B = C = torch.zeros(1, 4, 5, device=cuda)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        mamba.ssd_scan(x, dt, A, B, C, 4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
+                                  "whisper-small", "llava-next-34b"])
+def test_family_prefill_and_decode_on_card_equal_cpu(cuda, arch):
+    """Each family's smoke model served on the card (bf16, the flash
+    kernel) against the same served on the CPU: logits within 2e-2 of max
+    |logit| (the bf16 bound of the model tests), teacher-forced on the
+    CPU's tokens; the kernel launched the family's count a prefill."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import init_params, tree_map
+    from repro_torch.serve.serve_step import Generator
+    cfg = get_smoke_config(arch)
+    cpu_model = build_model(cfg, device="cpu")
+    params = init_params(cpu_model.specs, torch.Generator().manual_seed(0),
+                         "cpu")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (2, 40))
+    prefix = (None if cfg.frontend == "none" else torch.from_numpy(
+        rng.normal(size=(2, cfg.n_prefix, cfg.d_model)).astype(np.float32)))
+    max_seq = 48 + (cfg.n_prefix if cfg.family == "vlm" else 0)
+    want = []
+    want_toks = Generator(recording(cpu_model, want), params,
+                          max_seq=max_seq, device="cpu").generate(
+        prompts, steps=6, prefix=prefix)
+    got = []
+    before = flash_attention.launches
+    Generator(recording(build_model(cfg, device=cuda), got, forced=want_toks),
+              tree_map(lambda t: t.to(cuda), params), max_seq=max_seq,
+              device=cuda).generate(
+        prompts, steps=6, prefix=None if prefix is None else prefix.to(cuda))
+    launches = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+                "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+                    cfg.family, cfg.n_layers)
+    assert flash_attention.launches == before + launches
+    want, got = torch.stack(want, dim=1), torch.stack(got, dim=1).cpu()
+    err = (got - want).abs().max() / want.abs().max()
+    assert float(err) <= 2e-2

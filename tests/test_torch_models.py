@@ -1,12 +1,17 @@
-"""The port's decoder (dense and MoE) against the JAX package's, on the CPU.
+"""The port's models against the JAX package's, on the CPU: every family.
 
 The JAX package's ``init_params(PRNGKey(0))`` is carried over with
 ``convert.params_from_numpy``; both packages then run the same prefill and
-three teacher-forced decode steps on the same numpy-seeded tokens, at the
-four dense smoke configs (llama; qwen with ``qkv_bias``; glm4 with kv = 2;
-gemma with ``geglu``, tied embeddings and ``head_dim``) and the two MoE
-smoke configs (qwen3-moe, kimi-k2), whose routes are recorded in both
-packages: equal in f32, and a bf16 case names any route that flipped.
+three teacher-forced decode steps on the same numpy-seeded tokens (and,
+for ``vlm`` and ``encdec``, the same numpy-seeded ``prefix``), at the four
+dense smoke configs (llama; qwen with ``qkv_bias``; glm4 with kv = 2;
+gemma with ``geglu``, tied embeddings and ``head_dim``), the two MoE smoke
+configs (qwen3-moe, kimi-k2), whose routes are recorded in both packages:
+equal in f32, and a bf16 case names any route that flipped, and the
+``ssm`` (mamba2), ``hybrid`` (zamba2), ``encdec`` (whisper) and ``vlm``
+(llava) smoke configs.  Every cache tensor of a family is compared (``k``,
+``v``, the SSM's ``s`` and ``conv``, the cross-attention's ``xk`` and
+``xv``).
 
 Tolerances, relative to max |logit|.  f32 (the parameters cast): 1e-4;
 the two packages differ only in the order of f32 sums.  bf16: 2e-2, the
@@ -14,9 +19,14 @@ JAX package's own bf16 bound for attention
 (``tests/test_flash_attention.py``): the packages round products and
 activations to bf16 at the same places, but the f32 sums under them run
 in other orders, and a value near a rounding edge can land on the
-neighbouring bf16 value.  The cache is bf16 in both dtypes, so an element
-may land one bf16 step (2**-8 of it) away in f32 too: it is compared at
-2**-8 of its largest magnitude in f32, 2e-2 in bf16.
+neighbouring bf16 value.  The K/V caches are bf16 in both dtypes, so an
+element may land one bf16 step (2**-8 of it) away in f32 too: every cache
+tensor is compared at 2**-8 of its largest magnitude in f32, 2e-2 in bf16.
+
+The JAX ``encdec`` refuses f32 parameters: its encoder's ``lax.scan``
+carries the bf16 frames, and the first layer returns f32 (ROADMAP queue
+3).  Its f32 cases run the JAX code with ``lax.scan`` unrolled into a
+Python loop (``loop_scan``), which computes what the scan would.
 """
 
 import numpy as np
@@ -35,12 +45,14 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import build_model
 from repro_torch.models import layers as TL
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.model import NOT_PORTED
+from repro_torch.models.model import FAMILIES, NOT_PORTED
 
 torch.set_num_threads(1)
 
 DENSE = ["llama3.2-3b", "qwen1.5-4b", "glm4-9b", "gemma-7b"]
 MOE = ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"]
+# one each of the ssm, hybrid, encdec and vlm families
+OTHER = ["mamba2-1.3b", "zamba2-2.7b", "whisper-small", "llava-next-34b"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": 1e-4, "bf16": 2e-2}          # relative to max |logit|
@@ -65,6 +77,35 @@ def _both(arch, dtype):
     tparams = params_from_numpy(jax.tree.map(np.asarray, rparams), "cpu",
                                 dtype=tdt)
     return rcfg, rmodel, rparams, tmodel, tparams
+
+
+def loop_scan(f, init, xs, length=None):
+    """``jax.lax.scan`` as a Python loop: the same carry and stacked
+    outputs, and a carry whose dtype changes is let through."""
+    carry, ys = init, []
+    for i in range(jax.tree.leaves(xs)[0].shape[0]):
+        carry, y = f(carry, jax.tree.map(lambda a: a[i], xs))
+        ys.append(y)
+    return carry, jax.tree.map(lambda *a: jnp.stack(a), *ys)
+
+
+@pytest.fixture
+def jax_f32_encdec(monkeypatch):
+    """Call with (cfg, dtype) before running the JAX package: an f32
+    encdec runs with ``lax.scan`` unrolled (see the module docstring)."""
+    def use(cfg, dtype):
+        if cfg.family == "encdec" and dtype == "f32":
+            monkeypatch.setattr(jax.lax, "scan", loop_scan)
+    return use
+
+
+def _prefix(rng, cfg, B):
+    """A numpy-seeded ``prefix`` [B, n_prefix, d_model] f32 for a config
+    with a front end (None otherwise), drawn as ``tests/test_arch_smoke.py``
+    draws it: standard normal."""
+    if cfg.frontend == "none":
+        return None
+    return rng.normal(size=(B, cfg.n_prefix, cfg.d_model)).astype(np.float32)
 
 
 @pytest.fixture
@@ -106,13 +147,21 @@ def _flipped(routes) -> int:
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("arch", DENSE + MOE)
-def test_prefill_and_decode_match_jax(arch, dtype, routes):
+@pytest.mark.parametrize("arch", DENSE + MOE + OTHER)
+def test_prefill_and_decode_match_jax(arch, dtype, routes, jax_f32_encdec):
     cfg, rmodel, rparams, tmodel, tparams = _both(arch, dtype)
+    jax_f32_encdec(cfg, dtype)
     rng = np.random.default_rng(7)
     B, S, steps = 2, 11, 3
     tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     forced = rng.integers(0, cfg.vocab, (B, steps)).astype(np.int32)
+    prefix = _prefix(rng, cfg, B)
+    r_batch, t_batch = {"tokens": jnp.asarray(tokens)}, {"tokens": tokens}
+    if prefix is not None:
+        r_batch["prefix"], t_batch["prefix"] = jnp.asarray(prefix), prefix
+    # a vlm's prefix takes the first positions of the sequence
+    pos0 = S + (cfg.n_prefix if cfg.family == "vlm" else 0)
+    max_seq = MAX_SEQ + pos0 - S
     tol = TOL[dtype]
 
     def where(what):
@@ -123,19 +172,23 @@ def test_prefill_and_decode_match_jax(arch, dtype, routes):
         assert n == 0 or dtype == "bf16", f"{what}: f32 routes differ at {n}"
         return f"{what}: {n} bf16 routes flipped"
 
-    r_logits, r_cache = rmodel.prefill_fn(rparams, {"tokens": jnp.asarray(tokens)},
-                                          MAX_SEQ)
-    t_logits, t_cache = tmodel.prefill_fn(tparams, {"tokens": tokens}, MAX_SEQ)
+    def caches_agree(what):
+        assert sorted(t_cache) == sorted(r_cache), what
+        for name, want in r_cache.items():
+            got = t_cache[name]
+            assert str(got.dtype).split(".")[1] == want.dtype.name, name
+            assert tuple(got.shape) == tuple(want.shape), name
+            assert _rel_err(got.float(), np.asarray(want, np.float32)) \
+                <= CACHE_TOL[dtype], f"{what}: {name}"
+
+    r_logits, r_cache = rmodel.prefill_fn(rparams, r_batch, max_seq)
+    t_logits, t_cache = tmodel.prefill_fn(tparams, t_batch, max_seq)
     assert t_logits.dtype == torch.float32
     assert _rel_err(t_logits, r_logits) <= tol, where("prefill")
-    for name in ("k", "v"):
-        assert t_cache[name].dtype == torch.bfloat16
-        assert tuple(t_cache[name].shape) == tuple(r_cache[name].shape)
-        assert _rel_err(t_cache[name].float(),
-                        np.asarray(r_cache[name], np.float32)) <= CACHE_TOL[dtype]
+    caches_agree("prefill")
 
     for i in range(steps):
-        pos = np.full((B,), S + i, np.int32)
+        pos = np.full((B,), pos0 + i, np.int32)
         tok = forced[:, i:i + 1]
         r_logits, r_cache = rmodel.decode_fn(rparams, r_cache, jnp.asarray(tok),
                                              jnp.asarray(pos))
@@ -143,9 +196,7 @@ def test_prefill_and_decode_match_jax(arch, dtype, routes):
         assert _rel_err(t_logits, r_logits) <= tol, where(f"step {i}")
     if cfg.family == "moe":
         assert routes[1] and where("the end")
-    for name in ("k", "v"):
-        assert _rel_err(t_cache[name].float(),
-                        np.asarray(r_cache[name], np.float32)) <= CACHE_TOL[dtype]
+    caches_agree(f"after {steps} steps")
 
 
 def test_padded_vocab_rows_are_masked():
@@ -176,12 +227,41 @@ def test_params_from_numpy_is_exact_for_bf16():
         assert bool(jnp.array_equal(back, leaf)), path
 
 
-@pytest.mark.parametrize("family_arch", ["mamba2-1.3b", "zamba2-2.7b",
-                                         "whisper-small", "llava-next-34b"])
-def test_other_families_are_not_ported(family_arch):
-    cfg = get_smoke_config(family_arch)
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+def test_unknown_family_raises():
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-3b"), family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
         build_model(cfg, device="cpu")
+
+
+def _spec_count(cfg) -> int:
+    """What the spec tree holds beyond ``param_count()``: the final norm's
+    d_model weights (an encdec's encoder norm too), and an SSM layer's
+    ``dt_bias`` (``param_count()`` counts 2 of its 3 per-head vectors)."""
+    extra = cfg.d_model * (2 if cfg.family == "encdec" else 1)
+    if cfg.family in ("ssm", "hybrid"):
+        extra += cfg.n_layers * cfg.ssm_heads
+    return cfg.param_count() + extra
+
+
+def _specs_match_jax(arch):
+    """The spec trees of both packages' smoke models hold the same leaves,
+    shapes, inits and scales (logical axes may differ: the port's MoE
+    names its ``moe_ff`` axis, which the JAX package leaves unnamed)."""
+    rspecs = r_build(r_smoke(arch)).specs
+    tspecs = build_model(get_smoke_config(arch), device="cpu").specs
+    r_leaves = jax.tree_util.tree_leaves_with_path(
+        rspecs, is_leaf=lambda x: hasattr(x, "logical"))
+    t_leaves = []
+    from repro_torch.models.sharding import tree_map
+    tree_map(t_leaves.append, tspecs)
+    assert len(t_leaves) == len(r_leaves)
+    for path, leaf in r_leaves:
+        t = tspecs
+        for key in path:
+            t = t[key.key]
+        assert t.shape == leaf.shape and t.init == leaf.init, path
+        assert t.scale == leaf.scale, path
 
 
 @pytest.mark.parametrize("arch", MOE)
@@ -201,17 +281,107 @@ def test_build_model_admits_moe(arch):
     assert sum(n) == cfg.param_count() + d
     if arch == "qwen3-moe-30b-a3b":
         assert cfg.param_count() == 30_079_123_456
-    # the spec trees of both packages hold the same leaves and shapes
-    rspecs = r_build(r_smoke(arch)).specs
-    tspecs = build_model(get_smoke_config(arch), device="cpu").specs
-    r_leaves = jax.tree_util.tree_leaves_with_path(
-        rspecs, is_leaf=lambda x: hasattr(x, "logical"))
-    for path, leaf in r_leaves:
-        t = tspecs
-        for key in path:
-            t = t[key.key]
-        assert t.shape == leaf.shape and t.init == leaf.init, path
-        assert t.scale == leaf.scale, path
+    _specs_match_jax(arch)
+
+
+# the four families' full-width parameter counts (``param_count()``)
+FULL_WIDTH = {"mamba2-1.3b": 1_446_500_352, "zamba2-2.7b": 2_422_379_968,
+              "whisper-small": 334_514_688,
+              "llava-next-34b": 34_388_910_080}
+
+
+@pytest.mark.parametrize("arch", OTHER)
+def test_spec_tree_matches_jax(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import tree_map
+    cfg = get_config(arch)
+    specs = build_model(cfg, device="cpu").specs
+    n = []
+    tree_map(lambda s: n.append(int(np.prod(s.shape))), specs)
+    assert cfg.param_count() == FULL_WIDTH[arch]
+    assert sum(n) == _spec_count(cfg)
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        wz = specs["layers"]["mixer"]["wz"]
+        assert wz.shape == (groups, cfg.attn_every, cfg.d_model, cfg.d_inner)
+        assert wz.logical[:2] == ("layers", "layers")
+        assert specs["shared_attn"]["attn"]["wq"].shape == (
+            cfg.d_model, cfg.n_heads, cfg.resolved_head_dim)
+    if cfg.family == "encdec":
+        assert specs["enc_layers"]["attn"]["wq"].shape[0] == cfg.n_enc_layers
+        assert specs["dec_layers"]["xattn"]["wk"].shape[0] == cfg.n_layers
+    _specs_match_jax(arch)
+
+
+def test_every_family_builds_on_the_cpu():
+    from repro_torch.configs import get_smoke_config as smoke, list_archs
+    seen = {smoke(a).family for a in list_archs()}
+    assert seen == set(FAMILIES)
+    for arch in list_archs():
+        model = build_model(smoke(arch), device="cpu")
+        assert model.cfg.family in FAMILIES
+        with pytest.raises(NotImplementedError, match=NOT_PORTED):
+            model.loss_fn({}, {})           # training is item 15.4
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_decode_continues_the_prefill_state(arch):
+    """Decoding token S after an S-token prefill gives the logits of a
+    full (S+1)-token prefill: the prefill hands its real final SSM states
+    and conv tails to decode (``tests/test_mamba_ssd.py``'s check, at its
+    4e-2 in bf16, and in f32 at 1e-4)."""
+    from repro_torch.models.sharding import init_params, tree_map
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.specs, torch.Generator().manual_seed(0), "cpu")
+    B, S = 2, 12
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (B, S + 1))
+    for p, tol in ((params, 4e-2), (tree_map(lambda t: t.float(), params),
+                                    1e-4)):
+        full, _ = model.prefill_fn(p, {"tokens": toks}, 24)
+        _, cache = model.prefill_fn(p, {"tokens": toks[:, :S]}, 24)
+        dec, cache2 = model.decode_fn(p, cache, toks[:, S:],
+                                      np.full((B,), S, np.int64))
+        assert cache2 is cache                 # written in place
+        assert _rel_err(dec, full) <= tol
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-small"])
+def test_generator_with_prefix_matches_jax(arch, jax_f32_encdec):
+    """Greedy tokens of ``Generator.generate(prefix=)`` equal the JAX
+    ``Generator``'s in f32: a vlm decodes from S + n_prefix, an encdec from
+    S (a wrong first position moves RoPE, and the tokens)."""
+    from repro.serve.serve_step import Generator as RGen
+    from repro_torch.serve.serve_step import Generator
+    cfg, rmodel, rparams, tmodel, tparams = _both(arch, "f32")
+    jax_f32_encdec(cfg, "f32")
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)
+    prefix = _prefix(rng, cfg, 2)
+    max_seq = 9 + 8 + (cfg.n_prefix if cfg.family == "vlm" else 0)
+    want = RGen(rmodel, rparams, max_seq=max_seq).generate(
+        tokens, 8, prefix=prefix)
+    got = Generator(tmodel, tparams, max_seq=max_seq, device="cpu").generate(
+        tokens, 8, prefix=prefix)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    positions = []
+    logged = tmodel._replace(decode_fn=lambda p, c, t, pos: (
+        positions.append(int(pos[0])), tmodel.decode_fn(p, c, t, pos))[1])
+    Generator(logged, tparams, max_seq=max_seq, device="cpu").generate(
+        tokens, 3, prefix=prefix)
+    first = 9 + (cfg.n_prefix if cfg.family == "vlm" else 0)
+    assert positions == [first, first + 1, first + 2]
+
+
+@pytest.mark.parametrize("arch", OTHER)
+def test_batcher_refuses_the_other_families(arch):
+    from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.models.sharding import init_params
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.specs, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        ContinuousBatcher(model, params, n_slots=2, max_seq=32)
 
 
 def test_loss_is_not_ported():
@@ -312,12 +482,18 @@ def test_decode_attention(arch):
                                   np.asarray(jcv, np.float32))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "glm4-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "glm4-9b",
+                                  "zamba2-2.7b", "mamba2-1.3b",
+                                  "whisper-small"])
 def test_init_params_draws_stacked_leaves_one_layer_at_a_time(arch,
                                                               monkeypatch):
+    """A leaf stacked over the layers is drawn one layer at a time; the
+    hybrid's ``[groups, attn_every, ...]`` leaves (both axes ``"layers"``)
+    one group at a time, the whole ``[attn_every, ...]`` block a draw."""
     import dataclasses
     from repro_torch.models.sharding import init_params, tree_map
-    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=3)
+    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=3 * max(cfg.attn_every, 1))
     model = build_model(cfg, device="cpu")
     drawn = []
     randn = torch.randn
