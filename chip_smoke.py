@@ -229,9 +229,10 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      decode step's bound reading every expert and reading only the
      experts with a kept slot, the batcher's requests/s, and the bytes
      held before the init, the weights' and the peak.
-  10. the port's six examples (``examples_torch/``) run in process on the
-     card and on the CPU: the same printed counts (times and sampled
-     tokens left out).
+  10. the port's seven examples (``examples_torch/``) run in process on
+     the card and on the CPU: the same printed counts (times, sampled
+     tokens, training losses and checkpoint paths left out;
+     ``pruned_pretraining`` with a short argv, ``EXAMPLE_ARGV``).
   11. (run after phase 10, its memory freed) the other four families at
      full width, each model drawn by ``init_params`` from ``--seed`` in
      bf16, served through the ``Generator`` and freed before the next:
@@ -259,6 +260,30 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      beside the bytes a decode step must read (weights, SSM state, K/V,
      cross K/V) over the memory rate, Mamba2's decode step after 32,768
      tokens beside the one after 2,048, weight bytes and peak memory.
+
+  12. (run after phase 11, its memory freed) training at full width:
+     Llama-3.2-3B (``get_config("llama3.2-3b")``, all 28 layers, remat,
+     bf16 parameters from ``init_params`` seeded by ``--seed``, f32 AdamW
+     moments) on the first batch of a ``PrunedDataLoader`` over the
+     curated corpus (4 sequences of 4,096 tokens, 2 microbatches of 2),
+     checks in this order: (a) ``flash_attention`` launched twice a layer
+     a microbatch (the forward and the remat recompute), 112 a step; (b)
+     one microbatch's bf16 gradients finite and non-zero in every leaf and
+     within ``TRAIN_VS_F32_TOL`` of the f32 gradients with the plain
+     attention, while the control with the kernel's output detached (F3)
+     leaves wq, wk, wv off by at least 0.99; (c) layer 0's attention
+     backward (BH = 48, S = 4,096, D = 128) against autograd of the plain
+     attention, and the kernel's forward against its plain version; (d)
+     the loss falling over 5 steps of ``make_train_step(AdamW(lr=1e-3),
+     microbatches=2)``; (e) the first AdamW update of layer 0's wq and of
+     the embedding equal to the CPU's within 1 ulp; (f) the port's
+     ``launch.train`` restart drill at its default_config (stopped at
+     step 6, resumed from step 5 with its state restored bit for bit,
+     losses within 1e-3 of an uninterrupted run's, a checkpoint restored
+     on the CPU bit for bit).  Then the step's time, tokens/s and 6ND
+     share, its split (forward, recompute, plain attention backward, the
+     rest of the backward, the update) and peak memory.  Bounds and
+     reasons at ``TRAIN_VS_F32_TOL``.
 
 Phases 3, 4, 6 and 8 run their services with the verdict cache off, so
 that every batch launches its table groups' kernels.
@@ -3977,20 +4002,27 @@ def recording_batcher(model, params, **kw):
     return batcher, seen
 
 
-class attention_as:
-    """``with attention_as(fn):`` the layers call ``fn`` in place of
-    ``ops.flash_attention`` (they look it up on ``ops`` at each call)."""
+class swapped:
+    """``with swapped(module, name, fn):`` ``module.name`` is ``fn`` (code
+    that looks it up at each call sees it)."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, module, name: str, fn):
+        self.module, self.name, self.fn = module, name, fn
 
     def __enter__(self):
-        from repro_torch.kernels import ops
-        self.kernel, ops.flash_attention = ops.flash_attention, self.fn
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.fn)
+        return self.real
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import ops
-        ops.flash_attention = self.kernel
+        setattr(self.module, self.name, self.real)
+
+
+def attention_as(fn) -> swapped:
+    """``with attention_as(fn):`` the layers call ``fn`` in place of
+    ``ops.flash_attention`` (they look it up on ``ops`` at each call)."""
+    from repro_torch.kernels import ops
+    return swapped(ops, "flash_attention", fn)
 
 
 def teacher_forced_err(model, params, max_seq: int, finished, seen, rids,
@@ -4710,33 +4742,52 @@ def phase_moe(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
 # ---------------------------------------------------------------------------
 
 EXAMPLES = ("quickstart", "fleet_serving", "resilient_serving",
-            "streaming_ingest", "sublinear_pruning", "topk_serving")
+            "streaming_ingest", "sublinear_pruning", "topk_serving",
+            "pruned_pretraining")
+# the examples run with a short argv (a fresh --ckpt-dir is added)
+EXAMPLE_ARGV = {"pruned_pretraining": ["--steps", "4", "--batch", "2",
+                                       "--seq", "32"]}
 # left out of the comparison of an example's lines: wall times and
-# speed-ups (the host clock) and sampled tokens (the CPU's and the card's
-# torch.Generator draw other numbers)
+# speed-ups (the host clock), sampled tokens and training losses (the
+# CPU's and the card's torch.Generator draw other numbers) and the
+# checkpoint directory
 EXAMPLE_NOT_COMPARED = (
     (r"flat\s+[\d.]+ ms\s+tree\s+[\d.]+ ms\s+\(\s*[\d.]+x,",
      "flat <ms> tree <ms> (<speed-up>,"),
     (r" in \d+ ms$", " in <ms>"),
     (r"sample: \[[\d, ]*\]", "sample: <tokens>"),
+    (r"loss=[\d.]+ \([\d.]+s/step\)", "loss=<loss> (<s>/step)"),
+    (r"first loss [\d.]+ -> last [\d.]+", "first loss <loss> -> last <loss>"),
+    (r"checkpoint -> .*/step_", "checkpoint -> <dir>/step_"),
 )
 
 
 def example_lines(name: str, device: str):
-    """(the lines example ``name`` prints on ``device``, with times and
-    sampled tokens replaced by stand-ins; seconds it took)."""
+    """(the lines example ``name`` prints on ``device``, with times,
+    sampled tokens, losses and paths replaced by stand-ins; seconds it
+    took)."""
     import contextlib
     import importlib.util
     import io
     import re
+    import shutil
+    import tempfile
     spec = importlib.util.spec_from_file_location(
         f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     buf = io.StringIO()
+    tmp = tempfile.mkdtemp(prefix=f"{name}_")
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        mod.main(device=device)
+    try:
+        with contextlib.redirect_stdout(buf):
+            if name in EXAMPLE_ARGV:
+                mod.main(EXAMPLE_ARGV[name] + ["--ckpt-dir", tmp],
+                         device=device)
+            else:
+                mod.main(device=device)
+    finally:
+        shutil.rmtree(tmp)
     s = time.perf_counter() - t0
     lines = []
     for line in buf.getvalue().splitlines():
@@ -4747,9 +4798,10 @@ def example_lines(name: str, device: str):
 
 
 def phase_examples(card: str, dev) -> dict:
-    """Phase 10: each of the port's six examples run in process on the card
-    (``main(device="cuda")``) and on the CPU; every printed count (
-    partitions, bytes, hits, evictions, retries, ...) must be the same."""
+    """Phase 10: each of the port's seven examples run in process on the
+    card (``main(device="cuda")``) and on the CPU; every printed count (
+    partitions, bytes, hits, evictions, retries, curated shards,
+    checkpoints, ...) must be the same."""
     out = {}
     for name in EXAMPLES:
         got, s_card = example_lines(name, dev.type)
@@ -4832,20 +4884,11 @@ def plain_attention(q, k, v, causal=True):
                       for i in range(0, q.shape[0], n)])
 
 
-class scan_as:
+def scan_as(fn) -> swapped:
     """``with scan_as(fn):`` the Mamba2 mixer calls ``fn(x, dt, A, B, C,
     chunk)`` in place of ``mamba.ssd_scan`` (looked up at each call)."""
-
-    def __init__(self, fn):
-        self.fn = fn
-
-    def __enter__(self):
-        from repro_torch.models import mamba
-        self.scan, mamba.ssd_scan = mamba.ssd_scan, self.fn
-
-    def __exit__(self, *exc):
-        from repro_torch.models import mamba
-        mamba.ssd_scan = self.scan
+    from repro_torch.models import mamba
+    return swapped(mamba, "ssd_scan", fn)
 
 
 def recurrence_scan(x, dt, A, B, C, chunk, s0=None):
@@ -5288,6 +5331,517 @@ def phase_families(seed: int, card: str, dev, cfgs=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: Llama-3.2-3B training at full width
+# ---------------------------------------------------------------------------
+# get_config("llama3.2-3b"): every layer, bf16 parameters from --seed, f32
+# AdamW moments.  Cut: the global batch is 4 sequences of 4,096 tokens
+# (train_4k's 256), run as 2 microbatches of 2; the full-width checkpoint
+# round trip is left out (36 GB of npz a save), the restart drill runs at
+# the driver's default_config.
+
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_TRAFFIC = dict(B=4, S=4096, micro=2, steps=5)
+TRAIN_LR = 1e-3
+# Agreement bounds of phase 12, each |g - g32| / |g32| in the 2-norm of a
+# leaf (g32 the reference side):
+#  (b) one microbatch's bf16 gradients (the kernel's forward, the plain
+#      backward) against the f32 gradients from an f32 copy of the
+#      parameters with the plain attention in BH blocks and TF32 off:
+#      TRAIN_VS_F32_TOL by leaf (the default under ""), for the reason of
+#      phase 5's SERVE_VS_F32_TOL: bf16 rounds the residual stream at each
+#      of the 56 adds and the activations' gradients at each product, and
+#      28 random layers grow each rounding.  Its control, the same bf16
+#      step with the kernel's output detached (F3's fault), must leave
+#      wq, wk and wv at least TRAIN_CONTROL_MIN off (they get no
+#      gradient: 1.0);
+#  (c) the attention backward at layer 0 (BH = 48, S = 4,096, D = 128):
+#      the Function's plain backward in f32 against torch.autograd.grad of
+#      the plain forward within ATTN_BWD_TOL of max |.| (both f32 plain
+#      code, sums in other orders), its bf16 gradients within a bf16 step
+#      (2**-8) of max |.|, and the kernel's forward within
+#      FLASH_TOL["bfloat16"] of its plain version;
+#  (d) the loss falls by at least TRAIN_LOSS_DROP nat over the steps
+#      (weight decay alone moves it by ~1e-4);
+#  (e) the card's first AdamW update of layer 0's wq and of embed against
+#      the same update on CPU copies: m and v within 1 f32 ulp, the
+#      parameters within 1 bf16 ulp (pow and the global norm may round
+#      the last place differently);
+#  (f) the restart drill's restored state equal bit for bit to the saved
+#      one, its resumed losses within DRILL_LOSS_TOL of an uninterrupted
+#      run's (the card's embedding backward sums in no fixed order).
+#      Set from run 1 (seed 0, an H100; PERF.md): every leaf 1.52e-2
+#      (final_norm) to 4.95e-2 (wq), the embedding 4.59e-2 among them, so
+#      one bound of about 2x the largest serves every leaf; the detached
+#      control reads 1.0.
+TRAIN_VS_F32_TOL = {"": 1e-1}
+TRAIN_CONTROL_MIN = 0.99
+ATTN_BWD_TOL = 1e-5
+TRAIN_LOSS_DROP = 0.1
+DRILL_ARGV = ["--steps", "10", "--ckpt-every", "5", "--batch", "2",
+              "--seq", "32", "--log-every", "5"]
+DRILL_FAIL_AT = 6
+DRILL_LOSS_TOL = 1e-3
+
+
+def named_leaves(tree, prefix: str = "") -> list:
+    """(path, leaf) of a parameter tree in ``tree_leaves``'s order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{prefix}/{k}" if prefix
+                                      else k)]
+    return [(prefix, tree)]
+
+
+def state_leaves(state) -> list:
+    """(path, tensor) of every leaf of a TrainState."""
+    out = [(f"params/{n}", t) for n, t in named_leaves(state.params)]
+    out.append(("opt/step", state.opt.step))
+    out += [(f"opt/m/{n}", t) for n, t in named_leaves(state.opt.m)]
+    out += [(f"opt/v/{n}", t) for n, t in named_leaves(state.opt.v)]
+    if state.error is not None:
+        out += [(f"error/{n}", t) for n, t in named_leaves(state.error)]
+    return out
+
+
+def cpu_state(state):
+    """A CPU copy of a TrainState."""
+    from repro_torch.models.sharding import tree_map
+    cp = lambda t: t.detach().to("cpu", copy=True)
+    opt = type(state.opt)(cp(state.opt.step), tree_map(cp, state.opt.m),
+                          tree_map(cp, state.opt.v))
+    return type(state)(tree_map(cp, state.params), opt,
+                       None if state.error is None
+                       else tree_map(cp, state.error))
+
+
+def same_bits(a, b) -> bool:
+    """The same dtype, shape and bytes."""
+    import torch
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def grads_with_attention(model, params, batch, attention):
+    """{leaf path: gradient} of ``model.loss_fn`` with ``attention`` in
+    place of ``ops.flash_attention``; a leaf the loss reaches through no
+    differentiable path gets zeros."""
+    import torch
+
+    from repro_torch.models.sharding import tree_leaves, tree_unflatten
+    names = [n for n, _ in named_leaves(params)]
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with attention_as(attention), torch.enable_grad():
+        loss, _ = model.loss_fn(tree_unflatten(params, leaves), batch)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g
+            for n, p, g in zip(names, leaves, gs)}
+
+
+def within_ulp(got, want, bf16: bool) -> bool:
+    """|got - want| <= one ulp (of f32, or of bf16) at their larger
+    magnitude, elementwise, in f64."""
+    import torch
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - (7 if bf16 else 23))
+    return bool(((g - w).abs() <= ulp).all())
+
+
+def split_step(model, opt, state, parts, dev):
+    """One instrumented step: (host ms (between synchronisations) of the
+    forward, the remat recompute, the plain attention backward, the rest
+    of the backward and the optimizer update, over the microbatches
+    ``parts``; the peak bytes allocated in the forward, the backward and
+    the update)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import tree_leaves, tree_unflatten
+    ms = dict(forward=0.0, recompute=0.0, attention_backward=0.0,
+              rest_of_backward=0.0, update=0.0)
+    in_backward = [False]
+
+    def timed(key, fn):
+        # a recompute ends in an exception once the backward has what it
+        # needs (the checkpoint's early stop): time it in ``finally``
+        def run(*a):
+            sync(dev)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                sync(dev)
+                if key != "recompute" or in_backward[0]:
+                    ms[key] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    peaks = dict(forward=0, backward=0, update=0)
+
+    def peak(key):
+        peaks[key] = max(peaks[key], torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    params = state.params
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in tree_leaves(params)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with swapped(M, "_decoder_layer", timed("recompute", M._decoder_layer)), \
+            swapped(fa_mod, "flash_attention_bwd_ref",
+                    timed("attention_backward",
+                          fa_mod.flash_attention_bwd_ref)):
+        for part in parts:
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tree_leaves(params)]
+            in_backward[0] = False
+            with torch.enable_grad():
+                sync(dev)
+                t0 = time.perf_counter()
+                loss, _ = model.loss_fn(tree_unflatten(params, leaves), part)
+                sync(dev)
+                ms["forward"] += (time.perf_counter() - t0) * 1e3
+                peak("forward")
+                in_backward[0] = True
+                t0 = time.perf_counter()
+                gs = torch.autograd.grad(loss, leaves)
+                sync(dev)
+                ms["rest_of_backward"] += (time.perf_counter() - t0) * 1e3
+                peak("backward")
+            for a, g in zip(acc, gs):
+                a.add_(g)
+            del gs, loss, leaves
+    ms["rest_of_backward"] -= ms["recompute"] + ms["attention_backward"]
+    for a in acc:
+        a.div_(len(parts))
+    ms["update"] = host_ms(lambda: opt.update(
+        tree_unflatten(params, acc), state.opt, params), dev)
+    peak("update")
+    return ms, peaks
+
+
+def phase_train(seed: int, card: str, dev, cfg=None, B: int = 4,
+                S: int = 4096, micro: int = 2, steps: int = 5,
+                drill=DRILL_ARGV) -> dict:
+    """Phase 12: Llama-3.2-3B (or ``cfg``, a rehearsal's) trained at full
+    width on the pruned-data loader's first batch (``B`` sequences of
+    ``S`` tokens in ``micro`` microbatches, ``steps`` steps), with checks
+    (a)-(f), then the restart drill of the port's driver at its
+    default_config."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (PrunedDataLoader, curate,
+                                           make_corpus_metadata)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as driver
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import layer_params
+    from repro_torch.models.sharding import init_params, tree_bytes, tree_map
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamW, AdamWState, global_norm
+    from repro_torch.train.train_step import (TrainState, loss_and_grads,
+                                              make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(model.specs, gen, device=dev)
+    sync(dev)
+    n_params = cfg.param_count()
+    weight_bytes = tree_bytes(params)
+    log(f"[train] {card}: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}, head dim "
+        f"{cfg.resolved_head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"remat {cfg.remat}: {n_params:,} parameters, {weight_bytes:,} "
+        f"bytes in bf16, made from seed {seed} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the traffic: the paper's engine curates the corpus, the loader hands
+    # out its first batch
+    meta = make_corpus_metadata(np.random.default_rng(seed), n_shards=512,
+                                docs_per_shard=16)
+    scan, report = curate(meta, driver.CURATION_PRED)
+    loader = PrunedDataLoader(scan, worker=0, n_workers=1, batch_size=B,
+                              seq_len=S, vocab=cfg.vocab, seed=seed)
+    batch = next(iter(loader))
+    mb0 = {k: v[:B // micro] for k, v in batch.items()}
+    log(f"[train] {card}: curation kept {report.shards_selected} of "
+        f"{report.shards_total} shards; batch {B} x {S} tokens in {micro} "
+        f"microbatches")
+    fa = ops.flash_attention
+    per_mb = flash_per_prefill(cfg) * (2 if cfg.remat else 1)
+
+    # (a), (b): one microbatch's bf16 gradients at step 0
+    fa.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    loss0, _, g = loss_and_grads(model, params, mb0)
+    sync(dev)
+    mb_ms = (time.perf_counter() - t0) * 1e3
+    if fa.launches != per_mb:
+        raise SystemExit(f"phase 12 (a): flash_attention launched "
+                         f"{fa.launches} times in a microbatch's forward and "
+                         f"backward, not {per_mb}")
+    g = dict(named_leaves(g))
+    dead = [n for n, t in g.items() if not bool(torch.isfinite(t).all())
+            or not bool(t.abs().max() > 0)]
+    if dead:
+        raise SystemExit(f"phase 12 (b): leaves with a non-finite or zero "
+                         f"gradient: {dead}")
+    attn_leaves = [n for n in g if n.split("/")[-1] in ("wq", "wk", "wv")]
+
+    def detached(q, k, v, causal=True):
+        with torch.no_grad():          # the kernel's output, no history
+            return fa(q, k, v, causal=causal)
+
+    ctl = grads_with_attention(model, params, mb0, detached)
+    ctl = {n: ctl[n] for n in attn_leaves}
+    t0 = time.perf_counter()
+    p32 = tree_map(lambda t: t.float(), params)
+    g32 = grads_with_attention(model, p32, mb0, plain_attention)
+    del p32
+    sync(dev)
+    ref_s = time.perf_counter() - t0
+    errs = {n: rms_err(g[n], g32[n]) for n in g}
+    ctl_errs = {n: rms_err(ctl[n], g32[n]) for n in attn_leaves}
+    del g, g32, ctl
+    gc.collect()
+    for n, e in errs.items():
+        log(f"[train] {card}: (b) {n}: bf16 vs f32 gradient {e:.4e} "
+            f"(bound {TRAIN_VS_F32_TOL.get(n, TRAIN_VS_F32_TOL[''])})"
+            + (f", kernel output detached {ctl_errs[n]:.4e}"
+               if n in ctl_errs else ""))
+    over = {n: e for n, e in errs.items()
+            if not e <= TRAIN_VS_F32_TOL.get(n, TRAIN_VS_F32_TOL[""])}
+    if over:
+        raise SystemExit(f"phase 12 (b): gradients outside their bound: "
+                         f"{over}")
+    inside = {n: e for n, e in ctl_errs.items() if not e >= TRAIN_CONTROL_MIN}
+    if inside:
+        raise SystemExit(f"phase 12 (b): the detached control's attention "
+                         f"gradients are not off: {inside}")
+    torch.cuda.empty_cache()
+
+    # (c) the attention backward at layer 0's q, k, v
+    with torch.no_grad():
+        lp = layer_params(params, 0)
+        x = params["embed"][mb0["tokens"].to(dev).long()]
+        positions = torch.arange(S, device=dev)[None, :]
+        q, k, v = L.qkv_project(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
+                                positions)
+        k, v = (L._expand_kv(t, cfg.n_heads) for t in (k, v))
+        q, k, v = (t.transpose(1, 2).contiguous().view(-1, S, t.shape[-1])
+                   for t in (q, k, v))
+        del x
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    fwd_err = require_close("flash_attention", fa(q, k, v, causal=True),
+                            plain_attention(q, k, v), FLASH_TOL["bfloat16"],
+                            f"phase 12 (c), {tuple(q.shape)}")
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fa(*qkv, causal=True)
+    sync(dev)
+    t0 = time.perf_counter()
+    got = torch.autograd.grad(o, qkv, do)
+    sync(dev)
+    attn_bwd_ms = (time.perf_counter() - t0) * 1e3
+    del o, qkv
+    f32 = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(plain_attention(*f32), f32, do.float())
+    plain = ref.flash_attention_bwd_ref(*(t.detach() for t in f32),
+                                        do.float(), True)
+    bwd_err = max(rel_err(p, w) for p, w in zip(plain, want))
+    bwd_bf16_err = max(rel_err(a.float(), w) for a, w in zip(got, want))
+    del f32, want, plain, got, q, k, v, do
+    if not (bwd_err <= ATTN_BWD_TOL and bwd_bf16_err <= 2.0 ** -8):
+        raise SystemExit(f"phase 12 (c): the attention backward is "
+                         f"{bwd_err:.3e} (f32, bound {ATTN_BWD_TOL}) and "
+                         f"{bwd_bf16_err:.3e} (bf16, bound 2**-8) from "
+                         f"autograd of the plain attention")
+    log(f"[train] {card}: (c) layer 0's attention at BH = "
+        f"{B // micro * cfg.n_heads}, S = {S}: kernel forward within "
+        f"{FLASH_TOL['bfloat16']} (max abs err {fwd_err:.3e}); plain "
+        f"backward {attn_bwd_ms:.1f} ms, {bwd_err:.3e} (f32) and "
+        f"{bwd_bf16_err:.3e} (bf16) from autograd of the plain attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d), (e): AdamW and the train step on the batch, 5 steps
+    opt = AdamW(lr=lambda s: TRAIN_LR)
+    state = TrainState(params, opt.init(params))
+    step_fn = make_train_step(model, opt, microbatches=micro)
+    first = {}
+    pick = {"layers/attn/wq[0]": lambda t: t["layers"]["attn"]["wq"][0],
+            "embed": lambda t: t["embed"]}
+
+    def spy(self, grads, st, prm):
+        if not first:
+            cp = lambda t: t.detach().to("cpu", copy=True)
+            first["gnorm"] = cp(global_norm(grads))
+            first["step"] = cp(st.step)
+            for n, f in pick.items():
+                first[n] = {"g": cp(f(grads)), "m": cp(f(st.m)),
+                            "v": cp(f(st.v)), "p": cp(f(prm))}
+            out = real_update(self, grads, st, prm)
+            for n, f in pick.items():
+                first[n].update(m1=cp(f(out[1].m)), v1=cp(f(out[1].v)),
+                                p1=cp(f(out[0])))
+            return out
+        return real_update(self, grads, st, prm)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.launches = 0
+    losses, step_ms = [], []
+    with swapped(AdamW, "update", spy) as real_update:
+        for _ in range(steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            state, met = step_fn(state, batch)
+            losses.append(float(met["loss"]))
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != steps * micro * per_mb:
+        raise SystemExit(f"phase 12 (a): flash_attention launched {launches} "
+                         f"times in {steps} steps, not "
+                         f"{steps * micro * per_mb}")
+    if not losses[0] - losses[-1] >= TRAIN_LOSS_DROP:
+        raise SystemExit(f"phase 12 (d): the loss fell {losses[0]:.4f} -> "
+                         f"{losses[-1]:.4f}, less than {TRAIN_LOSS_DROP}")
+    scale = torch.clamp(opt.clip_norm / torch.clamp(first["gnorm"], min=1e-9),
+                        max=1.0)
+    cpu_opt = AdamW(lr=lambda s: TRAIN_LR, clip_norm=None)
+    opt_ok = {}
+    for n in pick:
+        c = first[n]
+        p = c["p"].clone()
+        st = AdamWState(first["step"].clone(), {"x": c["m"].clone()},
+                        {"x": c["v"].clone()})
+        _, st1 = cpu_opt.update({"x": c["g"].float() * scale}, st, {"x": p})
+        opt_ok[n] = (within_ulp(c["m1"], st1.m["x"], False)
+                     and within_ulp(c["v1"], st1.v["x"], False)
+                     and within_ulp(c["p1"], p, True))
+    if not all(opt_ok.values()):
+        raise SystemExit(f"phase 12 (e): the card's first AdamW update is "
+                         f"not the CPU's within 1 ulp: {opt_ok}")
+    timed = step_ms[1:] or step_ms
+    step_s = statistics.median(timed) / 1e3
+    tokens = B * S
+    mfu = 6 * n_params * tokens / (step_s * BF16_OPS_PER_S)
+    state_bytes = weight_bytes + 2 * 4 * (weight_bytes // 2)
+    acc_bytes = 4 * (weight_bytes // 2)
+    log(f"[train] {card}: (d) loss {' -> '.join(f'{x:.4f}' for x in losses)} "
+        f"over {steps} steps of {tokens:,} tokens (lr {TRAIN_LR}); "
+        f"(a) {launches} flash launches ({launches // steps} a step); (e) the "
+        f"first AdamW update of {', '.join(pick)} equals the CPU's within "
+        f"1 ulp")
+    log(f"[train] {card}: step {step_s * 1e3:.1f} ms (median of "
+        f"{len(timed)}; all: {', '.join(f'{x:.1f}' for x in step_ms)}), "
+        f"{tokens / step_s:,.0f} tokens/s, 6ND share {mfu:.2%} of "
+        f"{BF16_OPS_PER_S / 1e12:.1f} TFLOP/s; peak {peak:,} bytes beside "
+        f"{state_bytes:,} of state and {acc_bytes:,} of f32 accumulators")
+
+    parts = [{k: v[i * (B // micro):(i + 1) * (B // micro)]
+              for k, v in batch.items()} for i in range(micro)]
+    split, split_peaks = split_step(model, opt, state, parts, dev)
+    log(f"[train] {card}: split of one step (host ms, synchronised): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + "; peak bytes in the " + ", ".join(f"{k} {v:,}" for k, v in
+                                              split_peaks.items()))
+    del state, params, opt, step_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the restart drill of the port's driver at its default_config
+    tmp = tempfile.mkdtemp(prefix="phase12_")
+    saved, restored = {}, {}
+
+    def spy_save(directory, step, state, extra=None):
+        saved[(directory, step)] = cpu_state(state)
+        return real_save(directory, step, state, extra)
+
+    def spy_restore(directory, step, like, device=None):
+        out = real_restore(directory, step, like, device)
+        restored[(directory, step)] = cpu_state(out[0])
+        return out
+
+    def run(argv):
+        buf = io.StringIO()
+        code, losses_ = 0, None
+        with contextlib.redirect_stdout(buf):
+            try:
+                losses_ = driver.main(argv + ["--device", dev.type])
+            except SystemExit as e:
+                code = e.code
+        return code, losses_, buf.getvalue()
+
+    t0 = time.perf_counter()
+    try:
+        d1, d2 = f"{tmp}/ck", f"{tmp}/whole"
+        with swapped(ckpt, "save", spy_save) as real_save, \
+                swapped(ckpt, "restore", spy_restore) as real_restore:
+            code1, _, out1 = run(drill + ["--ckpt-dir", d1,
+                                          "--simulate-failure",
+                                          str(DRILL_FAIL_AT)])
+            code2, resumed, out2 = run(drill + ["--ckpt-dir", d1])
+            code3, whole, out3 = run(drill + ["--ckpt-dir", d2])
+        at = ckpt.latest_step(d1)
+        if code1 != 42 or code2 or code3 or "resumed from step" not in out2 \
+                or "done:" not in out2:
+            raise SystemExit(f"phase 12 (f): the drill exited {code1}, "
+                             f"{code2}, {code3}: {out1[-300:]} {out2[-300:]}")
+        resume_at = int(out2.split("resumed from step ")[1].split()[0])
+        bits_ok = all(same_bits(a, b) for (_, a), (_, b) in zip(
+            state_leaves(restored[(d1, resume_at)]),
+            state_leaves(saved[(d1, resume_at)])))
+        loss_err = max(abs(a - b) for a, b in zip(resumed,
+                                                  whole[resume_at:]))
+        on_cpu, _ = ckpt.restore(d1, at, saved[(d1, at)], device="cpu")
+        cpu_ok = all(same_bits(a, b) for (_, a), (_, b) in zip(
+            state_leaves(on_cpu), state_leaves(saved[(d1, at)])))
+    finally:
+        shutil.rmtree(tmp)
+    drill_s = time.perf_counter() - t0
+    if not (bits_ok and cpu_ok and loss_err <= DRILL_LOSS_TOL):
+        raise SystemExit(f"phase 12 (f): restored state equal {bits_ok}, "
+                         f"CPU restore equal {cpu_ok}, resumed losses "
+                         f"{loss_err:.3e} from the whole run's (bound "
+                         f"{DRILL_LOSS_TOL})")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[train] {card}: (f) the driver stopped at step {DRILL_FAIL_AT} "
+        f"(exit 42), resumed from step {resume_at} with its state restored "
+        f"bit for bit, losses within {loss_err:.3e} of an uninterrupted "
+        f"run's; step {at}'s checkpoint restored on the CPU bit for bit "
+        f"({drill_s:.1f} s)")
+    log(f"[train] {card}: phase 12 took {phase_s:.1f} s (f32 reference "
+        f"{ref_s:.1f} s, one bf16 microbatch {mb_ms:.1f} ms)")
+    return dict(
+        arch=cfg.name, params=n_params, weight_bytes=weight_bytes,
+        tokens_per_step=tokens, losses=losses, loss0=float(loss0),
+        step_ms=step_ms, step_ms_median=step_s * 1e3,
+        tokens_per_s=tokens / step_s, mfu_6nd=mfu, peak_bytes=peak,
+        state_bytes=state_bytes, accumulator_bytes=acc_bytes, split=split,
+        split_peak_bytes=split_peaks,
+        grad_vs_f32=errs, control_vs_f32=ctl_errs, attn_bwd_ms=attn_bwd_ms,
+        attn_bwd_err=bwd_err, attn_bwd_bf16_err=bwd_bf16_err,
+        flash_fwd_err=fwd_err, drill_loss_err=loss_err, drill_s=drill_s,
+        microbatch_ms=mb_ms, reference_s=ref_s, launches=launches,
+        max_abs_err=fwd_err, s=phase_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5357,9 +5911,14 @@ def main() -> int:
     t0 = time.perf_counter()
     fm = phase_families(args.seed, card, dev)
     log(f"[families] {card}: phase 11 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = phase_train(args.seed, card, dev)
     fl = lm["kernels"]["flash_attention"]
-    fl["launches"] += mo["launches"] + sum(r["launches"] for r in fm.values())
+    fl["launches"] += (mo["launches"] + tr["launches"]
+                       + sum(r["launches"] for r in fm.values()))
     fl["max_abs_err"] = max(fl["max_abs_err"], mo["max_abs_err"],
+                            tr["max_abs_err"],
                             *(r["max_abs_err"] for r in fm.values()))
     found = {**mp["kernels"], **pq["kernels"], **lm["kernels"]}
     log(f"[done] {card}: {time.perf_counter() - t_start:.1f} s in all")
@@ -5385,7 +5944,8 @@ def main() -> int:
             dict(card=card, torch=torch.__version__, build_s=build_s,
                  build=built, kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
                  ingest_tree=it, serving=sv, answers=an, lm_serving=lm,
-                 moe_serving=mo, examples=ex, families=fm, **kernels),
+                 moe_serving=mo, examples=ex, families=fm, training=tr,
+                 **kernels),
             indent=1))
     log(card)
     log(json.dumps(kernels))

@@ -623,3 +623,44 @@ def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
         s = torch.where(mask[None], s, torch.tensor(-1e30, device=q.device))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+# elements of a block's f32 scores in the plain attention backward
+BWD_BLOCK = 1 << 28
+
+
+def flash_attention_bwd_ref(q, k, v, do, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention_ref`` for the output gradient
+    ``do`` [BH, Sq, D], each in its input's dtype.
+
+    P = softmax(q k^T * D ** -0.5), with the forward's causal mask and
+    -1e30, and O = P v are recomputed in f32; then dV = P^T dO, dP = dO
+    V^T, dS = P * (dP - rowsum(dO * O)), dQ = dS K * D ** -0.5 and dK = dS^T
+    Q * D ** -0.5.  It runs over blocks of the BH axis whose f32 scores
+    hold at most ``BWD_BLOCK`` elements: at S = 4,096 a whole [48, S, S]
+    f32 tensor is 3.2 GB, and several are alive at once."""
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    scale = D ** -0.5
+    n = max(1, BWD_BLOCK // max(Sq * Sk, 1))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if causal:
+        keep = (torch.arange(Sk, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+    for i in range(0, BH, n):
+        blk = slice(i, i + n)
+        qf, kf, vf, dof = (t[blk].float() for t in (q, k, v, do))
+        s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+        if causal:
+            s = torch.where(keep[None], s,
+                            torch.tensor(-1e30, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        del s
+        o = torch.einsum("bqk,bkd->bqd", p, vf)
+        dv[blk] = torch.einsum("bqk,bqd->bkd", p, dof)
+        ds = torch.einsum("bqd,bkd->bqk", dof, vf)            # dP
+        ds.sub_((dof * o).sum(-1, keepdim=True)).mul_(p)
+        del p, o
+        dq[blk] = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+        dk[blk] = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    return dq, dk, dv

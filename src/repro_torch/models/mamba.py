@@ -87,7 +87,11 @@ def ssd_scan(
     ``dt`` included, so padded steps neither decay nor add and the final
     state is the one at the last real step.  The products run heads-major
     (``[b, c, h, i, j]``); the decay is masked to -inf above the diagonal
-    before its exp, where ``cum_i - cum_j`` is positive and large.
+    before its exp, where ``cum_i - cum_j`` is positive and large (a mask
+    after the exp would give inf * 0 = NaN in the backward).  Under
+    ``no_grad``, or with no input requiring grad, the intra-chunk block is
+    one buffer written in place; when a gradient is taken it is written
+    out of place, with the same y bit for bit.
     """
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -113,9 +117,16 @@ def ssd_scan(
     # intra-chunk (dual quadratic form): y_i += C_i.B_j dt_j decay(i,j) x_j
     causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
     G = cum[..., :, None] - cum[..., None, :]                 # [b,c,h,i,j]
-    G = G.masked_fill_(~causal, float("-inf")).exp_()
     scores = torch.matmul(Cc, Bc.transpose(-1, -2))           # [b,c,i,j]
-    G.mul_(scores[:, :, None]).mul_(dth[:, :, :, None, :])
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, s0)):
+        # out of place: autograd keeps the exp's output for its backward
+        G = (G.masked_fill(~causal, float("-inf")).exp()
+             * scores[:, :, None] * dth[:, :, :, None, :])
+    else:
+        # serving: one buffer, written in place (537 MB at Mamba2's width)
+        G = G.masked_fill_(~causal, float("-inf")).exp_()
+        G.mul_(scores[:, :, None]).mul_(dth[:, :, :, None, :])
     y = torch.matmul(G, xh)                                   # [b,c,h,i,p]
     del G
 

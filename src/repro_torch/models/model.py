@@ -1,9 +1,12 @@
-"""Model assembly: param specs + prefill / decode fns for all six families.
+"""Model assembly: param specs + loss / prefill / decode fns for all six
+families.
 
 ``build_model(cfg, device)`` returns a ``Model`` bundle, as in the JAX
 package:
   * ``specs``        — tree of ParamSpec (shapes + logical axes)
-  * ``loss_fn``      — training; not ported yet (raises)
+  * ``loss_fn``      — (params, batch) -> (loss, metrics); ``batch``
+                       holds ``tokens`` and ``labels`` (< 0: masked) and,
+                       for ``vlm`` and ``encdec``, the ``prefix``
   * ``prefill_fn``   — (params, batch, max_seq) -> (logits_last, cache);
                        ``batch`` holds ``tokens`` and, for ``vlm`` and
                        ``encdec``, the ``prefix`` embeddings
@@ -12,16 +15,20 @@ package:
 
 Parameters are a dict tree shaped like the JAX package's, with the layers
 stacked ``[L, ...]`` (the hybrid's SSM layers ``[groups, attn_every,
-...]``); the layer loop is a Python loop (PyTorch runs eagerly: no scan,
-no remat).  Every family is ported: ``dense``, ``moe`` (a layer's FFN is
-``moe.moe_block``, whose aux loss serving drops, as the JAX package's
-does), ``vlm`` (the decoder with the ``prefix`` prepended), ``ssm`` (Mamba2
+...]``); the layer loop is a Python loop (PyTorch runs eagerly: no scan).
+The loss runs a cache-free forward whose layers, under ``cfg.remat``, are
+``torch.utils.checkpoint`` calls (non-reentrant) placed where the JAX
+package places ``jax.checkpoint``: a layer at a time, a hybrid group at a
+time, and each cross-entropy chunk.  Every family is ported: ``dense``,
+``moe`` (a layer's FFN is ``moe.moe_block``, whose aux loss serving
+drops, as the JAX package's does), ``vlm`` (the decoder with the ``prefix`` prepended), ``ssm`` (Mamba2
 layers, ``mamba.py``), ``hybrid`` (groups of Mamba2 layers, each closed by
 one shared attention + MLP block) and ``encdec`` (a non-causal encoder over
 the ``prefix`` frames, a decoder with cross-attention).  K/V caches are
 bf16 ``[L, B, max_seq, KV, D]``, the SSM state and conv tail f32 with no
 sequence axis; prefill fills them and decode writes each step into them in
-place, where the JAX package returns updated copies.
+place, where the JAX package returns updated copies.  Prefill and decode
+run under ``no_grad``; the loss never calls them.
 """
 
 from __future__ import annotations
@@ -30,15 +37,16 @@ import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.device_stats import resolve_device
 from . import layers as L
 from .mamba import SSMState, mamba_block, mamba_decode_step, mamba_specs
 from .moe import moe_block, moe_specs
-from .sharding import ParamSpec, tree_map
+from .sharding import ParamSpec, tree_leaves, tree_map
 
-NOT_PORTED = "ROADMAP queue 1, item 15"
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
@@ -84,6 +92,63 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _unembed_matrix(params) -> torch.Tensor:
     return params.get("unembed", params["embed"])
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, in grad mode as a non-reentrant
+    ``torch.utils.checkpoint`` call (``jax.checkpoint``): its activations
+    are recomputed in the backward.  The reentrant variant would drop the
+    gradients of parameters that reach ``fn`` through a dict when no
+    tensor argument requires grad."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """A layer (or a hybrid group) of the loss: checkpointed under
+    ``cfg.remat``."""
+    return _checkpointed(fn, *args) if cfg.remat else fn(*args)
+
+
+def _chunk_loss(h, lab, W, vocab: int):
+    """(sum of the CE over the valid labels, their count) of one chunk:
+    f32 logits of h [B, c, d] against W [V, d], padded vocab rows at
+    -1e30."""
+    logits = L._mm("bcd,vd->bcv", h, W).float()
+    if W.shape[0] > vocab:      # mask padded vocab rows out of the CE
+        pad = torch.arange(W.shape[0], device=logits.device) >= vocab
+        logits = logits.masked_fill(pad[None, None, :], -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, lab.clamp(min=0)[..., None])[..., 0]
+    valid = (lab >= 0).float()
+    return ((logz - ll) * valid).sum(), valid.sum()
+
+
+def _lm_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Chunked cross-entropy: never materialises [B, S, V] for the full S.
+
+    labels < 0 are masked (the VLM prefix, padding).  Each chunk of
+    ``logits_chunk`` positions runs under a checkpoint (as the JAX
+    package's ``jax.checkpoint``), the sums added in chunk order in f32."""
+    S = hidden.shape[1]
+    W = _unembed_matrix(params)
+    c = min(cfg.logits_chunk, S)
+    pad = (-S) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S + pad, c):
+        t, n = _checkpointed(_chunk_loss, hidden[:, i:i + c],
+                             labels[:, i:i + c], W, cfg.vocab)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _batch_tensor(batch, key: str, device) -> torch.Tensor:
+    return torch.as_tensor(batch[key], device=device)
 
 
 def _last_logits(params, hidden: torch.Tensor,
@@ -136,6 +201,17 @@ def layer_params(params, i: int, key: str = "layers"):
     """Layer ``i``'s parameters: a view of every stacked leaf of
     ``params[key]`` (for the hybrid, ``i`` may be a (group, layer) pair)."""
     return tree_map(lambda p: p[i], params[key])
+
+
+def unstacked(tree) -> list:
+    """The layers of a tree stacked ``[L, ...]`` as a list of L trees of
+    views, by one ``torch.unbind`` a leaf.  The loss takes its layers so:
+    in the backward each leaf's gradient is then one ``stack`` of its
+    layers', where indexing one layer at a time (``layer_params``) would
+    zero-fill a tensor of the whole stacked leaf for every layer."""
+    views = tree_map(lambda p: p.unbind(0), tree)
+    n = len(tree_leaves(views)[0])
+    return [tree_map(lambda v: v[i], views) for i in range(n)]
 
 
 def _kv_cache_shapes(cfg: ModelConfig, n: int, batch: int, max_seq: int):
@@ -210,6 +286,49 @@ def _decoder_decode(params, cache, tokens, position, cfg: ModelConfig, device):
         x = x + _ffn(lp, L.rmsnorm(x, lp["ln2"]), cfg)
     hidden = L.rmsnorm(x, params["final_norm"])
     return _last_logits(params, hidden, cfg), cache
+
+
+# -- training: the cache-free forward and its loss -------------------------
+
+def _decoder_layer(lp, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor):
+    """One decoder layer of the loss: (x after it, the MoE aux loss or
+    0)."""
+    x = x + L.attention(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg, positions)
+    if cfg.family == "moe":
+        f, aux = moe_block(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
+    else:
+        f, aux = L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg), 0.0
+    return x + f, aux
+
+
+def _decoder_hidden(params, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in unstacked(params["layers"]):
+        x, a = _remat(cfg, _decoder_layer, lp, x, cfg, positions)
+        aux = aux + a
+    return L.rmsnorm(x, params["final_norm"]), aux
+
+
+def _tokens_to_hidden(params, batch, cfg: ModelConfig, device):
+    """The decoder stack over the embedded tokens, after the ``prefix`` for
+    a ``vlm``: (final hidden, summed aux loss)."""
+    x = _embed_tokens(params, batch["tokens"], device)
+    if cfg.frontend != "none" and "prefix" in batch:
+        x = torch.cat([_prefix(batch, device, x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=device)[None, :]
+    return _decoder_hidden(params, x, cfg, positions)
+
+
+def _decoder_loss(params, batch, cfg: ModelConfig, device):
+    hidden, aux = _tokens_to_hidden(params, batch, cfg, device)
+    labels = _batch_tensor(batch, "labels", device).long()
+    if cfg.frontend != "none" and "prefix" in batch:
+        npf = batch["prefix"].shape[1]
+        labels = F.pad(labels, (npf, 0), value=-1)
+    ce = _lm_loss(params, hidden, labels, cfg)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +407,20 @@ def _ssm_decode(params, cache, tokens, position, cfg: ModelConfig, device):
     return _last_logits(params, hidden, cfg), cache
 
 
+def _ssm_layer(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return x + mamba_block(lp["mixer"], L.rmsnorm(x, lp["ln"]), cfg)
+
+
+def _ssm_loss(params, batch, cfg: ModelConfig, device):
+    x = _embed_tokens(params, batch["tokens"], device)
+    for lp in unstacked(params["layers"]):
+        x = _remat(cfg, _ssm_layer, lp, x, cfg)
+    hidden = L.rmsnorm(x, params["final_norm"])
+    ce = _lm_loss(params, hidden,
+                  _batch_tensor(batch, "labels", device).long(), cfg)
+    return ce, {"ce": ce}
+
+
 # -- hybrid (zamba2): groups of SSM layers + one SHARED attention block ------
 
 def _hybrid_specs(cfg: ModelConfig):
@@ -311,6 +444,29 @@ def _hybrid_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
     groups = cfg.n_layers // cfg.attn_every
     return {**_ssm_state_shapes(cfg, (groups, cfg.attn_every), batch),
             **_kv_cache_shapes(cfg, groups, batch, max_seq)}
+
+
+def _hybrid_group(gp, shared, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """A group of the loss: its Mamba2 layers (``gp``, stacked
+    ``[attn_every, ...]``), then the shared block."""
+    for lp in unstacked(gp):
+        x = _ssm_layer(lp, x, cfg)
+    x = x + L.attention(shared["attn"], L.rmsnorm(x, shared["ln1"]), cfg,
+                        positions)
+    return x + L.mlp(shared["ffn"], L.rmsnorm(x, shared["ln2"]), cfg)
+
+
+def _hybrid_loss(params, batch, cfg: ModelConfig, device):
+    x = _embed_tokens(params, batch["tokens"], device)
+    positions = torch.arange(x.shape[1], device=device)[None, :]
+    for gp in unstacked(params["layers"]):
+        x = _remat(cfg, _hybrid_group, gp, params["shared_attn"], x, cfg,
+                   positions)
+    hidden = L.rmsnorm(x, params["final_norm"])
+    ce = _lm_loss(params, hidden,
+                  _batch_tensor(batch, "labels", device).long(), cfg)
+    return ce, {"ce": ce}
 
 
 @torch.no_grad()
@@ -385,12 +541,16 @@ def _encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     RoPE (through the flash kernel on the card), then the final norm."""
     x = frames
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_enc_layers):
-        lp = layer_params(params, i, "enc_layers")
-        x = x + L.attention(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
-                            positions, causal=False, use_rope=True)
-        x = x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
+    for lp in unstacked(params["enc_layers"]):
+        x = _remat(cfg, _encoder_layer, lp, x, cfg, positions)
     return L.rmsnorm(x, params["enc_norm"])
+
+
+def _encoder_layer(lp, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor) -> torch.Tensor:
+    x = x + L.attention(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
+                        positions, causal=False, use_rope=True)
+    return x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
 
 
 def _cross_attention(lp, x, memory, cfg: ModelConfig):
@@ -404,6 +564,28 @@ def _cross_attention(lp, x, memory, cfg: ModelConfig):
     v = L._expand_kv(v, cfg.n_heads)
     o = L.chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
     return L._mm("bshk,hkd->bsd", o, lp["wo"])
+
+
+def _encdec_dec_layer(lp, x: torch.Tensor, memory: torch.Tensor,
+                      cfg: ModelConfig, positions: torch.Tensor):
+    x = x + L.attention(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg, positions)
+    x = x + _cross_attention(lp["xattn"], L.rmsnorm(x, lp["ln_x"]), memory,
+                             cfg)
+    return x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
+
+
+def _encdec_loss(params, batch, cfg: ModelConfig, device):
+    # the frames go in as bf16 whatever the parameters' dtype, as in the
+    # JAX package
+    memory = _encode(params, _prefix(batch, device, torch.bfloat16), cfg)
+    x = _embed_tokens(params, batch["tokens"], device)
+    positions = torch.arange(x.shape[1], device=device)[None, :]
+    for lp in unstacked(params["dec_layers"]):
+        x = _remat(cfg, _encdec_dec_layer, lp, x, memory, cfg, positions)
+    hidden = L.rmsnorm(x, params["final_norm"])
+    ce = _lm_loss(params, hidden,
+                  _batch_tensor(batch, "labels", device).long(), cfg)
+    return ce, {"ce": ce}
 
 
 def _encdec_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
@@ -467,23 +649,19 @@ def _encdec_decode(params, cache, tokens, position, cfg: ModelConfig, device):
     return _last_logits(params, hidden, cfg), cache
 
 
-def _loss_not_ported(params, batch):
-    raise NotImplementedError(
-        f"training (the loss and its backward) is not ported yet: {NOT_PORTED}")
-
-
 # ---------------------------------------------------------------------------
 # dispatcher
 # ---------------------------------------------------------------------------
 
 _FAMILY_FNS = {
-    # family: (specs, prefill, decode, cache shapes)
-    "dense": (_decoder_specs, _decoder_prefill, _decoder_decode,
-              _decoder_cache_shapes),
-    "ssm": (_ssm_specs, _ssm_prefill, _ssm_decode, _ssm_cache_shapes),
-    "hybrid": (_hybrid_specs, _hybrid_prefill, _hybrid_decode,
+    # family: (specs, loss, prefill, decode, cache shapes)
+    "dense": (_decoder_specs, _decoder_loss, _decoder_prefill,
+              _decoder_decode, _decoder_cache_shapes),
+    "ssm": (_ssm_specs, _ssm_loss, _ssm_prefill, _ssm_decode,
+            _ssm_cache_shapes),
+    "hybrid": (_hybrid_specs, _hybrid_loss, _hybrid_prefill, _hybrid_decode,
                _hybrid_cache_shapes),
-    "encdec": (_encdec_specs, _encdec_prefill, _encdec_decode,
+    "encdec": (_encdec_specs, _encdec_loss, _encdec_prefill, _encdec_decode,
                _encdec_cache_shapes),
 }
 _FAMILY_FNS["moe"] = _FAMILY_FNS["vlm"] = _FAMILY_FNS["dense"]
@@ -491,17 +669,17 @@ _FAMILY_FNS["moe"] = _FAMILY_FNS["vlm"] = _FAMILY_FNS["dense"]
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The ``Model`` of a config of any of the six families on ``device``
-    (None: the GPU, raising without one; ``"cpu"`` for tests): its prefill
-    and decode take tokens (and a prefix) as tensors or arrays and allocate
-    the cache there."""
+    (None: the GPU, raising without one; ``"cpu"`` for tests): its loss,
+    prefill and decode take tokens, labels (and a prefix) as tensors or
+    arrays, and the prefill allocates the cache there."""
     fam = cfg.family
     if fam not in FAMILIES:
         raise ValueError(f"unknown family {fam!r}")
-    specs, prefill, decode, cache_shapes = _FAMILY_FNS[fam]
+    specs, loss, prefill, decode, cache_shapes = _FAMILY_FNS[fam]
     dev = resolve_device(device)
     return Model(
         cfg, specs(cfg),
-        loss_fn=_loss_not_ported,
+        loss_fn=lambda p, b: loss(p, b, cfg, dev),
         prefill_fn=lambda p, b, max_seq: prefill(p, b, cfg, max_seq, dev),
         decode_fn=lambda p, c, t, pos: decode(p, c, t, pos, cfg, dev),
         init_cache=lambda batch, max_seq: cache_shapes(cfg, batch, max_seq),

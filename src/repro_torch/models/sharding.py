@@ -39,6 +39,30 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts in ``jax.tree.leaves``'s order:
+    the keys of each dict sorted."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` whose leaves are ``leaves``, given in
+    ``tree_leaves``'s order."""
+    return _unflatten(like, iter(leaves))
+
+
+def _unflatten(like, it):
+    # module level, not a recursive closure: a closure that calls itself
+    # is a reference cycle, which would keep ``leaves`` (a step's
+    # gradients) alive until the garbage collector runs
+    if not isinstance(like, dict):
+        return next(it)
+    out = {k: _unflatten(like[k], it) for k in sorted(like)}
+    return {k: out[k] for k in like}
+
+
 def init_params(specs, generator: torch.Generator, device=None):
     """Materialise a spec tree on ``device`` (None: the GPU, raising
     without one; ``"cpu"`` for tests).

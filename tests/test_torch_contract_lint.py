@@ -112,6 +112,9 @@ ALLOWED = {
     ("CL004", "src/repro_torch/kernels/ref.py", "flash_attention_ref",
      'return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)'):
         "attention activations in the LM's plain version, not metadata",
+    ("CL004", "src/repro_torch/kernels/ref.py", "flash_attention_bwd_ref",
+     "qf, kf, vf, dof = (t[blk].float() for t in (q, k, v, do))"):
+        "attention activations in the LM's plain version, not metadata",
 }
 
 

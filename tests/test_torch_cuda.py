@@ -1734,3 +1734,100 @@ def test_family_prefill_and_decode_on_card_equal_cpu(cuda, arch):
     want, got = torch.stack(want, dim=1), torch.stack(got, dim=1).cpu()
     err = (got - want).abs().max() / want.abs().max()
     assert float(err) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# training: the attention Function's backward, the losses' gradients and
+# the SSD scan's backward on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("BH,Sq,Sk,D,causal", [
+    (3, 24, 24, 16, True), (2, 40, 17, 80, False), (4, 130, 130, 128, True),
+    (48, 4096, 4096, 128, True)])        # Llama-3.2-3B's training shape
+def test_flash_backward_on_card_equals_plain_autograd(cuda, BH, Sq, Sk, D,
+                                                      causal):
+    """The Function's forward launches the kernel once and its backward is
+    the plain ``flash_attention_bwd_ref``: in f32 it equals
+    ``torch.autograd.grad`` of ``flash_attention_ref`` within 1e-5 of max
+    |.| (both f32 plain code), and its bf16 gradients are that f32
+    gradient rounded (within a bf16 step of max |.|)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(BH + Sq + D)
+    q, k, v = (torch.randn((BH, S, D), generator=gen, device=cuda)
+               .bfloat16().requires_grad_(True) for S in (Sq, Sk, Sk))
+    do = torch.randn((BH, Sq, D), generator=gen, device=cuda).bfloat16()
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1 and o.grad_fn is not None
+    got = torch.autograd.grad(o, (q, k, v), do)
+    f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*f32, causal=causal),
+                               f32, do.float())
+    plain = ref.flash_attention_bwd_ref(*(t.detach() for t in f32),
+                                        do.float(), causal)
+    for g, p, w in zip(got, plain, want):
+        scale = float(w.abs().max())
+        assert float((p - w).abs().max()) <= 1e-5 * scale
+        assert g.dtype == torch.bfloat16
+        assert float((g.float() - w).abs().max()) <= 2.0 ** -8 * scale
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-moe-30b-a3b",
+                                  "mamba2-1.3b"])
+def test_loss_grads_on_card_equal_cpu(cuda, arch):
+    """A smoke model's f32 loss and gradients on the card (the flash
+    kernel's forward, the plain backward) against the CPU's: the loss
+    within 1e-5, each leaf within 1e-3 of its largest entry (the kernel's
+    f32 forward is within 2e-5 of the plain one, sums run in other
+    orders), and every leaf's gradient non-zero: the attention weights
+    get theirs through the kernel (F3)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import init_params, tree_leaves, tree_map
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = get_smoke_config(arch)
+    params = tree_map(lambda t: t.float(), init_params(
+        build_model(cfg, device="cpu").specs,
+        torch.Generator().manual_seed(0), "cpu"))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 40)),
+             "labels": rng.integers(0, cfg.vocab, (2, 40))}
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want_loss, _, want = loss_and_grads(build_model(cfg, device="cpu"),
+                                        params, batch)
+    before = flash_attention.launches
+    got_loss, _, got = loss_and_grads(build_model(cfg, device=cuda),
+                                      tree_map(lambda t: t.to(cuda), params),
+                                      batch)
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    # the forward and, under remat, its recompute
+    assert flash_attention.launches == before + 2 * attn
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g = g.cpu()
+        assert float(g.abs().max()) > 0
+        assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max())
+
+
+def test_ssd_scan_backward_on_card_equals_cpu(cuda):
+    from repro_torch.models import mamba
+    rng = np.random.default_rng(3)
+    b, s, h, p, n, chunk = 2, 300, 8, 16, 32, 64
+    args = [rng.normal(size=(b, s, h, p)),
+            rng.uniform(0.05, 1.5, size=(b, s, h)),
+            -rng.uniform(0.5, 1.5, size=(h,)),
+            rng.normal(size=(b, s, n)), rng.normal(size=(b, s, n)),
+            rng.normal(size=(b, h, p, n))]
+    wy = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        ts = [torch.from_numpy(a.astype(np.float32)).to(dev)
+              .requires_grad_(True) for a in args]
+        y, st = mamba.ssd_scan(*ts[:5], chunk, s0=ts[5])
+        grads.append(torch.autograd.grad((y * wy.to(dev)).sum() + st.sum(),
+                                         ts))
+    for w, g in zip(*grads):
+        err = float((g.cpu() - w).abs().max() / w.abs().max())
+        assert err <= 2e-4

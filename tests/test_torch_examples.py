@@ -9,6 +9,12 @@ out of the comparison: wall times and speed-ups (the host clock), and
 a ``torch.Generator``, not from ``jax.random``).  A line may differ only
 where a deliberate difference listed in ROADMAP queue 3 explains it,
 named in ``DELIBERATE`` below.
+
+``pruned_pretraining`` trains: both packages run it with a short argv
+(``PRETRAIN_ARGV`` and a temporary ``--ckpt-dir`` each), and its loss
+values and times are left out (``PRETRAIN_NOT_COMPARED``: the port's
+``init_params`` draws from a ``torch.Generator``), its curation and
+checkpoint lines compared.
 """
 
 import importlib.util
@@ -20,12 +26,19 @@ import sys
 from contextlib import redirect_stdout
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ["quickstart", "fleet_serving", "resilient_serving",
             "streaming_ingest", "sublinear_pruning", "topk_serving"]
+PRETRAIN_ARGV = ["--steps", "4", "--batch", "2", "--seq", "32"]
+PRETRAIN_NOT_COMPARED = [
+    (r"loss=[\d.]+ \([\d.]+s/step\)", "loss=<loss> (<s>/step)"),
+    (r"first loss [\d.]+ -> last [\d.]+", "first loss <loss> -> last <loss>"),
+    (r"checkpoint -> .*/step_", "checkpoint -> <dir>/step_"),
+]
 
 # (what is left out of the comparison, as a pattern and its stand-in)
 NOT_COMPARED = [
@@ -48,18 +61,19 @@ DELIBERATE = {
 torch.set_num_threads(1)
 
 
-def _compared(text: str):
+def _compared(text: str, not_compared=NOT_COMPARED):
     lines = []
     for line in text.splitlines():
-        for pat, stand_in in NOT_COMPARED:
+        for pat, stand_in in not_compared:
             line = re.sub(pat, stand_in, line)
         lines.append(line)
     return lines
 
 
-def _jax_example(name: str) -> str:
+def _jax_example(name: str, argv=()) -> str:
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py")],
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                          *argv],
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=300)
     assert out.returncode == 0, out.stderr
@@ -98,7 +112,21 @@ def test_example_prints_the_jax_examples_counts(name):
         assert g == w
 
 
-@pytest.mark.parametrize("name", EXAMPLES)
+def test_pruned_pretraining_prints_the_jax_examples_lines(tmp_path):
+    want = _compared(_jax_example("pruned_pretraining", PRETRAIN_ARGV + [
+        "--ckpt-dir", str(tmp_path / "jax")]), PRETRAIN_NOT_COMPARED)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        losses = load_example("pruned_pretraining").main(
+            PRETRAIN_ARGV + ["--ckpt-dir", str(tmp_path / "port")], "cpu")
+    got = _compared(buf.getvalue(), PRETRAIN_NOT_COMPARED)
+    assert got == want
+    assert any("curation pruned" in line for line in got)
+    assert any("checkpoint -> <dir>/step_00000004" in line for line in got)
+    assert len(losses) == 4 and all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("name", EXAMPLES + ["pruned_pretraining"])
 def test_example_imports_only_the_port(name):
     # no jax or repro import, and the GPU by default: without a card the
     # example raises before it prints a line

@@ -37,7 +37,8 @@ def _imported_modules(path: Path):
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path}: {mod}"
 
 
 # the port's examples and its smoke run stand alone too
@@ -52,21 +53,25 @@ def test_scripts_import_no_jax_or_reference(path):
     assert mods
     for mod in mods:
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path}: {mod}"
 
 
 def test_port_imports_with_jax_and_reference_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'repro'):\n"
+        "for m in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
         "    sys.modules[m] = None\n"
         "import repro_torch.serve.prune_service as s\n"
         "import repro_torch.core, repro_torch.kernels, repro_torch.data\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.models.convert\n"
         "import repro_torch.serve.batcher, repro_torch.serve.serve_step\n"
         "import repro_torch.serve.frontend, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.train, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.train_step, repro_torch.train.elastic\n"
         "assert repro_torch.configs.get_config('glm4-9b').n_kv_heads == 2\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "assert not any(k in ('jax', 'ml_dtypes')\n"
+        "               or k.startswith(('jax.', 'repro.', 'ml_dtypes.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok', s.PruningService.__name__)\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",

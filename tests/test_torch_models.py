@@ -45,7 +45,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import build_model
 from repro_torch.models import layers as TL
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.model import FAMILIES, NOT_PORTED
+from repro_torch.models.model import FAMILIES
 
 torch.set_num_threads(1)
 
@@ -315,13 +315,25 @@ def test_spec_tree_matches_jax(arch):
 
 def test_every_family_builds_on_the_cpu():
     from repro_torch.configs import get_smoke_config as smoke, list_archs
+    from repro_torch.models.sharding import init_params
     seen = {smoke(a).family for a in list_archs()}
     assert seen == set(FAMILIES)
+    rng = np.random.default_rng(0)
     for arch in list_archs():
-        model = build_model(smoke(arch), device="cpu")
+        cfg = smoke(arch)
+        model = build_model(cfg, device="cpu")
         assert model.cfg.family in FAMILIES
-        with pytest.raises(NotImplementedError, match=NOT_PORTED):
-            model.loss_fn({}, {})           # training is item 15.4
+        params = init_params(model.specs, torch.Generator().manual_seed(0),
+                             "cpu")
+        toks = rng.integers(0, cfg.vocab, (2, 8))
+        batch = {"tokens": toks, "labels": toks}
+        prefix = _prefix(rng, cfg, 2)
+        if prefix is not None:
+            batch["prefix"] = prefix
+        with torch.no_grad():
+            loss, metrics = model.loss_fn(params, batch)
+        assert loss.shape == () and torch.isfinite(loss), arch
+        assert torch.isfinite(metrics["ce"]), arch
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
@@ -382,12 +394,6 @@ def test_batcher_refuses_the_other_families(arch):
     params = init_params(model.specs, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="decoder-only"):
         ContinuousBatcher(model, params, n_slots=2, max_seq=32)
-
-
-def test_loss_is_not_ported():
-    model = build_model(get_smoke_config("llama3.2-3b"), device="cpu")
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
-        model.loss_fn({}, {})
 
 
 # ---------------------------------------------------------------------------
