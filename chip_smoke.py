@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--batches 3] [--json PATH]
+    python3 chip_smoke.py [--seed 0] [--batches 1] [--json PATH]
 
 Phases (each failure exits non-zero; nothing is caught and passed over):
 
@@ -107,7 +107,7 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      and the launch alone, and the scan's tiles and grid.
   5. LM serving at full width: GLM-4-9B (``get_config("glm4-9b")``, all 40
      layers, bf16, parameters from the port's ``init_params`` seeded by
-     ``--seed``), the ``Generator`` on 4 prompts of 2,048 tokens and 32
+     ``--seed``), the ``Generator`` on 4 prompts of 2,048 tokens and 16
      greedy steps, and the ``ContinuousBatcher`` on 8 requests of 128 to
      1,024 tokens, 16 new tokens each, in 4 slots; checks: (a)
      ``flash_attention`` launched once a layer per prefill (40 for the
@@ -131,8 +131,8 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      selected share lognormal around 1% and capped at 10%; 16 of them
      also ``ORDER BY num_sightings DESC LIMIT k``) and the 16 joins of
      phase 3 whose probe scan is unfiltered or a ``ts`` scan, through
-     ``PruningService(tree_fanout=256)``: one warm-up and ``--batches``
-     timed batches, each bit-identical to the flat card service (phase
+     ``PruningService(tree_fanout=256)``: one warm-up and
+     ``TREE_BATCHES`` (3) timed batches, each bit-identical to the flat card service (phase
      3's default service, which takes no tree rung), to the CPU service
      and, on int and dictionary predicates, to the f64 host pipeline;
      the filter group takes the ``tree`` path, every technique launches
@@ -236,11 +236,11 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
   11. (run after phase 10, its memory freed) the other four families at
      full width, each model drawn by ``init_params`` from ``--seed`` in
      bf16, served through the ``Generator`` and freed before the next:
-     Mamba2-1.3B (ssm; 4 prompts of 2,048 tokens, 32 greedy steps, then
+     Mamba2-1.3B (ssm; 4 prompts of 2,048 tokens, 16 greedy steps, then
      one prompt of 32,768 tokens, 8 steps), Zamba2-2.7B (hybrid; 4 x
-     2,048, 32 steps), Whisper-small (encdec; 4 x 1,500 frames as the
-     ``prefix``, a decoder prompt of 64 tokens, 32 steps) and
-     LLaVA-NeXT-34B (vlm; 4 x (576 patch embeddings + 2,048 tokens), 32
+     2,048, 16 steps), Whisper-small (encdec; 4 x 1,500 frames as the
+     ``prefix``, a decoder prompt of 64 tokens, 16 steps) and
+     LLaVA-NeXT-34B (vlm; 4 x (576 patch embeddings + 2,048 tokens), 16
      steps; 68.78 GB of weights), the prefixes standard normal from the
      seed.  Checks (``serve_family``): (a) ``flash_attention`` launches a
      prefill = 0, 9, 36 and 60, and the ``ContinuousBatcher`` refuses the
@@ -285,8 +285,33 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      rest of the backward, the update) and peak memory.  Bounds and
      reasons at ``TRAIN_VS_F32_TOL``.
 
+  13. (run after phase 12, on its live state) the mesh: (a)
+     ``make_host_mesh()`` and ``plan_mesh()`` are (1, 1) on a one-rank
+     NCCL group; phase 12's state resharded onto it, one step (its batch,
+     2 microbatches) under ``use_mesh`` equals the step without a mesh
+     from the same state bit for bit (loss, every parameter, m, v and the
+     step; deterministic algorithms on; the state's copies on the host),
+     112 flash launches each; (b) ``compressed_psum`` over that group
+     bit for bit ``_quantize``'s dequantisation, and over 4 gloo ranks'
+     CUDA tensors spawned on the card bit for bit the plain int8 sum; (c)
+     the sharded dense step on those 4 ranks as a 2x2 (data, model) mesh,
+     every leaf's gradient within ``TRAIN_VS_F32_TOL`` of the one-rank
+     step's, flash on each rank's local heads: on the CPU at the smoke
+     config (``SHARDED_STEP_DEVICE``: gloo's functional all-gather of
+     CUDA tensors kills a rank); (d) the port's dry-run in subprocesses
+     on the host's cores, started with phase 3's references and done
+     beside them and phase 2, before any timed phase: the six smoke cells of the
+     JAX package's ``tests/test_dryrun.py`` and ``llama3.2-3b train_4k``
+     at full width on 16x16 and 2x16x16, each OK with its peak bytes a
+     device within the card's 80 GB, its collective bytes by axis and its
+     roofline (derived from H100 peaks).  The phase tears its process
+     group down.
+
 Phases 3, 4, 6 and 8 run their services with the verdict cache off, so
-that every batch launches its table groups' kernels.
+that every batch launches its table groups' kernels.  The kernels'
+build and phase 2 run in a process of their own, beside phase 3's
+tables and host references (the CPU service and the f64 host pipeline),
+which need the host alone.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -301,9 +326,12 @@ import argparse
 import gc
 import json
 import math
+import multiprocessing
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1253,6 +1281,26 @@ def phase_kernel_vs_plain(seed: int, dev, names=tuple(KERNELS)) -> dict:
     return out
 
 
+KERNEL_VS_PLAIN_TIMEOUT_S = 600    # the build and phase 2: minutes
+
+
+def kernel_vs_plain_child(seed: int, out: str) -> None:
+    """The kernels' build and phase 2 in a process of their own (spawned
+    by ``main``): each kernel against its plain version on the card, the
+    numbers written to ``out`` as JSON.  They need the card
+    and not phase 3's tables, so they run beside the tables' build and
+    the host references, which need the host alone."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.load_kernels()
+    build_s = time.perf_counter() - t0
+    kv = phase_kernel_vs_plain(seed, torch.device("cuda"))
+    Path(out).write_text(json.dumps(dict(build_s=build_s, kv=kv)))
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1505,18 +1553,47 @@ def main_path_traffic(seed: int, card: str, n_rows: int = 2 ** 24):
     return [queries[i] for i in rng.permutation(len(queries))], ctx
 
 
+def main_path_references(queries) -> dict:
+    """Phase 3's references, on the host alone: the same service on the
+    CPU (the plain versions) over the whole batch, and the f64 host
+    pipeline over every query but the Bloom joins.  The host matcher
+    expands every narrow partition of a Bloom join to a dense [n, 1024]
+    candidate array (GBs a query at this P): Bloom joins are held to the
+    CPU run only.  ``main`` runs this beside the kernels' build and phase
+    2, which run in a process of their own and need the card alone."""
+    from repro_torch.core.flow import PruningPipeline
+    from repro_torch.serve.prune_service import PruningService
+
+    t0 = time.perf_counter()
+    cpu_reports = PruningService(device="cpu",
+                                 verdict_cache=False).run_batch(queries)
+    t_cpu = time.perf_counter() - t0
+    bloom_q = [i for i, r in enumerate(cpu_reports)
+               if "join" in r.per_scan.get("events", {})
+               and r.per_scan["events"]["join"].detail["summary_kind"]
+               == "bloom"]
+    host_idx = [i for i in range(len(queries)) if i not in set(bloom_q)]
+    host = PruningPipeline(filter_mode="host")
+    t0 = time.perf_counter()
+    host_reports = {i: host.run(queries[i]) for i in host_idx}
+    return dict(cpu_reports=cpu_reports, t_cpu=t_cpu, bloom_q=bloom_q,
+                host_idx=host_idx, host_reports=host_reports,
+                t_host=time.perf_counter() - t0)
+
+
 def phase_main_path(seed: int, n_batches: int, card: str, dev,
-                    n_rows: int = 2 ** 24):
+                    n_rows: int = 2 ** 24, traffic=None, refs=None):
     """Phase 3; returns (the tables, query lists and service that phase 4
-    reuses, the phase's numbers)."""
+    reuses, the phase's numbers).  ``traffic`` is ``main_path_traffic``'s
+    result and ``refs`` ``main_path_references``' where the caller made
+    them ahead (None: made here)."""
     from repro_torch.core import expr as E
     from repro_torch.core.device_stats import plane_checksum
-    from repro_torch.core.flow import PruningPipeline
     from repro_torch.core.prune_filter import extract_ranges
     from repro_torch.kernels import ops
     from repro_torch.serve.prune_service import PruningService
 
-    queries, ctx = main_path_traffic(seed, card, n_rows)
+    queries, ctx = traffic or main_path_traffic(seed, card, n_rows)
     events = ctx["events"]
     n_join_topk = sum(1 for q in queries if q.is_topk and q.join is not None)
 
@@ -1536,26 +1613,16 @@ def phase_main_path(seed: int, n_batches: int, card: str, dev,
         f"{ {k: len(v) for k, v in groups.items()} }, non-lowering "
         f"predicates {non_lowering}, join + ORDER BY {n_join_topk}")
 
-    t0 = time.perf_counter()
-    cpu_reports = PruningService(device="cpu",
-                                 verdict_cache=False).run_batch(queries)
-    t_cpu = time.perf_counter() - t0
+    ahead = refs is not None
+    r = refs if ahead else main_path_references(queries)
+    cpu_reports, t_cpu, bloom_q = r["cpu_reports"], r["t_cpu"], r["bloom_q"]
+    host_idx, host_reports = r["host_idx"], r["host_reports"]
+    t_host = r["t_host"]
     cpu_tech = cpu_reports[0].counters["technique"]
-    bloom_q = [i for i, r in enumerate(cpu_reports)
-               if "join" in r.per_scan.get("events", {})
-               and r.per_scan["events"]["join"].detail["summary_kind"]
-               == "bloom"]
-    # the host matcher expands every narrow partition of a Bloom join to a
-    # dense [n, 1024] candidate array (GBs a query at this P): Bloom joins
-    # are held to the CPU run only
-    host_idx = [i for i in range(len(queries)) if i not in set(bloom_q)]
-    host = PruningPipeline(filter_mode="host")
-    t0 = time.perf_counter()
-    host_reports = {i: host.run(queries[i]) for i in host_idx}
-    t_host = time.perf_counter() - t0
     log(f"[main] {card} host: references: CPU plain service {t_cpu:.2f} s, f64 host "
-        f"pipeline {t_host:.2f} s over {len(host_idx)} queries; CPU "
-        f"technique counters {cpu_tech}; Bloom joins {len(bloom_q)}")
+        f"pipeline {t_host:.2f} s over {len(host_idx)} queries"
+        f"{' (beside the build and phase 2)' if ahead else ''}; "
+        f"CPU technique counters {cpu_tech}; Bloom joins {len(bloom_q)}")
     exact_host = {i: integral_only(queries[i]) for i in host_idx}
     for tech, want in (("filter", len(groups)), ("join", 1),
                        ("join_bloom", 1)):
@@ -2469,6 +2536,9 @@ def dml_steps(events, seed: int) -> list:
     return [("append", append), ("drop", drop),
             ("update score", update_score),
             (f"update {ORDER_COL}", update_order_col), ("rewrite", rewrite)]
+
+
+TREE_BATCHES = 3         # phase 6's timed batches (2-3 s each)
 
 
 def phase_tree_ingest(ctx: dict, seed: int, n_batches: int, card: str,
@@ -4061,7 +4131,7 @@ def flash_bound(BH: int, Sq: int, Sk: int, D: int, causal: bool,
 
 
 def phase_lm(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
-             steps: int = 32, n_req: int = 8, req_len=(128, 1024),
+             steps: int = 16, n_req: int = 8, req_len=(128, 1024),
              max_new: int = 16, n_slots: int = 4) -> dict:
     """Phase 5: GLM-4-9B served at full width (``cfg`` None) through the
     ``Generator`` (``B`` prompts of ``S`` tokens, ``steps`` greedy steps)
@@ -4470,7 +4540,7 @@ def batcher_replay(model, params, tape, prompts, n_slots: int, max_seq: int,
 
 
 def phase_moe(seed: int, card: str, dev, cfg=None, B: int = 4, S: int = 2048,
-              steps: int = 32, n_req: int = 8, req_len=(128, 1024),
+              steps: int = 16, n_req: int = 8, req_len=(128, 1024),
               max_new: int = 16, n_slots: int = 4, solo=(128, 8)) -> dict:
     """Phase 9: Qwen3-MoE-30B-A3B served at full width (``cfg`` None) with
     phase 5's traffic (the ``Generator`` on ``B`` prompts of ``S`` tokens,
@@ -4830,10 +4900,10 @@ def phase_examples(card: str, dev) -> dict:
 # steps), Mamba2's long prompt (tokens, steps) at B = 1, and the rows of
 # each pass of the f32 reference (LLaVA's 34B weights leave room for two)
 FAMILY_TRAFFIC = {
-    "mamba2-1.3b": dict(B=4, S=2048, steps=32, long=(32_768, 8)),
-    "zamba2-2.7b": dict(B=4, S=2048, steps=32),
-    "whisper-small": dict(B=4, S=64, steps=32),
-    "llava-next-34b": dict(B=4, S=2048, steps=32, ref_rows=2),
+    "mamba2-1.3b": dict(B=4, S=2048, steps=16, long=(32_768, 8)),
+    "zamba2-2.7b": dict(B=4, S=2048, steps=16),
+    "whisper-small": dict(B=4, S=64, steps=16),
+    "llava-next-34b": dict(B=4, S=2048, steps=16, ref_rows=2),
 }
 
 # Agreement bounds of phase 11, on max |a - b| / max |b| (b the reference
@@ -5678,7 +5748,7 @@ def phase_train(seed: int, card: str, dev, cfg=None, B: int = 4,
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (d), (e): AdamW and the train step on the batch, 5 steps
+    # (d), (e): AdamW and the train step on the batch, ``steps`` steps
     opt = AdamW(lr=lambda s: TRAIN_LR)
     state = TrainState(params, opt.init(params))
     step_fn = make_train_step(model, opt, microbatches=micro)
@@ -5761,7 +5831,8 @@ def phase_train(seed: int, card: str, dev, cfg=None, B: int = 4,
         + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
         + "; peak bytes in the " + ", ".join(f"{k} {v:,}" for k, v in
                                               split_peaks.items()))
-    del state, params, opt, step_fn, model
+    # the state and model stay for phase 13
+    del params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5839,13 +5910,413 @@ def phase_train(seed: int, card: str, dev, cfg=None, B: int = 4,
         attn_bwd_err=bwd_err, attn_bwd_bf16_err=bwd_bf16_err,
         flash_fwd_err=fwd_err, drill_loss_err=loss_err, drill_s=drill_s,
         microbatch_ms=mb_ms, reference_s=ref_s, launches=launches,
-        max_abs_err=fwd_err, s=phase_s)
+        max_abs_err=fwd_err, s=phase_s,
+        handoff=(state, model, batch, micro))
+
+
+MESH_RANKS = 4           # (b), (c): gloo ranks spawned on the one card
+MESH_SHARDED = dict(layers=2, B=2, S=1024)   # (c): 2 layers, 2 x 1,024
+# (c)'s device.  The card's probe (``tools/gloo_cuda_probe.py``, 4 gloo
+# ranks on one H100, torch 2.11.0+cu128) found every c10d collective
+# taking CUDA tensors, but the functional all-gather that DTensor
+# redistributes through (``_c10d_functional.all_gather_into_tensor``)
+# killing its rank with SIGSEGV at any size; NCCL refuses two ranks on one
+# device.  So the sharded step runs its 4 ranks on the CPU, at the smoke
+# config (ROADMAP queue 2b item 15); (b)'s collectives stay on the card.
+SHARDED_STEP_DEVICE = "cpu"
+PSUM_N = 1 << 22         # (b): elements a rank
+DRYRUN_SMOKE = (("llama3.2-3b", "train_4k"), ("kimi-k2-1t-a32b", "train_4k"),
+                ("mamba2-1.3b", "long_500k"), ("zamba2-2.7b", "decode_32k"),
+                ("whisper-small", "decode_32k"),
+                ("llava-next-34b", "prefill_32k"))
+DRYRUN_FULL = ("llama3.2-3b", "train_4k")
+CARD_BYTES = 80e9        # the H100's device memory: a cell's bytes a device
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryruns(out_dir: str, full: bool = True) -> list:
+    """(d): the port's dry-run in subprocesses on the host CPU (fake
+    process groups, fake tensors: the card is not touched), started at
+    once after phase 3's tables so they run beside phase 2 and phase 3's
+    references and are done before the timed phases begin: the six
+    smoke cells of the JAX package's ``tests/test_dryrun.py`` on the
+    scaled 8-rank mesh in one, and ``DRYRUN_FULL`` at full width on 16x16
+    and on 2x16x16 (512 fake ranks) in one each.  ``full=False`` (a CPU rehearsal) leaves the
+    full-width ones out.  Returns [(name, Popen, JSON paths)]."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    smoke_out = [f"{out_dir}/smoke_{a}_{s}.json" for a, s in DRYRUN_SMOKE]
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "for (a, s), out in zip(json.loads(sys.argv[1]), "
+            "json.loads(sys.argv[2])):\n"
+            "    dryrun.main(['--arch', a, '--shape', s, '--smoke', "
+            "'--out', out])\n")
+    smoke = subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(DRYRUN_SMOKE),
+         json.dumps(smoke_out)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(env, REPRO_DRYRUN_DEVICES="8", REPRO_MESH_SCALE="8"))
+    procs = [("smoke", smoke, smoke_out)]
+    for mesh in (("16x16", []), ("2x16x16", ["--multi-pod"])) if full else ():
+        out = f"{out_dir}/full_{mesh[0]}.json"
+        procs.append((f"full {mesh[0]}", subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_FULL[0], "--shape", DRYRUN_FULL[1], "--out", out]
+            + mesh[1], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(env, REPRO_DRYRUN_DEVICES="512")), [out]))
+    return procs
+
+
+def collect_dryruns(procs) -> dict:
+    """Wait for (d)'s subprocesses and check every record: OK, peak bytes
+    a device within the card's; returns the records by cell."""
+    out = {}
+    for name, p, paths in procs:
+        try:
+            text, _ = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if p.returncode != 0:
+            raise SystemExit(f"phase 13 (d): the {name} dry-run exited "
+                             f"{p.returncode}: {text[-2000:]}")
+        for path in paths:
+            for rec in json.loads(Path(path).read_text()):
+                rec.pop("trace", None)
+                key = (f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+                       + (" smoke" if name == "smoke" else ""))
+                out[key] = rec
+    for key, rec in out.items():
+        if rec["status"] != "OK":
+            raise SystemExit(f"phase 13 (d): {key}: {rec['status']} "
+                             f"{rec.get('error', rec.get('reason'))}")
+        peak = rec["peak_bytes_per_device"]
+        if not peak <= CARD_BYTES:
+            raise SystemExit(f"phase 13 (d): {key}: {peak:,} bytes a "
+                             f"device, above the card's {CARD_BYTES:,.0f}")
+    return out
+
+
+def report_dryruns(records: dict, card: str) -> None:
+    """(d)'s lines: each cell's peak bytes a device, its collective bytes
+    by mesh axis and its roofline."""
+    for key, rec in records.items():
+        peak = rec["peak_bytes_per_device"]
+        rl = rec["roofline"]
+        by_axis = "; ".join(
+            f"{a} ({rl['axis_links'].get(a)}): " + ", ".join(
+                f"{k} {v:,.0f}" for k, v in kinds.items())
+            for a, kinds in rl["coll_by_axis"].items())
+        log(f"[mesh] {card}: (d) {key}: OK, peak {peak:,} bytes a device "
+            f"(args {rec['argument_size_in_bytes']:,}, temp "
+            f"{rec['temp_size_in_bytes']}), collective bytes a device by "
+            f"axis: {by_axis}; roofline (derived, H100 peaks) compute "
+            f"{rl['compute_s']:.4g} s, memory {rl['memory_s']:.4g} s, "
+            f"collective {rl['collective_s']:.4g} s: {rl['bottleneck']}")
+
+
+def mesh_rank(rank: int, world: int, store: str, out_dir: str,
+              seed: int, dev_type: str) -> None:
+    """One of (b)'s and (c)'s gloo ranks (spawned): (b) on ``dev_type``
+    (the card; "cpu" in a rehearsal), (c) on ``SHARDED_STEP_DEVICE`` at
+    the smoke config."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import (NamedSharding, P, init_params,
+                                             mesh_shape, use_mesh)
+    from repro_torch.train.compress import compressed_psum
+    from repro_torch.train.elastic import place, reshard
+    from repro_torch.train.train_step import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        # (b) compressed_psum over the 4 ranks' CUDA tensors
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 1 + rank)
+        x = torch.randn(PSUM_N, generator=gen, device=dev) * (rank + 1)
+        pod = init_device_mesh(dev.type, (world,), mesh_dim_names=("pod",))
+        got = compressed_psum(x, "pod", pod)
+        if rank == 0:
+            torch.save(got.cpu(), f"{out_dir}/psum.pt")
+
+        # (c) the sharded dense step at the smoke config
+        dev = torch.device(SHARDED_STEP_DEVICE)
+        if dev.type == "cpu":      # the host's cores shared by the ranks
+            torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                      // (2 * world)))
+        gen = torch.Generator(device=dev)
+        cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH),
+                                  n_layers=MESH_SHARDED["layers"])
+        model = build_model(cfg, device=dev)
+        gen.manual_seed(seed)
+        params = init_params(model.specs, gen, device=dev)
+        rng = np.random.default_rng(seed)
+        B, S = MESH_SHARDED["B"], MESH_SHARDED["S"]
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1))
+                                .astype(np.int32))
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        mesh = make_host_mesh(device=dev)
+        res["mesh"] = mesh_shape(mesh)
+        placed = reshard(params, model.specs, mesh)
+        bsh = NamedSharding(mesh, P("data", None))
+        dbatch = {k: place(v, bsh) for k, v in batch.items()}
+        fa = ops.flash_attention
+        bhs = []
+
+        def recorder(q, k, v, causal=True):
+            bhs.append(int(q.shape[0]))
+            return fa(q, k, v, causal=causal)
+
+        fa.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        with use_mesh(mesh), swapped(ops, "flash_attention", recorder):
+            loss, _, grads = loss_and_grads(model, placed, dbatch)
+        sync(dev)
+        res["step_ms"] = (time.perf_counter() - t0) * 1e3
+        res["launches"] = fa.launches
+        res["calls"] = len(bhs)
+        res["bh"] = sorted(set(bhs))
+        res["loss"] = float(loss)
+        full = {n: g.full_tensor() for n, g in named_leaves(grads)}
+        if rank == 0:       # the one-rank step, after the timed one
+            _, _, g1 = loss_and_grads(model, params, batch)
+            res["errs"] = {n: rms_err(full[n], g)
+                           for n, g in named_leaves(g1)}
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def stop_dryruns(procs) -> None:
+    """Kill and reap any of (d)'s subprocesses still running."""
+    for _, p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def phase_mesh(seed: int, card: str, dev, state, model, batch,
+               micro: int, dry: dict) -> dict:
+    """Phase 13: the mesh.  (a) a one-rank NCCL mesh at full width: phase
+    12's live Llama-3.2-3B state resharded onto ``make_host_mesh()``'s
+    (1, 1) (``plan_mesh()`` agrees), one step under ``use_mesh`` bit for
+    bit the step without a mesh from the same state; (b)
+    ``compressed_psum`` over that group and over 4 gloo ranks' CUDA
+    tensors; (c) the sharded dense step on those 4 ranks as a 2x2 (data,
+    model) mesh, on the CPU at the smoke config (``SHARDED_STEP_DEVICE``);
+    (d) the dry-run: ``dry``, the records ``collect_dryruns`` read before
+    phase 3 (the subprocesses ran beside phase 1), reported here.  (b)'s
+    and (c)'s ranks start with the phase and run beside (a)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import mesh_shape, use_mesh
+    from repro_torch.train.compress import _quantize, compressed_psum
+    from repro_torch.train.elastic import plan_mesh, reshard
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase13_")
+    # (b) on the card's tensors and (c) on the CPU, on 4 gloo ranks
+    ranks = mp.spawn(mesh_rank, args=(MESH_RANKS, f"{tmp}/store", tmp, seed,
+                                      dev.type),
+                     nprocs=MESH_RANKS, join=False)
+    try:
+        # (a) the one-rank NCCL mesh at full width
+        mesh = make_host_mesh(device=dev)
+        planned = plan_mesh(device=dev)
+        backend = dist.get_backend()
+        shapes = (mesh_shape(mesh), mesh_shape(planned))
+        if shapes != ({"data": 1, "model": 1},) * 2:
+            raise SystemExit(f"phase 13 (a): host and planned meshes "
+                             f"{shapes}, not (1, 1)")
+        opt = AdamW(lr=lambda s: TRAIN_LR)
+        step_fn = make_train_step(model, opt, microbatches=micro)
+        fa = ops.flash_attention
+        leaves = state_leaves(state)
+        t0 = time.perf_counter()
+        # the state's copies (the 36 GB state, four times) in page-locked
+        # host memory: pageable copies took most of (a) on the card's host
+        pin = dev.type == "cuda"
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                .copy_(t.detach()) for _, t in leaves]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fa.launches = 0
+            sync(dev)
+            t1 = time.perf_counter()
+            state, met_a = step_fn(state, batch)
+            sync(dev)
+            step_a_ms = (time.perf_counter() - t1) * 1e3
+            launches_a = fa.launches
+            loss_a = met_a["loss"].detach().cpu()
+            # the step's result to the host, the start state back on the card
+            for i, (_, t) in enumerate(state_leaves(state)):
+                start = host[i].to(t.device, copy=True)
+                host[i].copy_(t.detach())
+                t.copy_(start)
+                del start
+            state = reshard(state, model.specs, mesh)
+            fa.launches = 0
+            t1 = time.perf_counter()
+            with use_mesh(mesh):
+                state, met_b = step_fn(state, batch)
+            sync(dev)
+            step_b_ms = (time.perf_counter() - t1) * 1e3
+            launches_b = fa.launches
+            loss_b = met_b["loss"].detach().cpu()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        unequal = [n for (n, t), h in zip(state_leaves(state), host)
+                   if not same_bits(t.detach(), h.to(t.device))]
+        del host
+        a_s = time.perf_counter() - t0
+        if not same_bits(loss_a, loss_b) or unequal:
+            raise SystemExit(f"phase 13 (a): the step under the (1, 1) mesh "
+                             f"differs from the step without one: loss "
+                             f"{float(loss_a)} vs {float(loss_b)}, leaves "
+                             f"{unequal[:8]}")
+        want_a = micro * flash_per_prefill(model.cfg) * (
+            2 if model.cfg.remat else 1)
+        if not launches_a == launches_b == want_a:
+            raise SystemExit(f"phase 13 (a): flash_attention launched "
+                             f"{launches_a} and {launches_b} times, not "
+                             f"{want_a}")
+        log(f"[mesh] {card}: (a) make_host_mesh() and plan_mesh() are "
+            f"(data 1, model 1) on {backend}; phase 12's "
+            f"{model.cfg.name} state resharded onto it: one step under "
+            f"use_mesh equals the step without a mesh bit for bit (loss "
+            f"{float(loss_b):.6f}, {len(leaves)} leaves: every parameter, m, "
+            f"v and the step), {want_a} flash launches each (deterministic "
+            f"algorithms on); steps {step_a_ms:.1f} ms without the mesh, "
+            f"{step_b_ms:.1f} ms under it; (a) {a_s:.1f} s with the state's "
+            f"copies through the host")
+        del state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) compressed_psum over the one-rank NCCL group
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        x = torch.randn(PSUM_N, generator=gen, device=dev)
+        got = compressed_psum(x, "data", mesh)
+        q, scale = _quantize(x)
+        if not same_bits(got, q.to(torch.float32) * scale):
+            raise SystemExit("phase 13 (b): compressed_psum over one NCCL "
+                             "rank is not _quantize's dequantisation")
+        dist.destroy_process_group()
+
+        while not ranks.join():
+            pass
+        spawn_s = time.perf_counter() - t_phase
+        xs = []
+        for r in range(MESH_RANKS):
+            gen.manual_seed(seed + 1 + r)
+            xs.append(torch.randn(PSUM_N, generator=gen, device=dev)
+                      * (r + 1))
+        scale = max(torch.clamp(torch.max(torch.abs(t)), min=1e-12) / 127.0
+                    for t in xs)
+        total = sum(torch.clamp(torch.round(t / scale), -127, 127)
+                    .to(torch.int8).to(torch.int32) for t in xs)
+        want = total.to(torch.float32) * scale
+        got4 = torch.load(f"{tmp}/psum.pt").to(dev)
+        if not same_bits(got4, want):
+            raise SystemExit("phase 13 (b): compressed_psum over 4 gloo "
+                             "ranks is not the plain int8 sum")
+        log(f"[mesh] {card}: (b) compressed_psum of {PSUM_N:,} f32 "
+            f"elements: over the one-rank {backend} group bit for bit "
+            f"_quantize's dequantisation; over {MESH_RANKS} gloo ranks' "
+            f"{dev.type} tensors (gloo's c10d all-reduce takes CUDA tensors: "
+            f"no host staging) bit for bit the plain int8 sum computed in "
+            f"one process")
+        res = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+               for r in range(MESH_RANKS)]
+        cfg = get_smoke_config(TRAIN_ARCH)
+        local_bh = (MESH_SHARDED["B"] // 2) * (cfg.n_heads // 2)
+        per_rank = MESH_SHARDED["layers"] * (2 if cfg.remat else 1)
+        bad = [r for r, x in enumerate(res)
+               if x["calls"] != per_rank or x["bh"] != [local_bh]
+               or x["mesh"] != {"data": 2, "model": 2}]
+        if bad:
+            raise SystemExit(f"phase 13 (c): ranks {bad} called flash "
+                             f"{[x['calls'] for x in res]} times at BH "
+                             f"{[x['bh'] for x in res]}, not {per_rank} at "
+                             f"{local_bh}")
+        errs = res[0]["errs"]
+        bound = TRAIN_VS_F32_TOL[""]
+        over = {n: e for n, e in errs.items() if not e <= bound}
+        if over:
+            raise SystemExit(f"phase 13 (c): sharded gradients off the "
+                             f"one-rank step's: {over}")
+        step_ms = max(x["step_ms"] for x in res)
+        log(f"[mesh] {card}: (c) ON THE CPU at the smoke config "
+            f"({cfg.name}: d_model {cfg.d_model}, {MESH_SHARDED['layers']} "
+            f"layers), not on the card: gloo's functional all-gather of CUDA "
+            f"tensors, which DTensor redistributes through, segfaults "
+            f"(tools/gloo_cuda_probe.py); {MESH_SHARDED['B']} x "
+            f"{MESH_SHARDED['S']} tokens on a 2x2 (data, model) gloo mesh of "
+            f"{MESH_RANKS} ranks: every leaf's gradient within {bound} of the "
+            f"one-rank step's in the 2-norm (largest "
+            f"{max(errs.values()):.3e}, {max(errs, key=errs.get)}); flash's "
+            f"plain version called {per_rank} times a rank on its local BH = "
+            f"{local_bh}; loss {res[0]['loss']:.6f}; forward and backward "
+            f"{step_ms:.1f} ms (slowest rank); the ranks done "
+            f"{spawn_s:.1f} s into the phase")
+        report_dryruns(dry, card)
+    finally:
+        for p in ranks.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[mesh] {card}: phase 13 took {phase_s:.1f} s")
+    return dict(launches=launches_a + launches_b
+                + sum(x["launches"] for x in res), a_s=a_s,
+                step_a_ms=step_a_ms, step_b_ms=step_b_ms,
+                loss_a=float(loss_a), sharded_grad_err=errs,
+                sharded_step_ms=step_ms, spawn_s=spawn_s, dryrun=dry,
+                s=phase_s)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--batches", type=int, default=1)
     ap.add_argument("--json", default=None,
                     help="also write every number to this JSON file")
     args = ap.parse_args()
@@ -5860,30 +6331,65 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {card}")
-    t0 = time.perf_counter()
-    ops.load_kernels()
-    build_s = time.perf_counter() - t0
+    # the kernels' build and phase 2 (each kernel against its plain
+    # version) need the card and not the tables; phase 3's tables and its
+    # host references need the host alone: they run side by side, the
+    # first in a process of its own (no interpreter lock shared)
+    tmp = tempfile.mkdtemp(prefix="smoke_")
+    kv_out = f"{tmp}/kernel_vs_plain.json"
+    child = multiprocessing.get_context("spawn").Process(
+        target=kernel_vs_plain_child, args=(args.seed, kv_out))
+    child.start()
+    dryruns = []
+    try:
+        traffic = main_path_traffic(args.seed, card)
+        # phase 13 (d) on the host's cores from here, beside phase 2 and
+        # the references; waited for before phase 3, so that no timed
+        # phase shares the host with it
+        t_dry = time.perf_counter()
+        dryruns = start_dryruns(tmp)
+        main_refs = main_path_references(traffic[0])
+        child.join(timeout=KERNEL_VS_PLAIN_TIMEOUT_S)
+        if child.exitcode != 0:
+            raise SystemExit(f"the kernels' build and phase 2 (each "
+                             f"kernel against its plain version) exited "
+                             f"{child.exitcode}")
+        first = json.loads(Path(kv_out).read_text())
+        dry = collect_dryruns(dryruns)
+        log(f"[mesh] {card}: (d) the dry-run's {len(dry)} cells done "
+            f"{time.perf_counter() - t_dry:.1f} s after their start, beside "
+            f"phase 2 and phase 3's references; reported in phase 13")
+    finally:
+        if child.is_alive():
+            child.terminate()
+            child.join()
+        stop_dryruns(dryruns)
+        shutil.rmtree(tmp, ignore_errors=True)
+    build_s, kv = first["build_s"], first["kv"]
     log(f"[env] {card}: {len(ops.KERNELS)} kernels built and loaded "
         f"in {build_s:.2f} s")
+    ops.load_kernels()               # built above: loaded from the cache
     built = build_report(card)
-
-    dev = torch.device("cuda")
-    kv = phase_kernel_vs_plain(args.seed, dev)
     for name, r in kv.items():
         how = (f"within rtol = atol = {FLASH_TOL['float32']} (f32), "
                f"{FLASH_TOL['bfloat16']} (bf16) for D up to {r['max_p']}"
                if name == "flash_attention"
                else f"exactly up to P={r['max_p']}")
-        log(f"[kernel] {card}: {name}: {r['cases']} cases, kernel == plain "
-            f"version {how} (max abs err {r['max_abs_err']}) in "
+        log(f"[kernel] {card}: {name}: {r['cases']} cases, kernel == "
+            f"plain version {how} (max abs err {r['max_abs_err']}) in "
             f"{r['s']:.1f} s")
+    log(f"[main] {card}: the build and phase 2 beside phase 3's tables "
+        f"and references: {time.perf_counter() - t_start:.1f} s")
 
-    ctx, mp = phase_main_path(args.seed, args.batches, card, dev)
+    dev = torch.device("cuda")
+    ctx, mp = phase_main_path(args.seed, args.batches, card, dev,
+                              traffic=traffic, refs=main_refs)
+    del traffic, main_refs
     t0 = time.perf_counter()
     pq = phase_per_query(ctx, card, dev)
     log(f"[per-query] {card}: phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    it = phase_tree_ingest(ctx, args.seed, args.batches, card, dev)
+    it = phase_tree_ingest(ctx, args.seed, TREE_BATCHES, card, dev)
     log(f"[tree] {card}: phase 6 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sv = phase_serving(ctx, args.seed, card, dev)
@@ -5910,12 +6416,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fm = phase_families(args.seed, card, dev)
-    log(f"[families] {card}: phase 11 took {time.perf_counter() - t0:.1f} s")
+    log(f"[families] {card}: phase 11 took "
+        f"{time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     tr = phase_train(args.seed, card, dev)
+    state, model, batch, micro = tr.pop("handoff")
+    me = phase_mesh(args.seed, card, dev, state, model, batch, micro, dry)
+    del state, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
     fl = lm["kernels"]["flash_attention"]
-    fl["launches"] += (mo["launches"] + tr["launches"]
+    fl["launches"] += (mo["launches"] + tr["launches"] + me["launches"]
                        + sum(r["launches"] for r in fm.values()))
     fl["max_abs_err"] = max(fl["max_abs_err"], mo["max_abs_err"],
                             tr["max_abs_err"],
@@ -5945,7 +6457,7 @@ def main() -> int:
                  build=built, kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
                  ingest_tree=it, serving=sv, answers=an, lm_serving=lm,
                  moe_serving=mo, examples=ex, families=fm, training=tr,
-                 **kernels),
+                 mesh=me, **kernels),
             indent=1))
     log(card)
     log(json.dumps(kernels))

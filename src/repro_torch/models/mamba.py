@@ -19,7 +19,9 @@ step-by-step recurrence.
 
 The causal conv adds its K taps one at a time in the input's dtype (bf16
 on the served path), as the JAX code does; ``F.conv1d`` would sum in f32.
-The port runs on one card: nothing here constrains an activation.
+Activations are constrained where the JAX code constrains them.  The
+decode step's state read-out is a product and a sum: a batched matmul
+would flatten a batch and a head dim that a mesh shards at once.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from . import layers as L
-from .sharding import ParamSpec
+from .sharding import ParamSpec, constrain
 
 
 def mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -193,6 +195,7 @@ def mamba_block(
     xi = F.silu(_causal_conv(xi0, p["conv_x"]))
     Bv = F.silu(_causal_conv(Bv0, p["conv_B"]))
     Cv = F.silu(_causal_conv(Cv0, p["conv_C"]))
+    xi = constrain(xi, "batch", "seq", "ssm_inner")
 
     A = -torch.exp(p["A_log"].float())
     xh = xi.reshape(*xi.shape[:2], h, hd).float()
@@ -201,7 +204,7 @@ def mamba_block(
     y = y.reshape(*xi.shape[:2], di).to(x.dtype)
     y = y * F.silu(z)
     y = L.rmsnorm(y, p["norm"])
-    out = L._mm("bse,ed->bsd", y, p["wo"])
+    out = constrain(L._mm("bse,ed->bsd", y, p["wo"]), "batch", "seq", "embed")
     if not return_state:
         return out
     # conv tail: last K-1 raw (pre-conv) projected inputs, left-padded
@@ -248,7 +251,10 @@ def mamba_decode_step(
     decay = torch.exp(dt * A)                                 # [B, H]
     upd = (dt[:, :, None] * xh)[..., None] * Bv.float()[:, None, None, :]
     s_new = state.s * decay[..., None, None] + upd
-    y = torch.matmul(s_new, Cv.float()[:, None, :, None])[..., 0]  # [B,H,P]
+    # a product and a sum, not a batched matmul: that would flatten [B, H]
+    # into one dim, which on a mesh is sharded over the DP axes and over
+    # `model` at once (DTensor has no strategy for it)
+    y = (s_new * Cv.float()[:, None, None, :]).sum(-1)            # [B,H,P]
     y = y + xh * p["D"].float()[None, :, None]
     y = y.reshape(-1, di).to(x.dtype) * F.silu(z)
     y = L.rmsnorm(y, p["norm"])

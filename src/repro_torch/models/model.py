@@ -45,7 +45,8 @@ from ..core.device_stats import resolve_device
 from . import layers as L
 from .mamba import SSMState, mamba_block, mamba_decode_step, mamba_specs
 from .moe import moe_block, moe_specs
-from .sharding import ParamSpec, tree_leaves, tree_map
+from .sharding import (ParamSpec, constrain, current_mesh, mesh_zeros, on_mesh,
+                       tree_leaves, tree_map)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -65,8 +66,26 @@ class CacheSpec(NamedTuple):
     dtype: torch.dtype
 
 
+# logical axes of each cache leaf's trailing dims (leading dims: layers)
+CACHE_LOGICAL = {
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "xk": ("batch", "kv_seq", "kv_heads", None),
+    "xv": ("batch", "kv_seq", "kv_heads", None),
+    "s": ("batch", "ssm_heads", None, None),
+    "conv": ("batch", None, None),
+}
+
+
 def alloc_cache(shapes: Dict[str, CacheSpec], device) -> Dict[str, torch.Tensor]:
-    """Zero tensors for a cache spec (``init_cache``'s result)."""
+    """Zero tensors for a cache spec (``init_cache``'s result); on a mesh,
+    DTensors sharded by ``CACHE_LOGICAL`` under the active rules (the
+    shardings ``launch.specs.cache_shardings`` gives the decode cache)."""
+    if on_mesh():
+        return {name: mesh_zeros(
+            s.shape, s.dtype,
+            ("layers",) * (len(s.shape) - len(CACHE_LOGICAL[name]))
+            + CACHE_LOGICAL[name]) for name, s in shapes.items()}
     return {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
             for name, s in shapes.items()}
 
@@ -87,11 +106,44 @@ def _embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    if on_mesh():
+        x = _embed_on_mesh(params["embed"], tokens.long())
+    else:
+        x = params["embed"][tokens.long()]
+    return constrain(x, "batch", "seq", "embed")
+
+
+def _embed_on_mesh(table, tokens):
+    """The lookup on the active mesh, through ``local_map``: the table
+    gathered whole, each rank reading its own rows of the batch.  The
+    table's gradient is then a ``Partial`` sum over the mesh dims that
+    shard the tokens.  (DTensor's own strategy for the indexed read's
+    backward, ``index_put``, fails on some torch releases; the gather of
+    the vocab-sharded table is what that strategy does too.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    tokens = constrain(tokens, "batch", "seq")
+    tok_pl = tuple(tokens.placements)
+    rep = tuple(Replicate() for _ in tok_pl)
+    grad_pl = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                    for p in tok_pl)
+    fn = local_map(lambda t, i: t[i], out_placements=(tok_pl,),
+                   in_placements=(rep, tok_pl),
+                   in_grad_placements=(grad_pl, tok_pl),
+                   device_mesh=current_mesh(), redistribute_inputs=True)
+    return fn(table, tokens)
 
 
 def _unembed_matrix(params) -> torch.Tensor:
     return params.get("unembed", params["embed"])
+
+
+# ``torch.utils.checkpoint``'s check that the recompute's tensors have the
+# forward's metadata.  The dry-run (``launch/dryrun.py``) turns it off for
+# its step: its fake tensors give the MoE dispatch's kept slots a new
+# unknown size at each run, which the check cannot compare.
+REMAT_DETERMINISM_CHECK = "default"
 
 
 def _checkpointed(fn, *args):
@@ -101,7 +153,8 @@ def _checkpointed(fn, *args):
     gradients of parameters that reach ``fn`` through a dict when no
     tensor argument requires grad."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          determinism_check=REMAT_DETERMINISM_CHECK)
     return fn(*args)
 
 
@@ -114,7 +167,9 @@ def _remat(cfg: ModelConfig, fn, *args):
 def _chunk_loss(h, lab, W, vocab: int):
     """(sum of the CE over the valid labels, their count) of one chunk:
     f32 logits of h [B, c, d] against W [V, d], padded vocab rows at
-    -1e30."""
+    -1e30.  On a mesh: ``_chunk_loss_on_mesh``."""
+    if on_mesh():
+        return _chunk_loss_on_mesh(h, lab, W, vocab)
     logits = L._mm("bcd,vd->bcv", h, W).float()
     if W.shape[0] > vocab:      # mask padded vocab rows out of the CE
         pad = torch.arange(W.shape[0], device=logits.device) >= vocab
@@ -123,6 +178,85 @@ def _chunk_loss(h, lab, W, vocab: int):
     ll = logits.gather(-1, lab.clamp(min=0)[..., None])[..., 0]
     valid = (lab >= 0).float()
     return ((logz - ll) * valid).sum(), valid.sum()
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The CE rows of a rank's vocab shard of the logits, [b, c, V_l] f32
+    (global vocab ids ``start`` + 0 .. V_l - 1): the max, the sum of
+    exponentials and the target's logit all-reduced over ``groups`` (the
+    mesh dims that shard the vocab).  The backward is local: softmax minus
+    the target's one-hot, on the shard."""
+
+    @staticmethod
+    def forward(ctx, logits, lab, start: int, groups):
+        import torch.distributed._functional_collectives as funcol
+        m = logits.amax(dim=-1, keepdim=True)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        e = torch.exp(logits - m)
+        se = e.sum(dim=-1, keepdim=True)
+        idx = lab - start
+        mine = (idx >= 0) & (idx < logits.shape[-1])
+        idx = idx.clamp(0, logits.shape[-1] - 1)
+        ll = torch.where(mine, logits.gather(-1, idx[..., None])[..., 0], 0.0)
+        for g in groups:
+            se = funcol.all_reduce(se, "sum", g)
+            ll = funcol.all_reduce(ll, "sum", g)
+        ctx.save_for_backward(e / se, idx, mine)
+        return torch.log(se[..., 0]) + m[..., 0] - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, mine = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(mine, -g, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def _chunk_loss_on_mesh(h, lab, W, vocab: int):
+    """``_chunk_loss`` on the active mesh: a vocab-parallel CE through
+    ``local_map``.  Each rank takes the logits of its rows (the DP dims)
+    and its vocab shard (the dims sharding W's rows) and all-reduces three
+    [b, c] values over the vocab dims, where the DTensor ops gather each
+    chunk's logits whole over the vocab, and the gather's backward
+    allocates the global [B, c, V] logits on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = current_mesh()
+    lab = constrain(lab, "batch", "seq")
+    vdims = [i for i, p in enumerate(W.placements) if p == Shard(0)]
+    bdims = [i for i, p in enumerate(lab.placements) if p == Shard(0)]
+    dims = range(mesh.ndim)
+    lab_pl = tuple(Shard(0) if i in bdims else Replicate() for i in dims)
+    w_pl = tuple(Shard(0) if i in vdims else Replicate() for i in dims)
+    out_pl = tuple(Partial() if i in bdims else Replicate() for i in dims)
+    h_grad = tuple(Shard(0) if i in bdims else Partial() if i in vdims
+                   else Replicate() for i in dims)
+    w_grad = tuple(Shard(0) if i in vdims else Partial() if i in bdims
+                   else Replicate() for i in dims)
+
+    def local(h, W, lab):
+        logits = L._mm("bcd,vd->bcv", h, W).float()
+        start = 0
+        for i in vdims:
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+        start *= W.shape[0]
+        if start + W.shape[0] > vocab:      # padded vocab rows
+            pad = torch.arange(start, start + W.shape[0],
+                               device=logits.device) >= vocab
+            logits = logits.masked_fill(pad[None, None, :], -1e30)
+        rows = _VocabParallelCE.apply(logits, lab.long(), start,
+                                      [(mesh, i) for i in vdims])
+        valid = (lab >= 0).float()
+        return (rows * valid).sum(), valid.sum()
+
+    fn = local_map(local, out_placements=(out_pl, out_pl),
+                   in_placements=(lab_pl, w_pl, lab_pl),
+                   in_grad_placements=(h_grad, w_grad, lab_pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(h, W, lab)
 
 
 def _lm_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
@@ -160,7 +294,7 @@ def _last_logits(params, hidden: torch.Tensor,
     if cfg is not None and W.shape[0] > cfg.vocab:
         pad = torch.arange(W.shape[0], device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad[None, :], -1e30)
-    return logits
+    return constrain(logits, "batch", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -230,13 +364,12 @@ def _self_attention_prefill(p, xn: torch.Tensor, cfg: ModelConfig,
     """Causal self-attention of a prefill (through the flash kernel on the
     card): writes the prompt's K/V into ``cache_k`` / ``cache_v`` [B,
     max_seq, KV, D] and returns the block's output [B, S, d]."""
-    S = xn.shape[1]
     q, k, v = L.qkv_project(p, xn, cfg, positions)
     o = L.chunked_attention(q, L._expand_kv(k, cfg.n_heads),
                             L._expand_kv(v, cfg.n_heads), causal=True,
                             chunk=cfg.attn_chunk)
-    cache_k[:, :S] = k
-    cache_v[:, :S] = v
+    for c, t in ((cache_k, k), (cache_v, v)):
+        L.write_prompt(c, t.to(c.dtype))
     return L._mm("bshk,hkd->bsd", o, p["wo"])
 
 
@@ -316,7 +449,9 @@ def _tokens_to_hidden(params, batch, cfg: ModelConfig, device):
     a ``vlm``: (final hidden, summed aux loss)."""
     x = _embed_tokens(params, batch["tokens"], device)
     if cfg.frontend != "none" and "prefix" in batch:
-        x = torch.cat([_prefix(batch, device, x.dtype), x], dim=1)
+        prefix = constrain(_prefix(batch, device, x.dtype), "batch",
+                           "prefix", "embed")
+        x = torch.cat([prefix, x], dim=1)
     positions = torch.arange(x.shape[1], device=device)[None, :]
     return _decoder_hidden(params, x, cfg, positions)
 
@@ -628,21 +763,19 @@ def _encdec_prefill(params, batch, cfg: ModelConfig, max_seq: int, device):
 def _encdec_decode(params, cache, tokens, position, cfg: ModelConfig, device):
     x = _embed_tokens(params, tokens, device)
     position = torch.as_tensor(position, device=device)
-    scale = cfg.resolved_head_dim ** -0.5
+    B, KV = x.shape[0], cfg.n_kv_heads
     for i in range(cfg.n_layers):
         lp = layer_params(params, i, "dec_layers")
         o, _, _ = L.decode_attention(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
                                      cache["k"][i], cache["v"][i], position)
         x = x + o
-        # cross-attention over the (static) encoder memory: plain, its
-        # softmax in f32 cast back to the cached values' dtype
+        # cross-attention over the (static) encoder memory: plain and
+        # grouped, its softmax in f32 cast back to the cached values' dtype
         xq = L._mm("bsd,dhk->bshk", L.rmsnorm(x, lp["ln_x"]),
                    lp["xattn"]["wq"])
-        keys = L._expand_kv(cache["xk"][i], cfg.n_heads)
-        vals = L._expand_kv(cache["xv"][i], cfg.n_heads)
-        s = L._mm("bohk,bthk->bhot", xq, keys) * scale
-        w = torch.softmax(s.float(), dim=-1).to(vals.dtype)
-        xo = L._mm("bhot,bthk->bohk", w, vals)
+        qg = xq[:, 0].reshape(B, KV, cfg.n_heads // KV, -1)
+        xo = L.grouped_attention(qg, cache["xk"][i], cache["xv"][i])
+        xo = xo.reshape(B, 1, cfg.n_heads, -1)
         x = x + L._mm("bohk,hkd->bod", xo, lp["xattn"]["wo"])
         x = x + L.mlp(lp["ffn"], L.rmsnorm(x, lp["ln2"]), cfg)
     hidden = L.rmsnorm(x, params["final_norm"])

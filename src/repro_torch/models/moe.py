@@ -27,9 +27,16 @@ The router's product runs in full f32: a route is a comparison, and TF32's
 to uniform), so ``route`` raises on a CUDA tensor while
 ``torch.backends.cuda.matmul.allow_tf32`` is set.  The expert products are
 batched ``einsum``s (``layers._mm``) in the parameters' dtype, as the JAX
-package computes them with ``jnp.einsum`` outside any Pallas kernel.  The
-port runs on one card: nothing here shards the experts or constrains an
-activation, and the ``moe_sharding`` knob is not read.
+package computes them with ``jnp.einsum`` outside any Pallas kernel.
+``moe_sharding`` names the expert weights' logical axes (``moe_specs``).
+
+On a mesh of more than one rank the block runs whole on every rank
+(``sharding.whole_on_every_rank``: the tokens and the expert weights are
+gathered): the dispatch's stable sort, ``searchsorted`` and indexed
+writes have no DTensor sharding strategy, and a per-shard dispatch would
+rank slots and apply the capacity over one shard's tokens, which is
+another function than the JAX package's.  Expert-parallel dispatch is
+ROADMAP item 15.6; its output is constrained back to the batch sharding.
 """
 
 from __future__ import annotations
@@ -41,18 +48,27 @@ import torch
 
 from ..configs.base import ModelConfig
 from .layers import _mm, activation
-from .sharding import ParamSpec
+from .sharding import ParamSpec, constrain, on_mesh, whole_on_every_rank
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    """The router and the stacked expert weights (the JAX package's default
-    layout names for the axes)."""
+    """The router and the stacked expert weights, their logical axes by
+    ``cfg.moe_sharding`` as in the JAX package: ``"resident"`` shards the
+    experts over the DP axes and d_ff over ``model``; ``"expert_only"``
+    the experts over ``model`` alone; the default the experts over
+    ``model`` with the FSDP (``embed``) dim."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    if cfg.moe_sharding == "resident":
+        e_ax, d_ax, f_ax = "experts_resident", None, "moe_ff"
+    elif cfg.moe_sharding == "expert_only":
+        e_ax, d_ax, f_ax = "experts", None, None
+    else:
+        e_ax, d_ax, f_ax = "experts", "embed", None
     return {
         "router": ParamSpec((d, E), ("embed", "experts"), scale=0.01),
-        "wg": ParamSpec((E, d, f), ("experts", "embed", "moe_ff")),
-        "wu": ParamSpec((E, d, f), ("experts", "embed", "moe_ff")),
-        "wd": ParamSpec((E, f, d), ("experts", "moe_ff", "embed")),
+        "wg": ParamSpec((E, d, f), (e_ax, d_ax, f_ax)),
+        "wu": ParamSpec((E, d, f), (e_ax, d_ax, f_ax)),
+        "wd": ParamSpec((E, f, d), (e_ax, f_ax, d_ax)),
     }
 
 
@@ -182,6 +198,13 @@ def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     ``moe_seq_chunk`` positions of every row is one dispatch, and the aux
     loss is the chunks' mean.
     """
+    if on_mesh():
+        y, aux = whole_on_every_rank(_moe_block, n_out=2)(p, x, cfg)
+        return constrain(y, "batch", "seq", "embed"), aux
+    return _moe_block(p, x, cfg)
+
+
+def _moe_block(p, x: torch.Tensor, cfg: ModelConfig):
     B, S, d = x.shape
     c = cfg.moe_seq_chunk
     if S > c and S % c == 0:

@@ -17,8 +17,10 @@ same-width unsigned-integer views (through torch's integer views, with no
 ``ml_dtypes``), their true dtype in the manifest.  Everything is written
 into ``step_<N>.tmp`` and renamed after the manifest is in place, so a
 crash mid-save never leaves a directory that ``latest_step`` would pick.
-``restore`` takes ``device=`` where the JAX one takes ``shardings=``: the
-port runs on one card.
+``restore`` takes ``shardings=`` as the JAX one does (a tree like ``like``
+of ``sharding.NamedSharding``s: each leaf is placed on its mesh by
+``elastic.place``, the elastic-resume path), or ``device=`` for one card;
+``save`` writes a DTensor leaf as its whole tensor.
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ _NAME_OF = {view[3]: name for name, view in _VIEWS.items()}
 
 def _to_savable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """(the array npz stores, the dtype name the manifest records)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu().contiguous()
     name = _NAME_OF.get(t.dtype)
     if name is None:
@@ -140,12 +145,19 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, step: int, like, device=None) -> Tuple[Any, dict]:
+def restore(directory: str, step: int, like, device=None,
+            shardings=None) -> Tuple[Any, dict]:
     """Restore into the structure of ``like`` (a tree of tensors, on any
     device, ``meta`` included) on ``device`` (None: the GPU, raising
-    without one; ``"cpu"`` for tests).  Each leaf keeps the dtype it was
-    saved in; a shape other than ``like``'s raises."""
-    dev = resolve_device(device)
+    without one; ``"cpu"`` for tests) or, with ``shardings`` (a tree like
+    ``like`` of ``NamedSharding``s), onto each leaf's sharding: a DTensor
+    on its mesh, or a plain tensor on the mesh's device where the mesh has
+    one rank.  Passing both raises ``ValueError``.  Each leaf keeps the
+    dtype it was saved in; a shape other than ``like``'s raises."""
+    if device is not None and shardings is not None:
+        raise ValueError("restore takes device= or shardings=, not both")
+    sh_at = dict(_paths(shardings)) if shardings is not None else None
+    dev = resolve_device(device) if sh_at is None else None
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -157,13 +169,16 @@ def restore(directory: str, step: int, like, device=None) -> Tuple[Any, dict]:
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key!r}: ckpt "
                                  f"{tuple(t.shape)} vs {tuple(leaf.shape)}")
+            if sh_at is not None:
+                from .elastic import place
+                return place(t, sh_at[key])
             return t.to(dev)
 
         return _rebuild(like, leaf_at), manifest
 
 
-def restore_latest(directory: str, like, device=None):
+def restore_latest(directory: str, like, device=None, shardings=None):
     step = latest_step(directory)
     if step is None:
         return None, None
-    return restore(directory, step, like, device)
+    return restore(directory, step, like, device, shardings)

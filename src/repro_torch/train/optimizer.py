@@ -13,6 +13,11 @@ a step adds a few chunks' f32 temporaries to the peak, where the JAX
 step returns new arrays and its driver donates the old ones.  The
 caller's ``params`` and ``state`` tensors are the updated ones
 afterwards; they must be contiguous.
+
+On a mesh (``reshard``'s DTensors) each rank updates its own local
+shards: the arithmetic is elementwise and the gradients, moments and
+parameters of a leaf share one sharding, so no value changes; the global
+norm is the norm over the whole mesh (DTensor reduces the per-shard sums).
 """
 
 from __future__ import annotations
@@ -39,11 +44,26 @@ class AdamWState(NamedTuple):
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, leaves added in
-    ``tree_leaves``'s order (the JAX package's ``sum`` over its leaves)."""
+    ``tree_leaves``'s order (the JAX package's ``sum`` over its leaves).
+    Over DTensor leaves it is the norm of the whole tensors, a plain
+    tensor holding the same value on every rank."""
     total = 0
     for g in tree_leaves(grads):
         total = total + torch.sum(torch.square(g.float()))
-    return torch.sqrt(total)
+    return _local(torch.sqrt(total))
+
+
+def _local(t):
+    """A DTensor's value on this rank (``full_tensor``: a scalar or a
+    replicated value), any other value as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _shard(t):
+    """This rank's local shard of a DTensor, a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +79,7 @@ class AdamW:
     def init(self, params) -> AdamWState:
         leaves = tree_leaves(params)
         dev = leaves[0].device if leaves else None
-        zeros = lambda p: torch.zeros(p.shape, dtype=self.state_dtype,
-                                      device=p.device)
+        zeros = lambda p: _zeros_like(p, self.state_dtype)
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             m=tree_map(zeros, params),
@@ -83,7 +102,7 @@ class AdamW:
                ) -> Tuple[Any, AdamWState]:
         """One step: returns (params, state), the same tensors written in
         place, with the state's step a new tensor."""
-        step = state.step + 1
+        step = _local(state.step) + 1
         scale = None
         if self.clip_norm is not None:
             gnorm = global_norm(grads)
@@ -94,11 +113,12 @@ class AdamW:
         s32 = step.float()
         bc1 = 1.0 - torch.pow(b1, s32)
         bc2 = 1.0 - torch.pow(b2, s32)
-        lr = self.lr(step)
+        lr = _local(self.lr(step))
 
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m),
                               tree_leaves(state.v), tree_leaves(params)):
-            g, m, v, p = g.reshape(-1), _flat(m), _flat(v), _flat(p)
+            g, m, v, p = (_shard(g).reshape(-1), _flat(_shard(m)),
+                          _flat(_shard(v)), _flat(_shard(p)))
             for i in range(0, p.numel(), UPDATE_CHUNK):
                 at = slice(i, i + UPDATE_CHUNK)
                 self._update_chunk(g[at], m[at], v[at], p[at], scale, bc1,
@@ -120,6 +140,14 @@ class AdamW:
         p32 = p.float()
         delta.add_(self.weight_decay * p32)
         p.copy_(p32.sub_(lr * delta))
+
+
+def _zeros_like(p, dtype):
+    """Zeros shaped (and, for a DTensor, sharded) like ``p``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,14 @@ Microbatching: the global batch is split along its first axis into
 ``torch.autograd.grad`` and added into f32 accumulators in order, then
 divided by the count, as the JAX ``lax.scan`` does.  ``.backward()`` is not
 used: ``.grad`` of a bf16 leaf would accumulate in bf16, a different sum.
+
+On a mesh (the parameters DTensors placed by ``elastic.reshard``, the
+step called under ``use_mesh``) the same code runs on DTensors: each
+gradient is redistributed to its parameter's sharding (a ``Partial`` sum
+reduced there), the loss and metrics are the whole values on every rank,
+microbatches are cut from each rank's local rows, and the optimizer
+updates local shards.  Off a mesh, and on a mesh of one rank, nothing of
+this runs: the step is the one-card step, bit for bit.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from ..models.model import Model
 from ..models.sharding import (init_params, tree_leaves, tree_map,
                                tree_unflatten)
 from .compress import compress_grads, init_error
-from .optimizer import AdamW, AdamWState, global_norm
+from .optimizer import AdamW, AdamWState, _local, _zeros_like, global_norm
 
 
 class TrainState(NamedTuple):
@@ -41,8 +49,31 @@ def loss_and_grads(model: Model, params, batch):
     with torch.enable_grad():
         loss, metrics = model.loss_fn(tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
-    metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, tree_unflatten(params, list(grads))
+    grads = [_as_placed(g, p) for g, p in zip(grads, leaves)]
+    metrics = {k: _local(torch.as_tensor(v).detach())
+               for k, v in metrics.items()}
+    return _local(loss.detach()), metrics, tree_unflatten(params, grads)
+
+
+def _as_placed(g, p):
+    """A DTensor gradient redistributed to its parameter's placements (a
+    ``Partial`` sum reduced); a plain one as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _local_chunks(v, n: int):
+    """``v`` cut into ``n`` parts along its first axis; a DTensor's local
+    rows are cut on each rank (each part keeps ``v``'s placements), so a
+    batch sharded over the DP axes splits with no communication."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(v, DTensor):
+        return v.chunk(n)
+    return [DTensor.from_local(c, v.device_mesh, v.placements,
+                               run_check=False)
+            for c in v.to_local().chunk(n)]
 
 
 def make_train_step(
@@ -59,12 +90,12 @@ def make_train_step(
             loss, metrics, grads = loss_and_grads(model, params, batch)
         else:
             parts = {k: torch.as_tensor(v) for k, v in batch.items()}
-            if any(v.shape[0] % microbatches for v in parts.values()):
+            if any(_local_rows(v) % microbatches for v in parts.values()):
                 raise ValueError(f"the batch does not split into "
                                  f"{microbatches} microbatches")
-            parts = {k: v.chunk(microbatches) for k, v in parts.items()}
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in tree_leaves(params)]
+            parts = {k: _local_chunks(v, microbatches)
+                     for k, v in parts.items()}
+            acc = [_zeros_like(p, torch.float32) for p in tree_leaves(params)]
             loss = 0.0
             for i in range(microbatches):
                 mloss, _, g = loss_and_grads(
@@ -93,6 +124,11 @@ def make_train_step(
         return TrainState(new_params, new_opt, new_error), out_metrics
 
     return step
+
+
+def _local_rows(v) -> int:
+    from torch.distributed.tensor import DTensor
+    return (v.to_local() if isinstance(v, DTensor) else v).shape[0]
 
 
 def init_state(model: Model, optimizer: AdamW, generator: torch.Generator,

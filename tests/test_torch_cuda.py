@@ -1831,3 +1831,136 @@ def test_ssd_scan_backward_on_card_equals_cpu(cuda):
     for w, g in zip(*grads):
         err = float((g.cpu() - w).abs().max() / w.abs().max())
         assert err <= 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the mesh (one-rank NCCL group; two gloo ranks on the card)
+# ---------------------------------------------------------------------------
+
+def _state_bits(state):
+    from repro_torch.models.sharding import tree_leaves
+    out = [state.opt.step]
+    for tree in (state.params, state.opt.m, state.opt.v):
+        out += tree_leaves(tree)
+    return [t.detach().reshape(-1).view(torch.uint8).cpu() for t in out]
+
+
+def test_one_rank_mesh_step_equals_the_step_without_a_mesh(cuda):
+    """``make_host_mesh()`` on one card is a (1, 1) NCCL mesh; the smoke
+    model's train step from the same state under ``use_mesh`` equals the
+    step without a mesh bit for bit (deterministic algorithms on: the
+    embedding backward otherwise sums in no fixed order)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import mesh_shape, use_mesh
+    from repro_torch.train.elastic import plan_mesh, reshard
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import init_state, make_train_step
+    cfg = get_smoke_config("llama3.2-3b")
+    model = build_model(cfg, device=cuda)
+    opt = AdamW(lr=lambda s: 1e-3)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 64)),
+             "labels": rng.integers(0, cfg.vocab, (4, 64))}
+    step = make_train_step(model, opt, microbatches=2)
+    try:
+        mesh = make_host_mesh()
+        assert dist.get_backend() == "nccl"
+        assert mesh_shape(mesh) == {"data": 1, "model": 1}
+        assert mesh_shape(plan_mesh()) == {"data": 1, "model": 1}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        runs = []
+        for on_mesh in (False, True):
+            state = init_state(model, opt, torch.Generator(cuda).manual_seed(0),
+                               device=cuda)
+            if on_mesh:
+                state = reshard(state, model.specs, mesh)
+                with use_mesh(mesh):
+                    state, met = step(state, batch)
+            else:
+                state, met = step(state, batch)
+            runs.append((met["loss"].cpu(), _state_bits(state)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (la, a), (lb, b) = runs
+    assert torch.equal(la.view(torch.int32), lb.view(torch.int32))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_compressed_psum_over_one_nccl_rank(cuda):
+    """Over a one-rank NCCL group ``compressed_psum`` is bit for bit the
+    dequantisation of ``_quantize``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.train.compress import _quantize, compressed_psum
+    x = torch.randn(1 << 20, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda) * 3
+    try:
+        mesh = make_host_mesh()
+        with use_mesh(mesh):
+            got = compressed_psum(x, "data")
+    finally:
+        dist.destroy_process_group()
+    q, scale = _quantize(x)
+    want = q.to(torch.float32) * scale
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _local_flash_rank(rank, world, store, out):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.sharding import (NamedSharding, P, constrain,
+                                             use_mesh)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        g = torch.Generator(dev).manual_seed(0)
+        q, k, v = (torch.randn(2, 256, 8, 64, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        sh = NamedSharding(mesh, P("data", None, "model", None))
+        dq, dk, dv = (distribute_tensor(t, mesh, sh.placements(),
+                                        src_data_rank=None) for t in (q, k, v))
+        before = ops.flash_attention.launches
+        with use_mesh(mesh):
+            o = L.chunked_attention(dq, dk, dv, causal=True, chunk=64)
+            o = constrain(o, "batch", None, "heads", None)
+        launched = ops.flash_attention.launches - before
+        local = o.to_local()
+        # each rank's heads against the same heads of the whole run (no
+        # gather: gloo's functional all-gather of CUDA tensors kills a
+        # rank, tools/gloo_cuda_probe.py)
+        want = L.chunked_attention(q, k, v, causal=True, chunk=64)
+        h = local.shape[2]
+        torch.save({"launched": launched, "local_heads": h,
+                    "equal": bool(torch.equal(
+                        local, want[:, :, rank * h:(rank + 1) * h]))},
+                   f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_local_map_flash_on_dtensor_heads_equals_the_whole_tensor(cuda,
+                                                                  tmp_path):
+    """On two gloo ranks of the card, a (1, 2) (data, model) mesh: the
+    attention of q, k, v sharded on their heads runs the kernel once a
+    rank on its 4 local heads, and each rank's output equals the kernel
+    on the whole tensors at those heads bit for bit (attention is local
+    to a head)."""
+    import torch.multiprocessing as mp
+    mp.spawn(_local_flash_rank, args=(2, str(tmp_path / "store"),
+                                      str(tmp_path)), nprocs=2, join=True)
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt")
+        assert res == {"launched": 1, "local_heads": 4, "equal": True}, r

@@ -246,8 +246,7 @@ def _spec_count(cfg) -> int:
 
 def _specs_match_jax(arch):
     """The spec trees of both packages' smoke models hold the same leaves,
-    shapes, inits and scales (logical axes may differ: the port's MoE
-    names its ``moe_ff`` axis, which the JAX package leaves unnamed)."""
+    shapes, logical axes, inits and scales."""
     rspecs = r_build(r_smoke(arch)).specs
     tspecs = build_model(get_smoke_config(arch), device="cpu").specs
     r_leaves = jax.tree_util.tree_leaves_with_path(
@@ -261,7 +260,7 @@ def _specs_match_jax(arch):
         for key in path:
             t = t[key.key]
         assert t.shape == leaf.shape and t.init == leaf.init, path
-        assert t.scale == leaf.scale, path
+        assert t.scale == leaf.scale and t.logical == leaf.logical, path
 
 
 @pytest.mark.parametrize("arch", MOE)

@@ -231,15 +231,6 @@ def test_quantization_error_bounded_and_feedback_reinjects():
     np.testing.assert_allclose((total / 50).numpy(), 1e-4, rtol=0.3)
 
 
-@pytest.mark.parametrize("call", ["compressed_psum", "plan_mesh", "reshard"])
-def test_mesh_members_raise_naming_item_15_5(call):
-    fn = {"compressed_psum": lambda: TC.compressed_psum(torch.zeros(2), "pod"),
-          "plan_mesh": lambda: TE.plan_mesh(),
-          "reshard": lambda: TE.reshard({}, {}, None)}[call]
-    with pytest.raises(NotImplementedError, match="item 15.5"):
-        fn()
-
-
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
