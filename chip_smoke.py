@@ -301,11 +301,24 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      CUDA tensors kills a rank); (d) the port's dry-run in subprocesses
      on the host's cores, started with phase 3's references and done
      beside them and phase 2, before any timed phase: the six smoke cells of the
-     JAX package's ``tests/test_dryrun.py`` and ``llama3.2-3b train_4k``
-     at full width on 16x16 and 2x16x16, each OK with its peak bytes a
-     device within the card's 80 GB, its collective bytes by axis and its
-     roofline (derived from H100 peaks).  The phase tears its process
-     group down.
+     JAX package's ``tests/test_dryrun.py``, ``kimi-k2-1t-a32b
+     train_4k`` again under the ``"resident"`` MoE layout with the
+     ``"grouped"`` dispatch, and ``llama3.2-3b train_4k`` at full width
+     on 16x16 and 2x16x16, each OK with its peak bytes a device within
+     the card's 80 GB, its collective bytes by axis and its roofline
+     (derived from H100 peaks); (e) on the 4 gloo ranks after (c), on
+     the card's tensors (``MOE_MESH_DEVICE``): one Qwen3-MoE-30B-A3B MoE
+     layer at full width (d_model 2,048, 128 experts top-8, expert d_ff
+     768, bf16 weights from the seed), 4 x 2,048 tokens in 8 dispatch
+     chunks, dispatched expert-parallel on the 2x2 (data, model) mesh
+     under ``"scatter"`` + ``"fsdp"`` (experts over ``model``) and
+     ``"grouped"`` + ``"resident"`` (experts over ``data``, d_ff over
+     ``model``), given the one-card routes: every rank's kept slots equal
+     to ``moe.kept_slots`` on the global routes, y bit for bit the
+     one-card ``dispatch_scatter`` under the first and within
+     ``MOE_VS_F32_TOL`` of ``dispatch_grouped`` under the second, with
+     the collective bytes counted by kind, the seconds and the expert
+     bytes a rank holds.  The phase tears its process group down.
 
 Phases 3, 4, 6 and 8 run their services with the verdict cache off, so
 that every batch launches its table groups' kernels.  The kernels'
@@ -5922,37 +5935,69 @@ MESH_SHARDED = dict(layers=2, B=2, S=1024)   # (c): 2 layers, 2 x 1,024
 # redistributes through (``_c10d_functional.all_gather_into_tensor``)
 # killing its rank with SIGSEGV at any size; NCCL refuses two ranks on one
 # device.  So the sharded step runs its 4 ranks on the CPU, at the smoke
-# config (ROADMAP queue 2b item 15); (b)'s collectives stay on the card.
+# config (ROADMAP queue 2b item 15); (b)'s collectives stay on the card,
+# and so does (e), whose expert-parallel MoE layer issues no all-gather
+# (``MOE_MESH_DEVICE``).
 SHARDED_STEP_DEVICE = "cpu"
 PSUM_N = 1 << 22         # (b): elements a rank
-DRYRUN_SMOKE = (("llama3.2-3b", "train_4k"), ("kimi-k2-1t-a32b", "train_4k"),
-                ("mamba2-1.3b", "long_500k"), ("zamba2-2.7b", "decode_32k"),
-                ("whisper-small", "decode_32k"),
-                ("llava-next-34b", "prefill_32k"))
+# (d)'s smoke cells on the 8-rank mesh: (arch, shape, overrides)
+DRYRUN_SMOKE = (("llama3.2-3b", "train_4k", None),
+                ("kimi-k2-1t-a32b", "train_4k", None),
+                ("kimi-k2-1t-a32b", "train_4k",
+                 dict(moe_dispatch="grouped", moe_sharding="resident")),
+                ("mamba2-1.3b", "long_500k", None),
+                ("zamba2-2.7b", "decode_32k", None),
+                ("whisper-small", "decode_32k", None),
+                ("llava-next-34b", "prefill_32k", None))
 DRYRUN_FULL = ("llama3.2-3b", "train_4k")
 CARD_BYTES = 80e9        # the H100's device memory: a cell's bytes a device
 DRYRUN_TIMEOUT_S = 600
+# (e): one MoE layer of ``MOE_ARCH`` at full width on the 4 ranks as a
+# 2x2 (data, model) mesh, each (dispatch, sharding) layout in turn: B rows
+# of S positions in S / moe_seq_chunk dispatch chunks.  Its device: the
+# card's probe (``tools/gloo_cuda_probe.py``, 4 gloo ranks on one H100,
+# torch 2.11.0+cu128) found gloo's functional all-reduce and all-to-all
+# (and the latter's autograd form) taking CUDA tensors, the functional
+# all-gather killing its rank at int64 as at bf16; the expert-parallel
+# dispatch issues no all-gather (``moe._gather_rows`` sums zero-padded
+# blocks), so (e) runs on the card's tensors.  On the CPU (a rehearsal)
+# the layer is cut to one chunk a row (``MOE_MESH_CPU``).
+MOE_MESH_DEVICE = "cuda"
+MOE_MESH = dict(B=4, S=2048, chunk=256)
+MOE_MESH_CPU = dict(B=4, S=256, chunk=256)
+MOE_MESH_LAYOUTS = (("scatter", "fsdp"), ("grouped", "resident"))
+# (e)'s bound on max |mesh - one card| / max |one card| of y, given the
+# one-card routes: bit for bit where the experts sit on ``model`` (each
+# slot's output computed in the one-card buffer's row, the slot sums
+# exact); ``MOE_VS_F32_TOL`` under ``"resident"``, whose d_ff shards'
+# bf16 products are summed over ``model`` (one rounding more a slot).
 
 
 def start_dryruns(out_dir: str, full: bool = True) -> list:
     """(d): the port's dry-run in subprocesses on the host CPU (fake
     process groups, fake tensors: the card is not touched), started at
     once after phase 3's tables so they run beside phase 2 and phase 3's
-    references and are done before the timed phases begin: the six
-    smoke cells of the JAX package's ``tests/test_dryrun.py`` on the
-    scaled 8-rank mesh in one, and ``DRYRUN_FULL`` at full width on 16x16
-    and on 2x16x16 (512 fake ranks) in one each.  ``full=False`` (a CPU rehearsal) leaves the
-    full-width ones out.  Returns [(name, Popen, JSON paths)]."""
+    references and are done before the timed phases begin: the
+    ``DRYRUN_SMOKE`` cells (the six of the JAX package's
+    ``tests/test_dryrun.py`` and Kimi's under the ``"resident"`` MoE
+    layout) on the scaled 8-rank mesh in one, and ``DRYRUN_FULL`` at
+    full width on 16x16 and on 2x16x16 (512 fake ranks) in one each.
+    ``full=False`` (a CPU rehearsal) leaves the full-width ones out.
+    Returns [(name, Popen, JSON paths)]."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    smoke_out = [f"{out_dir}/smoke_{a}_{s}.json" for a, s in DRYRUN_SMOKE]
+    smoke_out = [f"{out_dir}/smoke{i}_{a}_{s}.json"
+                 for i, (a, s, _) in enumerate(DRYRUN_SMOKE)]
     code = ("import json, sys\n"
             "from repro_torch.launch import dryrun\n"
-            "for (a, s), out in zip(json.loads(sys.argv[1]), "
+            "dryrun.init_fake_group(8)\n"
+            "for (a, s, over), out in zip(json.loads(sys.argv[1]), "
             "json.loads(sys.argv[2])):\n"
-            "    dryrun.main(['--arch', a, '--shape', s, '--smoke', "
-            "'--out', out])\n")
+            "    rec = dryrun.run_cell(a, s, False, overrides=over, "
+            "smoke=True)\n"
+            "    rec['overrides'] = over\n"
+            "    json.dump([rec], open(out, 'w'), indent=1)\n")
     smoke = subprocess.Popen(
         [sys.executable, "-c", code, json.dumps(DRYRUN_SMOKE),
          json.dumps(smoke_out)], cwd=ROOT, stdout=subprocess.PIPE,
@@ -5987,8 +6032,11 @@ def collect_dryruns(procs) -> dict:
         for path in paths:
             for rec in json.loads(Path(path).read_text()):
                 rec.pop("trace", None)
+                over = rec.get("overrides")
                 key = (f"{rec['arch']} {rec['shape']} {rec['mesh']}"
-                       + (" smoke" if name == "smoke" else ""))
+                       + (" smoke" if name == "smoke" else "")
+                       + (" " + " ".join(f"{k}={v}" for k, v in
+                                         over.items()) if over else ""))
                 out[key] = rec
     for key, rec in out.items():
         if rec["status"] != "OK":
@@ -6021,9 +6069,10 @@ def report_dryruns(records: dict, card: str) -> None:
 
 def mesh_rank(rank: int, world: int, store: str, out_dir: str,
               seed: int, dev_type: str) -> None:
-    """One of (b)'s and (c)'s gloo ranks (spawned): (b) on ``dev_type``
-    (the card; "cpu" in a rehearsal), (c) on ``SHARDED_STEP_DEVICE`` at
-    the smoke config."""
+    """One of (b)'s, (c)'s and (e)'s gloo ranks (spawned): (b) on
+    ``dev_type`` (the card; "cpu" in a rehearsal), (c) on
+    ``SHARDED_STEP_DEVICE`` at the smoke config, (e) on ``dev_type``
+    where ``MOE_MESH_DEVICE`` is the card."""
     import dataclasses
     import os
 
@@ -6105,10 +6154,202 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str,
             _, _, g1 = loss_and_grads(model, params, batch)
             res["errs"] = {n: rms_err(full[n], g)
                            for n, g in named_leaves(g1)}
+        del model, params, placed, grads, full
+
+        # (e) the expert-parallel MoE layer at full width
+        dev = torch.device(dev_type if MOE_MESH_DEVICE == "cuda" else "cpu")
+        res["moe"] = moe_mesh_layer(seed, dev)
         with open(f"{out_dir}/rank{rank}.json", "w") as f:
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
+
+
+def moe_mesh_layer(seed: int, dev) -> dict:
+    """(e) on one of the 4 gloo ranks: one ``MOE_ARCH`` MoE layer at full
+    width (bf16 weights and tokens from the seed) on a 2x2 (data, model)
+    mesh of ``dev``'s tensors, for each ``MOE_MESH_LAYOUTS`` entry, given
+    the one-card routes.  Every rank computes the one-card reference on
+    the global batch (``route`` chunk by chunk, ``kept_slots``, and
+    ``dispatch_scatter`` / ``dispatch_grouped`` given those routes); the
+    mesh block's ``route`` is replaced by the reference's routes of this
+    rank's tokens (the mesh's own are compared, not held).  Returns this
+    rank's findings by layout: its kept slots equal to the reference's
+    (``dest`` read from ``moe.mesh_routes``), the error of its block of y,
+    the collective bytes counted by kind and axis, the block's seconds
+    (a first call and a second), the expert-weight bytes it holds, and
+    the slots whose route its own router would flip."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import CollectiveCounter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import (NamedSharding, P, init_params,
+                                             mesh_shape, use_mesh)
+    from repro_torch.train.elastic import place, reshard
+
+    traffic = MOE_MESH if dev.type == "cuda" else MOE_MESH_CPU
+    B, S, c = traffic["B"], traffic["S"], traffic["chunk"]
+    base = dataclasses.replace(get_config(MOE_ARCH), moe_seq_chunk=c)
+    E, k, d = base.n_experts, base.experts_per_tok, base.d_model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    params = init_params(moe.moe_specs(base), gen, device=dev)
+    x = torch.randn((B, S, d), generator=gen, device=dev).to(torch.bfloat16)
+    mesh = make_host_mesh(device=dev)
+    coord = mesh.get_coordinate()
+    b = B // mesh.size(0)
+    mine = slice(coord[0] * b, (coord[0] + 1) * b)
+    out = {"mesh": mesh_shape(mesh), "device": str(dev), "traffic": traffic}
+    for dispatch, sharding in MOE_MESH_LAYOUTS:
+        cfg = dataclasses.replace(base, moe_dispatch=dispatch,
+                                  moe_sharding=sharding)
+        with torch.no_grad():
+            # the one-card reference, chunk by chunk
+            routes, want = [], []
+            for i in range(S // c):
+                xc = x[:, i * c:(i + 1) * c]
+                if dispatch == "grouped":
+                    _, w, idx = moe.route(params, xc, cfg)
+                    want.append(moe.dispatch_grouped(params, xc, w, idx, cfg))
+                    C = moe.capacity(c, cfg)
+                    keep = torch.stack([moe.kept_slots(r, C) for r in idx])
+                else:
+                    _, w, idx = moe.route(params, xc.reshape(B * c, d), cfg)
+                    want.append(moe.dispatch_scatter(
+                        params, xc.reshape(B * c, d), w, idx,
+                        cfg).view(B, c, d))
+                    keep = moe.kept_slots(idx, moe.capacity(B * c, cfg))
+                    w, idx, keep = (t.view(B, c, k) for t in (w, idx, keep))
+                routes.append((w, idx, keep.view(B, c, k)))
+            want = torch.cat(want, dim=1)[mine]
+            sync(dev)
+            specs = moe.moe_specs(cfg)
+            dp = reshard(params, specs, mesh)
+            dx = place(x, NamedSharding(mesh, P("data", None, None)))
+            real_route, real_routes = moe.route, moe.mesh_routes
+            calls, dests, flips = [], [], []
+
+            def replay(p, xl, cfg_):
+                # this rank's tokens of the current chunk: their one-card
+                # (w, idx), the mesh's own route compared beside them
+                probs, w_own, idx_own = real_route(p, xl, cfg_)
+                w, idx, _ = routes[len(calls) % len(routes)]
+                w, idx = w[mine], idx[mine]
+                calls.append(1)
+                idx = idx.reshape(idx_own.shape)
+                flips.append(int((idx_own[..., :, None] != idx[..., None, :])
+                                 .all(-1).sum()))
+                return probs, w.reshape(w_own.shape), idx
+
+            def recorded(p, xc, cfg_, lay=None):
+                w, dest, aux = real_routes(p, xc, cfg_, lay)
+                dests.append(dest.to_local())
+                return w, dest, aux
+
+            counter = CollectiveCounter(mesh)
+            secs = []
+            moe.route, moe.mesh_routes = replay, recorded
+            try:
+                with use_mesh(mesh):
+                    for rep in range(2):
+                        calls.clear()
+                        dests.clear()
+                        flips.clear()
+                        sync(dev)
+                        t0 = time.perf_counter()
+                        if rep:
+                            with counter:
+                                y, aux = moe.moe_block(dp, dx, cfg)
+                        else:
+                            y, aux = moe.moe_block(dp, dx, cfg)
+                        sync(dev)
+                        secs.append(time.perf_counter() - t0)
+            finally:
+                moe.route, moe.mesh_routes = real_route, real_routes
+        got = y.to_local()
+        keep_ok = True
+        for i, (dest, (_, _, keep)) in enumerate(zip(dests, routes)):
+            C = moe.capacity(c if dispatch == "grouped" else B * c, cfg)
+            want_keep = keep if dispatch == "scatter" else keep[mine]
+            keep_ok = keep_ok and bool(torch.equal(dest < E * C, want_keep))
+        held = sum(dp[n].to_local().numel() * dp[n].to_local().element_size()
+                   for n in ("wg", "wu", "wd"))
+        out[f"{dispatch}-{sharding}"] = dict(
+            keep_ok=keep_ok, chunks=len(dests),
+            kept=int(sum(int((t < E * moe.capacity(
+                c if dispatch == "grouped" else B * c, cfg)).sum())
+                for t in dests)),
+            equal=bool(torch.equal(got, want)), err=rel_err(got, want),
+            finite=bool(torch.isfinite(got.float()).all()),
+            aux=float(aux.to_local()), counted=counter.counted,
+            secs=secs, expert_bytes=held,
+            whole_bytes=sum(params[n].numel() * params[n].element_size()
+                            for n in ("wg", "wu", "wd")),
+            flips=sum(flips), slots=b * S * k)
+        del dp, dx, y, want, routes
+    return out
+
+
+def report_moe_mesh(res: list, card: str) -> dict:
+    """(e)'s checks over the ranks' findings (``moe_mesh_layer``) and its
+    lines: for each layout the kept slots, y against the one-card
+    dispatch (bit for bit, or ``MOE_VS_F32_TOL`` under ``"resident"``),
+    the collective bytes by kind and axis, the seconds and the
+    expert-weight bytes a rank holds."""
+    out = {}
+    first = res[0]["moe"]
+    traffic = first["traffic"]
+    chunks = traffic["S"] // traffic["chunk"]
+    where = (f"on the card's tensors ({first['device']})"
+             if first["device"].startswith("cuda") else
+             f"ON THE CPU, its tokens cut (the card's: {MOE_MESH['B']} x "
+             f"{MOE_MESH['S']})")
+    for dispatch, sharding in MOE_MESH_LAYOUTS:
+        name = f"{dispatch}-{sharding}"
+        rows = [r["moe"][name] for r in res]
+        tol = MOE_VS_F32_TOL if sharding == "resident" else 0.0
+        bad = [i for i, r in enumerate(rows)
+               if not (r["keep_ok"] and r["finite"] and r["chunks"] == chunks
+                       and (r["equal"] if tol == 0 else r["err"] <= tol))]
+        if bad:
+            raise SystemExit(
+                f"phase 13 (e): {name}: ranks {bad} off the one-card "
+                f"dispatch: kept slots equal "
+                f"{[r['keep_ok'] for r in rows]}, y equal "
+                f"{[r['equal'] for r in rows]}, errors "
+                f"{[r['err'] for r in rows]} (bound {tol}), chunks "
+                f"{[r['chunks'] for r in rows]} (want {chunks})")
+        counted = rows[0]["counted"]
+        by_axis = "; ".join(f"{a}: " + ", ".join(
+            f"{kd} {v:,.0f}" for kd, v in kinds.items())
+            for a, kinds in counted.items())
+        secs = [max(r["secs"][i] for r in rows) for i in range(2)]
+        held = [r["expert_bytes"] for r in rows]
+        how = ("bit for bit" if tol == 0 else
+               f"within {tol} (largest {max(r['err'] for r in rows):.3e})")
+        log(f"[mesh] {card}: (e) {MOE_ARCH} one MoE layer at full width, "
+            f"{name}, {where}, {traffic['B']} x {traffic['S']} tokens in "
+            f"{chunks} dispatch chunks on a 2x2 (data, model) gloo mesh: "
+            f"every rank's kept slots equal to the one-card kept_slots on "
+            f"the global routes ({sum(r['kept'] for r in rows):,} kept "
+            f"slots summed over the ranks' views), y {how} of the one-card "
+            f"dispatch given those routes (the mesh's own router would "
+            f"flip {sum(r['flips'] for r in rows)} of "
+            f"{sum(r['slots'] for r in rows):,} slots: logged, not held); "
+            f"collective bytes a rank counted by axis and kind: {by_axis}; "
+            f"expert weights held a rank {min(held):,}-{max(held):,} bytes "
+            f"of {rows[0]['whole_bytes']:,}; the layer {secs[1]:.3f} s "
+            f"(slowest rank; its first call {secs[0]:.3f} s)")
+        out[name] = dict(counted=counted, secs=secs, expert_bytes=held,
+                         whole_bytes=rows[0]["whole_bytes"],
+                         err=max(r["err"] for r in rows),
+                         flips=sum(r["flips"] for r in rows),
+                         device=first["device"], traffic=traffic)
+    return out
 
 
 def stop_dryruns(procs) -> None:
@@ -6129,8 +6370,10 @@ def phase_mesh(seed: int, card: str, dev, state, model, batch,
     tensors; (c) the sharded dense step on those 4 ranks as a 2x2 (data,
     model) mesh, on the CPU at the smoke config (``SHARDED_STEP_DEVICE``);
     (d) the dry-run: ``dry``, the records ``collect_dryruns`` read before
-    phase 3 (the subprocesses ran beside phase 1), reported here.  (b)'s
-    and (c)'s ranks start with the phase and run beside (a)."""
+    phase 3 (the subprocesses ran beside phase 1), reported here; (e) one
+    full-width MoE layer dispatched expert-parallel on the same 4 ranks
+    after (c) (``moe_mesh_layer``, ``report_moe_mesh``).  (b)'s, (c)'s
+    and (e)'s ranks start with the phase and run beside (a)."""
     import shutil
     import tempfile
 
@@ -6294,6 +6537,7 @@ def phase_mesh(seed: int, card: str, dev, state, model, batch,
             f"{local_bh}; loss {res[0]['loss']:.6f}; forward and backward "
             f"{step_ms:.1f} ms (slowest rank); the ranks done "
             f"{spawn_s:.1f} s into the phase")
+        moe_mesh = report_moe_mesh(res, card)
         report_dryruns(dry, card)
     finally:
         for p in ranks.processes:
@@ -6310,7 +6554,7 @@ def phase_mesh(seed: int, card: str, dev, state, model, batch,
                 step_a_ms=step_a_ms, step_b_ms=step_b_ms,
                 loss_a=float(loss_a), sharded_grad_err=errs,
                 sharded_step_ms=step_ms, spawn_s=spawn_s, dryrun=dry,
-                s=phase_s)
+                moe_mesh=moe_mesh, s=phase_s)
 
 
 def main() -> int:

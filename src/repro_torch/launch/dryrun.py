@@ -249,7 +249,7 @@ def _run_step(cfg, shape, mesh, rules, counter):
     check, M.REMAT_DETERMINISM_CHECK = M.REMAT_DETERMINISM_CHECK, "none"
     try:
         with use_mesh(mesh, rules), counter:
-            out, temp = _measure(run, cfg, args)
+            out, temp = _measure(run, _mem_tracker(cfg, mesh), args)
     finally:
         ops.flash_attention = real_flash
         M.REMAT_DETERMINISM_CHECK = check
@@ -257,7 +257,7 @@ def _run_step(cfg, shape, mesh, rules, counter):
             temp)
 
 
-def _measure(run, cfg, args):
+def _measure(run, tracker, args):
     """(the step's outputs, its temp bytes from MemTracker: the peak of
     the live tensors it saw, the arguments' bytes taken off; or None).
 
@@ -270,7 +270,6 @@ def _measure(run, cfg, args):
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     from torch.utils._python_dispatch import _disable_current_modes
 
-    tracker = _mem_tracker(cfg)
     if tracker is None:
         return run(), None
     derive = ShardingPropagator._propagate_tensor_meta_non_cached
@@ -289,13 +288,16 @@ def _measure(run, cfg, args):
     return out, max(0, peak.get("Total", 0) - _local_bytes(args))
 
 
-def _mem_tracker(cfg):
+def _mem_tracker(cfg, mesh):
     """``MemTracker`` where it runs under fake mode, else None (the
     record's temp bytes are then null).  It does not run for the MoE
-    family: the dispatch's kept slots (``nonzero``) have sizes that
-    depend on the routing, which fake mode leaves unknown, and MemTracker
-    cannot add up a tensor of unknown size."""
-    if cfg.family == "moe":
+    family on a mesh of one rank: the one-card dispatch's kept slots
+    (``nonzero``) have sizes that depend on the routing, which fake mode
+    leaves unknown, and MemTracker cannot add up a tensor of unknown
+    size.  On a larger mesh the expert-parallel dispatch's shapes are
+    static (its ``"scatter"`` + ``"resident"`` exchange, whose splits
+    depend on the routing, does not run under fake mode at all)."""
+    if cfg.family == "moe" and mesh.size() == 1:
         return None
     from torch.distributed._tools.mem_tracker import MemTracker
     return MemTracker()

@@ -402,40 +402,68 @@ def mesh_zeros(shape: Tuple[int, ...], dtype, logical: Tuple[Optional[str], ...]
                  placements=NamedSharding(mesh, pspec).placements())
 
 
-def whole_on_every_rank(fn: Callable, n_out: int = 1) -> Callable:
-    """``fn`` on the active mesh computed whole on every rank: its DTensor
-    arguments are gathered to ``Replicate()`` (``local_map`` redistributes
-    them), it runs on the plain tensors with the mesh switched off (so
-    its ``constrain`` calls are no-ops), and its ``n_out`` outputs come
-    back as replicated DTensors.  For code whose ops have no DTensor
-    sharding strategy and whose meaning a per-shard run would change."""
-    from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.experimental import local_map
+def entry_dims(entry) -> Tuple[int, ...]:
+    """The active mesh's dims (indices, in the entry's order: major to
+    minor) that one ``P`` entry names; () for a replicated dim."""
+    names = tuple(_CURRENT_MESH.mesh_dim_names)
+    return tuple(names.index(a) for a in _entry_axes(entry))
+
+
+def axis_dims(logical: str, dim: int) -> Tuple[int, ...]:
+    """The mesh dims of the active mesh that shard a tensor dim of size
+    ``dim`` named ``logical`` (``"batch"``, ``"experts"``, ...): the
+    active rules and divisibility, as ``logical_to_pspec`` resolves one
+    dim; () where it is replicated."""
+    rules = {**DEFAULT_RULES, **(_CURRENT_RULES or {})}
+    return entry_dims(resolve_axis(dim, rules.get(logical), _CURRENT_MESH))
+
+
+def dims_group(dims: Tuple[int, ...]):
+    """A functional-collective group over the active mesh's ``dims``:
+    ``(mesh, dim)`` for one dim, a flattened mesh of them (major to minor)
+    for several; None for none."""
+    if not dims:
+        return None
+    from torch.utils._python_dispatch import _disable_current_modes
 
     mesh = _CURRENT_MESH
-    rep = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    if len(dims) == 1:
+        return (mesh, dims[0])
+    names = tuple(mesh.mesh_dim_names)
+    # the mesh's own rank tables are plain tensors: built outside any
+    # dispatch mode (the dry-run's fake tensors, its collective counter)
+    with _disable_current_modes():
+        return (mesh[tuple(names[d] for d in dims)]._flatten(), 0)
 
-    def off_mesh(*args):
-        global _CURRENT_MESH
-        prev, _CURRENT_MESH = _CURRENT_MESH, None
-        try:
-            return fn(*args)
-        finally:
-            _CURRENT_MESH = prev
 
-    def wrapped(*args):
-        from torch.utils._pytree import tree_flatten
+def axis_group(logical: str, dim: int):
+    """The process group of a logical axis on the active mesh (as
+    ``dims_group`` gives it), or None where the axis is replicated."""
+    return dims_group(axis_dims(logical, dim))
 
-        # local_map takes one placement per leaf of the flattened arguments
-        leaves, _ = tree_flatten(args)
-        mapped = local_map(off_mesh, out_placements=(rep,) * n_out,
-                           in_placements=tuple(
-                               rep if isinstance(a, torch.Tensor) else None
-                               for a in leaves),
-                           device_mesh=mesh, redistribute_inputs=True)
-        return mapped(*args)
 
-    return wrapped
+def dims_index(dims: Tuple[int, ...]) -> int:
+    """This rank's block along ``dims`` of the active mesh: its
+    coordinates on them, the first the major."""
+    mesh = _CURRENT_MESH
+    coord = mesh.get_coordinate()
+    i = 0
+    for d in dims:
+        i = i * mesh.size(d) + coord[d]
+    return i
+
+
+def spec_pspec(spec: ParamSpec) -> P:
+    """A leaf's ``P`` on the active mesh under the active rules."""
+    return logical_to_pspec(spec.logical, spec.shape, _CURRENT_MESH,
+                            _CURRENT_RULES)
+
+
+def spec_placements(spec: ParamSpec) -> tuple:
+    """The DTensor placements of a leaf declared by ``spec`` on the active
+    mesh under the active rules: what ``reshard`` gives it and what
+    ``local_map`` takes as its ``in_placements``."""
+    return NamedSharding(_CURRENT_MESH, spec_pspec(spec)).placements()
 
 
 class use_mesh:

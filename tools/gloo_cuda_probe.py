@@ -9,8 +9,10 @@ takes only its case down) and prints one line: the case, then ``ok`` and
 the seconds of the collective, or how the ranks ended.  The c10d calls
 (``torch.distributed.all_reduce`` and the rest) and the functional ones
 that DTensor redistributes through (``_functional_collectives``) are
-separate cases.  Used by ``chip_smoke.py`` phase 13 to decide where its
-sharded step runs (``SHARDED_STEP_DEVICE``).
+separate cases; a case ending in ``backward`` also runs the autograd
+form's backward.  Used by ``chip_smoke.py`` phase 13 to decide where its
+sharded step runs (``SHARDED_STEP_DEVICE``) and where its expert-parallel
+MoE layer runs (``MOE_MESH_DEVICE``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ CASES = ("c10d all_reduce sum f32", "c10d all_reduce max f32",
          "c10d all_gather_into_tensor bf16",
          "c10d reduce_scatter_tensor bf16", "c10d all_to_all_single bf16",
          "c10d broadcast bf16", "funcol all_reduce bf16",
-         "funcol all_gather_tensor bf16", "funcol reduce_scatter_tensor bf16")
+         "funcol all_gather_tensor bf16", "funcol reduce_scatter_tensor bf16",
+         "funcol all_gather_tensor int64", "funcol all_to_all_single bf16",
+         "funcol all_to_all_single_autograd f32 backward",
+         "funcol all_reduce f32 backward")
 
 
 def run_case(rank: int, world: int, store: str, case: str, n: int,
@@ -42,10 +47,14 @@ def run_case(rank: int, world: int, store: str, case: str, n: int,
                             rank=rank, world_size=world)
     try:
         words = case.split()
+        backward = words[-1] == "backward"
+        if backward:
+            words = words[:-1]
         api, op, dtype = words[0], words[1], words[-1]
         dt = {"f32": torch.float32, "int32": torch.int32,
-              "bf16": torch.bfloat16}[dtype]
-        x = torch.full((n,), rank + 1, dtype=dt, device=dev)
+              "int64": torch.int64, "bf16": torch.bfloat16}[dtype]
+        x = torch.full((n,), rank + 1, dtype=dt, device=dev,
+                       requires_grad=backward)
         g = dist.group.WORLD
         t0 = time.perf_counter()
         if case.startswith("c10d all_reduce"):
@@ -57,10 +66,25 @@ def run_case(rank: int, world: int, store: str, case: str, n: int,
         elif op == "reduce_scatter_tensor" and api == "c10d":
             dist.reduce_scatter_tensor(
                 torch.empty(n // world, dtype=dt, device=dev), x)
-        elif op == "all_to_all_single":
+        elif op == "all_to_all_single" and api == "c10d":
             dist.all_to_all_single(torch.empty_like(x), x)
+        elif op == "all_to_all_single":
+            fc.wait_tensor(fc.all_to_all_single(x, None, None, g))
+        elif op == "all_to_all_single_autograd":
+            # unequal splits: rank r sends r + 1 elements to every rank
+            k = rank + 1
+            y = fc.all_to_all_single_autograd(
+                x[:k * world], [s + 1 for s in range(world)], [k] * world,
+                g)
+            y.sum().backward()
+            if not torch.equal(x.grad[:k * world],
+                               torch.ones(k * world, device=dev)):
+                raise RuntimeError("the backward is not the ones it sent")
         elif op == "broadcast":
             dist.broadcast(x, 0)
+        elif op == "all_reduce" and backward:
+            y = fc.all_reduce(x, "sum", g)
+            y.sum().backward()
         elif op == "all_reduce":
             fc.wait_tensor(fc.all_reduce(x, "sum", g))
         elif op == "all_gather_tensor":
