@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import tracing
 from . import expr as E
 from .metadata import (NO_MATCH, PARTIAL_MATCH, ScanSet, live_full_scan,
                        mask_dead_partitions, pruning_ratio)
@@ -165,6 +166,9 @@ class PruneState:
     build_keys: Optional[np.ndarray] = None           # join build-side keys
     topk: Optional[TopKResult] = None
     topk_scan: Optional[str] = None
+    rid: Optional[int] = None    # the query's id on its spans: the
+                                 # front-end's request id, or its position
+                                 # in the batch (set while tracing)
 
 
 class Technique:
@@ -300,11 +304,13 @@ class JoinTechnique(Technique):
         top-k technique's extra mask).  None when the stage is disabled."""
         if state.query.join is None:
             return None
-        state.build_keys = self._build_keys(state)
+        with tracing.span("join.build", rid=state.rid):
+            state.build_keys = self._build_keys(state)
         if not pipe.enable_join:
             return None
-        return summarize_build(state.build_keys,
-                               ndv_limit=pipe.join_ndv_limit)
+        with tracing.span("join.summary", rid=state.rid):
+            return summarize_build(state.build_keys,
+                                   ndv_limit=pipe.join_ndv_limit)
 
     def _apply(self, pipe, state, summary: BuildSummary,
                hit: Optional[np.ndarray]) -> None:
@@ -314,12 +320,13 @@ class JoinTechnique(Technique):
         q = state.query
         scan = state.scan_sets[q.join.probe]
         over = None if hit is None else np.asarray(hit)[scan.part_ids] > 0
-        res = prune_probe(
-            scan, q.scans[q.join.probe].table.stats,
-            q.join.probe_key, summary,
-            distinct_hit=over if summary.distinct is not None else None,
-            bloom_hit=over if summary.bloom is not None else None,
-        )
+        with tracing.span("join.match", rid=state.rid):
+            res = prune_probe(
+                scan, q.scans[q.join.probe].table.stats,
+                q.join.probe_key, summary,
+                distinct_hit=over if summary.distinct is not None else None,
+                bloom_hit=over if summary.bloom is not None else None,
+            )
         state.scan_sets[q.join.probe] = res.scan
         state.per_scan[q.join.probe]["join"] = TechniqueReport(
             res.partitions_before, res.partitions_after,
@@ -435,13 +442,16 @@ class TopKTechnique(Technique):
         q = state.query
         scan_name, order_col, desc = q.order_by
         spec = q.scans[scan_name]
-        topk_res = run_topk(
-            spec.table, state.scan_sets[scan_name], order_col, q.effective_k,
-            pred=spec.pred if not isinstance(spec.pred, E.TruePred) else None,
-            desc=desc, strategy=pipe.topk_strategy,
-            use_upfront_init=pipe.topk_upfront_init,
-            extra_mask_fn=extra, b_init_floor=b_floor,
-        )
+        with tracing.query(state.rid):
+            topk_res = run_topk(
+                spec.table, state.scan_sets[scan_name], order_col,
+                q.effective_k,
+                pred=(spec.pred if not isinstance(spec.pred, E.TruePred)
+                      else None),
+                desc=desc, strategy=pipe.topk_strategy,
+                use_upfront_init=pipe.topk_upfront_init,
+                extra_mask_fn=extra, b_init_floor=b_floor,
+            )
         before = len(state.scan_sets[scan_name])
         state.per_scan[scan_name]["topk"] = TechniqueReport(
             before, before - len(topk_res.skipped), applied=True,

@@ -35,6 +35,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import tracing
 from . import expr as E
 from .metadata import FULL_MATCH, PartitionStats, ScanSet
 from .rowval import matches
@@ -161,52 +162,64 @@ def run_topk(
     """
     stats = table.stats
     sign = 1.0 if desc else -1.0
-    scan = order_partitions(scan, stats, order_col, strategy, sign, rng)
-
-    b_init = (
-        upfront_boundary(scan, stats, order_col, k, sign)
-        if use_upfront_init and extra_mask_fn is None
-        else -np.inf
-    )
+    with tracing.span("topk.order"):
+        scan = order_partitions(scan, stats, order_col, strategy, sign, rng)
+        b_init = (
+            upfront_boundary(scan, stats, order_col, k, sign)
+            if use_upfront_init and extra_mask_fn is None
+            else -np.inf
+        )
     if extra_mask_fn is None:
         b_init = max(b_init, float(b_init_floor))
 
-    heap = np.empty(0)  # signed values, sorted descending
-    heap_src = np.empty(0, dtype=np.int64)
-    rows_scanned = 0
-    block_max = _signed_block_max(stats, order_col, sign, scan.part_ids)
+    sp = tracing.span("topk.scan")
+    # partitions whose rows entered the heap (counted while tracing)
+    improved = 0
+    with sp:
+        heap = np.empty(0)  # signed values, sorted descending
+        heap_src = np.empty(0, dtype=np.int64)
+        rows_scanned = 0
+        block_max = _signed_block_max(stats, order_col, sign, scan.part_ids)
 
-    # Vectorized pre-skip: eff = max(b_init, h_kth) >= b_init throughout the
-    # loop, so a partition with block_max < b_init is skipped no matter how
-    # the heap evolves — drop them from the Python loop in one shot (same
-    # skip set, same heap; skip order is reconstructed positionally).
-    skip_flag = np.asarray(block_max < b_init)
-    scanned: list = []
-    for pos in np.where(~skip_flag)[0]:
-        pid = scan.part_ids[pos]
-        bm = block_max[pos]
-        heap_full = len(heap) >= k
-        h_kth = heap[k - 1] if heap_full else -np.inf
-        eff = max(b_init, h_kth)
-        if bm < eff or (heap_full and bm <= h_kth):
-            skip_flag[pos] = True
-            continue
-        ctx = table.partition_ctx(int(pid))
-        mask = matches(pred, ctx) if pred is not None else np.ones(ctx.n, dtype=bool)
-        if extra_mask_fn is not None:
-            mask &= extra_mask_fn(ctx)
-        vals, nm = ctx.col(order_col)
-        mask &= ~nm  # NULLS LAST: nulls never enter the heap
-        rows_scanned += ctx.n
-        scanned.append(pid)
-        if mask.any():
-            newv = sign * vals[mask]
-            merged = np.concatenate([heap, newv])
-            srcs = np.concatenate(
-                [heap_src, np.full(len(newv), pid, dtype=np.int64)])
-            order_ix = np.argsort(-merged, kind="stable")[:k]
-            heap = merged[order_ix]
-            heap_src = srcs[order_ix]
+        # Vectorized pre-skip: eff = max(b_init, h_kth) >= b_init throughout
+        # the loop, so a partition with block_max < b_init is skipped no
+        # matter how the heap evolves — drop them from the Python loop in
+        # one shot (same skip set, same heap; skip order is reconstructed
+        # positionally).
+        skip_flag = np.asarray(block_max < b_init)
+        scanned: list = []
+        for pos in np.where(~skip_flag)[0]:
+            pid = scan.part_ids[pos]
+            bm = block_max[pos]
+            heap_full = len(heap) >= k
+            h_kth = heap[k - 1] if heap_full else -np.inf
+            eff = max(b_init, h_kth)
+            if bm < eff or (heap_full and bm <= h_kth):
+                skip_flag[pos] = True
+                continue
+            ctx = table.partition_ctx(int(pid))
+            mask = (matches(pred, ctx) if pred is not None
+                    else np.ones(ctx.n, dtype=bool))
+            if extra_mask_fn is not None:
+                mask &= extra_mask_fn(ctx)
+            vals, nm = ctx.col(order_col)
+            mask &= ~nm  # NULLS LAST: nulls never enter the heap
+            rows_scanned += ctx.n
+            scanned.append(pid)
+            if mask.any():
+                newv = sign * vals[mask]
+                merged = np.concatenate([heap, newv])
+                srcs = np.concatenate(
+                    [heap_src, np.full(len(newv), pid, dtype=np.int64)])
+                order_ix = np.argsort(-merged, kind="stable")[:k]
+                # the stable merge keeps a full heap's rows in order, so a
+                # new row entered iff the old k-th row (index k - 1) left
+                if sp and (not heap_full or order_ix[k - 1] != k - 1):
+                    improved += 1
+                heap = merged[order_ix]
+                heap_src = srcs[order_ix]
+        if sp:
+            sp.set(read=len(scanned), improved=improved)
 
     total = len(scan)
     skipped = scan.part_ids[skip_flag]

@@ -70,6 +70,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.device_stats import (TREE_MIN_GROUPS, DeviceStats,
                                  cast_bounds_f32, cast_stats_f32,
                                  resolve_device, round_down_f32,
@@ -405,9 +406,11 @@ def pack_ranges(
 def _read_back(t: torch.Tensor, kernel: str) -> np.ndarray:
     """The host copy of a kernel's output.  The first sync after a launch:
     a fault the kernel raised on the card surfaces here, and must not pass
-    for a degradation."""
+    for a degradation.  Its ``launch.readback`` span is where the host
+    waits on the card."""
     try:
-        return t.cpu().numpy()
+        with tracing.span("launch.readback"):
+            return t.cpu().numpy()
     except RuntimeError as exc:
         raise KernelError(f"reading back {kernel}: {exc}") from exc
 
@@ -434,19 +437,21 @@ def prune_ranges_batched_device(
     mins, maxs, demote = planes
     dev = mins.device
     check_mode(mode, dev)
-    cids, lo, hi, full_safe = pack_ranges(range_lists, dstats)
-    Pc = int(mins.shape[1])
-    shards = _usable_shards(mesh, Pc, dev, cids.shape[0] * Pc)
-    # the padded query rows of the bucket are no-ops: launch the Q real ones
-    host = [np.ascontiguousarray(a[:Q]) for a in (cids, lo, hi)]
-    if shards > 1:
-        tv = _sharded_rows(minmax_prune_batched, host, planes, 1, mesh, P,
-                           "minmax_prune_batched")
-    else:
-        cids_d, lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in host)
-        tv = _read_back(minmax_prune_batched(
-            cids_d, lo_d, hi_d, mins, maxs, demote, num_partitions=P),
-            "minmax_prune_batched")
+    with tracing.span("launch.minmax_prune_batched"):
+        cids, lo, hi, full_safe = pack_ranges(range_lists, dstats)
+        Pc = int(mins.shape[1])
+        shards = _usable_shards(mesh, Pc, dev, cids.shape[0] * Pc)
+        # the padded query rows of the bucket are no-ops: launch the Q
+        # real ones
+        host = [np.ascontiguousarray(a[:Q]) for a in (cids, lo, hi)]
+        if shards > 1:
+            tv = _sharded_rows(minmax_prune_batched, host, planes, 1, mesh,
+                               P, "minmax_prune_batched")
+        else:
+            cids_d, lo_d, hi_d = (torch.from_numpy(a).to(dev) for a in host)
+            tv = _read_back(minmax_prune_batched(
+                cids_d, lo_d, hi_d, mins, maxs, demote, num_partitions=P),
+                "minmax_prune_batched")
     if not full_safe.all():
         tv[~full_safe] = np.minimum(tv[~full_safe], 1)
     return tv
@@ -805,23 +810,24 @@ def topk_init_batched_device(
     """
     dev = plane.device
     check_mode(mode, dev)
-    offsets, ids = (torch.from_numpy(a).to(dev)
-                    for a in pack_candidates(candidate_lists))
-    Q, Pc = len(candidate_lists), int(plane.shape[0])
-    shards = _usable_shards(mesh, Pc, dev, Q * Pc * int(plane.shape[1]))
-    if shards > 1:
-        heaps = torch.full((shards, Q, k), float("-inf"),
-                           dtype=torch.float32, device=dev)
-        for i, ((off, sid), (s, e, _live), sdev) in enumerate(zip(
-                split_candidates(offsets, ids, Pc, shards),
-                _shard_spans(Pc, shards, Pc), mesh)):
-            if sid.numel():
-                heaps[i] = topk_init_batched(
-                    _shard_of(plane, 0, s, e, sdev), off.to(sdev),
-                    sid.to(sdev), k).to(dev)
-        return _read_back(merge_heaps(heaps, k), "topk_init_batched")
-    return _read_back(topk_init_batched(plane, offsets, ids, k),
-                      "topk_init_batched")
+    with tracing.span("launch.topk_init_batched"):
+        offsets, ids = (torch.from_numpy(a).to(dev)
+                        for a in pack_candidates(candidate_lists))
+        Q, Pc = len(candidate_lists), int(plane.shape[0])
+        shards = _usable_shards(mesh, Pc, dev, Q * Pc * int(plane.shape[1]))
+        if shards > 1:
+            heaps = torch.full((shards, Q, k), float("-inf"),
+                               dtype=torch.float32, device=dev)
+            for i, ((off, sid), (s, e, _live), sdev) in enumerate(zip(
+                    split_candidates(offsets, ids, Pc, shards),
+                    _shard_spans(Pc, shards, Pc), mesh)):
+                if sid.numel():
+                    heaps[i] = topk_init_batched(
+                        _shard_of(plane, 0, s, e, sdev), off.to(sdev),
+                        sid.to(sdev), k).to(dev)
+            return _read_back(merge_heaps(heaps, k), "topk_init_batched")
+        return _read_back(topk_init_batched(plane, offsets, ids, k),
+                          "topk_init_batched")
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
+
 # Latency sample window for the running p50/p99 (lifetime max is exact).
 # Bounded so a long-lived service never grows host memory with traffic.
 LATENCY_WINDOW = 4096
@@ -63,7 +65,8 @@ LATENCY_WINDOW = 4096
 class FrontendResponse:
     """One query's answer plus its life-cycle timing.
 
-    ``timestamps`` (clock units, usually ``time.monotonic`` seconds):
+    ``timestamps`` (clock units: ``time.perf_counter`` seconds unless a
+    clock was injected, so they share the tracer's time line):
       queued      submit() admitted the query
       staged      its planes were prestaged (None: no prefetch overlap)
       dispatched  the micro-batch closed (deadline/size/flush fired)
@@ -110,7 +113,9 @@ class ServingFrontend:
       deadline_s  micro-batch deadline T: a batch dispatches at most T
                   after its oldest query was admitted
       clock       injectable monotonic clock (tests pin it; production
-                  uses ``time.monotonic``)
+                  uses ``time.perf_counter``, the spans' clock); it
+                  schedules, stamps and times the ``frontend.queue``
+                  spans (the other spans read ``time.perf_counter``)
       threaded    True: a batcher thread (deadline timing + prestaging)
                   and a worker thread (dispatch) run the loop; False:
                   deterministic inline mode driven by ``submit`` /
@@ -134,7 +139,7 @@ class ServingFrontend:
         self.pipeline = pipeline
         self.max_batch = int(max_batch)
         self.deadline_s = float(deadline_s)
-        self.clock = clock if clock is not None else time.monotonic
+        self.clock = clock if clock is not None else time.perf_counter
         self.threaded = bool(threaded)
         self.prefetch = bool(prefetch)
         dev = getattr(service, "device", None)
@@ -358,6 +363,14 @@ class ServingFrontend:
         (run_batch's own contract makes that an engine bug, not a
         query-shaped problem).
         """
+        sp = tracing.span("frontend.batch")
+        with sp:
+            if sp:
+                sp.set(rids=tuple(s.rid for s in batch.subs))
+            self._dispatch(batch, sp)
+
+    def _dispatch(self, batch: _Batch, sp) -> None:
+        """``_execute``'s body, inside its ``frontend.batch`` span."""
         with self._on_stream():
             if self.prefetch and not self.threaded:
                 # Inline mode has no staging thread: prestage right
@@ -370,6 +383,11 @@ class ServingFrontend:
                         s.staged = True
                         s.t_staged = now
             t_launch = self.clock()
+            if sp:
+                # each query's wait, from submit until run_batch starts
+                for s in batch.subs:
+                    tracing.record("frontend.queue", s.t_submit, t_launch,
+                                   rid=s.rid)
             try:
                 reports = self.service.run_batch(
                     [s.query for s in batch.subs], self.pipeline)

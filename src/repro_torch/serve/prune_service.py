@@ -87,6 +87,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..core import expr as E
 from ..core.device_stats import (TREE_MIN_GROUPS, DeviceStatsCache,
                                  PlaneEpoch, PlaneMemoryManager,
@@ -519,7 +520,30 @@ class PruningService:
             return None
         return tv_rows[0]
 
-    def _verdict_group(self, table, jobs) -> list:
+    def _verdict_plan(self, table, jobs) -> tuple:
+        """``_verdict_group``'s dedupe and admission, before any launch:
+        (canonical key a job, unique key -> its index, unique ranges,
+        unique predicates, admitted a unique key)."""
+        ckeys = [E.canonical_key(pred) for _, _, _, pred in jobs]
+        uniq: Dict[str, int] = {}
+        counts: Dict[str, int] = {}
+        u_ranges: list = []
+        u_preds: list = []
+        for (_, _, ranges, pred), ck in zip(jobs, ckeys):
+            counts[ck] = counts.get(ck, 0) + 1
+            if ck not in uniq:
+                uniq[ck] = len(u_preds)
+                u_ranges.append(ranges)
+                u_preds.append(pred)
+        self.resilience["verdict_deduped"] += len(jobs) - len(u_preds)
+        admit = [counts[ck] > 1 or (table.name, ck) in self._verdict_seen
+                 for ck in uniq]
+        if len(self._verdict_seen) > self.VERDICT_SEEN_CAP:
+            self._verdict_seen.clear()      # doorkeeper reset
+        self._verdict_seen.update((table.name, ck) for ck in uniq)
+        return ckeys, uniq, u_ranges, u_preds, admit
+
+    def _verdict_group(self, table, jobs, plan) -> list:
         """One table group's filter verdicts through the verdict cache.
 
         Jobs are deduped by canonical predicate key *before any launch*
@@ -538,25 +562,12 @@ class PruningService:
         within the batch counts — so repeated dashboard traffic is
         admitted on its first batch, while one-shot predicates never pay
         the record cost on top of their launch.
+
+        ``plan`` is ``_verdict_plan(table, jobs)``: ``prune_batch`` makes
+        every group's before the first launch, inside ``filter.plan``.
         """
-        ckeys = [E.canonical_key(pred) for _, _, _, pred in jobs]
-        uniq: Dict[str, int] = {}
-        counts: Dict[str, int] = {}
-        u_ranges: list = []
-        u_preds: list = []
-        for (_, _, ranges, pred), ck in zip(jobs, ckeys):
-            counts[ck] = counts.get(ck, 0) + 1
-            if ck not in uniq:
-                uniq[ck] = len(u_preds)
-                u_ranges.append(ranges)
-                u_preds.append(pred)
-        self.resilience["verdict_deduped"] += len(jobs) - len(u_preds)
+        ckeys, uniq, u_ranges, u_preds, admit = plan
         u_keys = list(uniq)
-        admit = [counts[ck] > 1 or (table.name, ck) in self._verdict_seen
-                 for ck in u_keys]
-        if len(self._verdict_seen) > self.VERDICT_SEEN_CAP:
-            self._verdict_seen.clear()      # doorkeeper reset
-        self._verdict_seen.update((table.name, ck) for ck in u_keys)
 
         def verdict_rung():
             rows: list = [None] * len(u_keys)
@@ -605,28 +616,34 @@ class PruningService:
         # id(table) -> (table, [(query idx, scan name, ranges, pred), ...])
         groups: Dict[int, Tuple[object, list]] = {}
         fallbacks: List[Tuple[int, str, object]] = []
-        for qi, q in enumerate(queries):
-            for name, spec in q.scans.items():
-                self.counters.scans += 1
-                if isinstance(spec.pred, E.TruePred):
-                    results[qi][name] = live_full_scan(spec.table)
-                    continue
-                try:
-                    ranges = extract_ranges(spec.pred, spec.table.stats)
-                except Exception:
-                    # malformed spec (unknown column / bad literal):
-                    # isolate to this scan, keep the batch on course
-                    self.resilience["errors"] += 1
-                    results[qi][name] = self._passthrough_set(spec.table)
-                    continue
-                if ranges is None:
-                    fallbacks.append((qi, name, spec))
-                    continue
-                groups.setdefault(id(spec.table), (spec.table, []))[1].append(
-                    (qi, name, ranges, spec.pred))
-        for table, jobs in groups.values():
+        plans: Dict[int, tuple] = {}
+        with tracing.span("filter.plan"):
+            for qi, q in enumerate(queries):
+                for name, spec in q.scans.items():
+                    self.counters.scans += 1
+                    if isinstance(spec.pred, E.TruePred):
+                        results[qi][name] = live_full_scan(spec.table)
+                        continue
+                    try:
+                        ranges = extract_ranges(spec.pred, spec.table.stats)
+                    except Exception:
+                        # malformed spec (unknown column / bad literal):
+                        # isolate to this scan, keep the batch on course
+                        self.resilience["errors"] += 1
+                        results[qi][name] = self._passthrough_set(spec.table)
+                        continue
+                    if ranges is None:
+                        fallbacks.append((qi, name, spec))
+                        continue
+                    groups.setdefault(id(spec.table),
+                                      (spec.table, []))[1].append(
+                        (qi, name, ranges, spec.pred))
             if self.verdict_cache:
-                rows = self._verdict_group(table, jobs)
+                for tid, (table, jobs) in groups.items():
+                    plans[tid] = self._verdict_plan(table, jobs)
+        for tid, (table, jobs) in groups.items():
+            if self.verdict_cache:
+                rows = self._verdict_group(table, jobs, plans[tid])
             else:
                 tv_rows, _rung = self.ladder.execute(self._filter_rungs(
                     table, [ranges for _, _, ranges, _ in jobs],
@@ -637,14 +654,15 @@ class PruningService:
             # once per unique row and give each query its own ScanSet over
             # the shared (read-only) arrays
             memo: Dict[int, ScanSet] = {}
-            for (qi, name, _ranges, _pred), tv in zip(jobs, rows):
-                if tv is None:
-                    results[qi][name] = self._passthrough_set(table)
-                    continue
-                ss = memo.get(id(tv))
-                if ss is None:
-                    memo[id(tv)] = ss = self._scan_set(tv, table)
-                results[qi][name] = ScanSet(ss.part_ids, ss.match)
+            with tracing.span("filter.decode"):
+                for (qi, name, _ranges, _pred), tv in zip(jobs, rows):
+                    if tv is None:
+                        results[qi][name] = self._passthrough_set(table)
+                        continue
+                    ss = memo.get(id(tv))
+                    if ss is None:
+                        memo[id(tv)] = ss = self._scan_set(tv, table)
+                    results[qi][name] = ScanSet(ss.part_ids, ss.match)
         for qi, name, spec in fallbacks:
             self.counters.bump("filter", fallbacks=1)
             try:
@@ -959,10 +977,21 @@ class PruningService:
             else:
                 valid.append((i, q))
         states = [pipeline.make_state(q) for _, q in valid]
+        rids = None
+        if tracing.on():
+            # each query's rid: the front-end's request id where the
+            # enclosing span lists the batch's, else its batch position
+            given = tracing.lookup("rids")
+            if given is None or len(given) != len(queries):
+                given = range(len(queries))
+            for st, (i, _q) in zip(states, valid):
+                st.rid = given[i]
+            rids = tuple(st.rid for st in states)
         try:
             for tech in pipeline.techniques:
-                tech.run_batch(pipeline, states,
-                               service=self if device else None)
+                with tracing.span(f"stage.{tech.name}", rids=rids):
+                    tech.run_batch(pipeline, states,
+                                   service=self if device else None)
             good = [pipeline.finish(s) for s in states]
         except KernelError:
             raise                   # a broken kernel is not salvaged
