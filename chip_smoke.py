@@ -6,7 +6,7 @@
 Phases (each failure exits non-zero; nothing is caught and passed over):
 
   1. environment: torch version, the card's name and power limit, and the
-     build of all eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+     build of all nine CUDA kernels from ``src/repro_torch/kernels/csrc``
      (one ``nvcc`` per source, all started together), with ptxas's
      registers, spills and static shared memory for the kernel functions
      of ``flash_attention``, ``topk_init_batched``,
@@ -319,6 +319,19 @@ Phases (each failure exits non-zero; nothing is caught and passed over):
      ``MOE_VS_F32_TOL`` of ``dispatch_grouped`` under the second, with
      the collective bytes counted by kind, the seconds and the expert
      bytes a rank holds.  The phase tears its process group down.
+ 14. (after phase 2's report, before phase 3) the JOIN build summary on
+     the card: ``bloom_build`` (dedupe and Bloom-set, no TPU kernel)
+     through ``ops.summarize_build_batched_device``, batched and one
+     build side a call, against its plain version and numpy's
+     ``summarize_build`` field for field, Bloom words bit for bit, on the
+     CPU tests' key sets (empty, all null, NDV at and over the 4,096
+     limit, heavy duplicates, sparse, int64 extremes, int32, float64-encoded
+     integers) and on three Q3 build sides of 250,000 sparse keys in
+     1..6e9, float64 as a table holds them; the kernels' time
+     at a Q3 (CUDA events, L2 flushed) beside their byte bound and the
+     plain version's and numpy's times; the service's card path against
+     the host summary from 1,024 to 250,000 keys (the crossover) and six
+     Q3 sides in one call.
 
 Phases 3, 4, 6 and 8 run their services with the verdict cache off, so
 that every batch launches its table groups' kernels.  The kernels'
@@ -1312,6 +1325,166 @@ def kernel_vs_plain_child(seed: int, out: str) -> None:
     build_s = time.perf_counter() - t0
     kv = phase_kernel_vs_plain(seed, torch.device("cuda"))
     Path(out).write_text(json.dumps(dict(build_s=build_s, kv=kv)))
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the JOIN build summary on the card
+# ---------------------------------------------------------------------------
+# ``bloom_build`` replaces no TPU kernel: the JAX package summarises the
+# build side on the host.  Its gate holds the card's ``BuildSummary`` to
+# the plain version's and to numpy's ``summarize_build``, field for field
+# (the Bloom words bit for bit): the benchmark's answers cannot see a
+# wrong word where no probe partition is narrow enough to enumerate.
+
+SUMMARY_Q3_KEYS = 250_000     # a TPC-H Q3 build side (orders before a day)
+SUMMARY_NDV_LIMIT = 4096      # PruningPipeline's join_ndv_limit
+SUMMARY_SIZES = (1024, 2048, 3072, 4096, 6144, 8192, 16384, 65536, 250_000)
+
+
+def summary_problems(got, want) -> list:
+    """The fields in which two ``BuildSummary``s differ."""
+    bad = [f for f in ("min", "max", "count", "size_bytes")
+           if getattr(got, f) != getattr(want, f)]
+    for f in ("distinct", "bloom"):
+        if (getattr(got, f) is None) != (getattr(want, f) is None):
+            bad.append(f)
+    if got.distinct is not None and want.distinct is not None and (
+            got.distinct.dtype != want.distinct.dtype
+            or not np.array_equal(got.distinct, want.distinct)):
+        bad.append("distinct")
+    if got.bloom is not None and want.bloom is not None and (
+            got.bloom.n_blocks != want.bloom.n_blocks
+            or not np.array_equal(got.bloom.words, want.bloom.words)):
+        bad.append("bloom.words")
+    return bad
+
+
+def q3_keys(rng, n: int = SUMMARY_Q3_KEYS) -> np.ndarray:
+    """n distinct sparse order keys in 1..6e9, in no order (SF1000's)."""
+    keys = np.unique(rng.integers(1, 6_000_000_001, int(n * 1.01)))
+    return rng.permutation(keys)[:n].astype(np.int64)
+
+
+def summary_cases(rng) -> dict:
+    """The key sets the CPU tests hold the plain version to, as (keys,
+    null mask or None)."""
+    lim = SUMMARY_NDV_LIMIT
+    ext = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1, 0,
+                    1], dtype=np.int64)
+    return {
+        "empty": (np.zeros(0, dtype=np.int64), None),
+        "all_null": (rng.integers(0, 100, 500).astype(np.int64),
+                     np.ones(500, dtype=bool)),
+        "ndv_at_limit": (rng.permutation(np.repeat(
+            rng.choice(10 ** 9, lim, replace=False), 3)), None),
+        "ndv_over_limit": (rng.permutation(np.repeat(
+            rng.choice(10 ** 9, lim + 1, replace=False), 3)), None),
+        "duplicates": (rng.integers(0, 3000, 100_000).astype(np.int64),
+                       None),
+        "sparse": (rng.integers(1, 6_000_000_001, 50_000), None),
+        "extreme_distinct": (np.tile(ext, 40), None),
+        "extreme_bloom": (np.concatenate(
+            [ext, -rng.integers(1, 2 ** 62, 20_000)]), None),
+        "int32": (rng.integers(-2 ** 31, 2 ** 31 - 1, 30_000
+                               ).astype(np.int32), None),
+        "q3": (q3_keys(rng), None),
+        # as a table holds an integer column: float64 (the benchmark's Q3)
+        "q3_encoded": (q3_keys(rng).astype(np.float64), None),
+        "duplicates_encoded": (rng.integers(0, 3000, 100_000).astype(
+            np.float64), None),
+    }
+
+
+def phase_join_summary(seed: int, card: str, dev) -> dict:
+    """Phase 14: ``bloom_build`` against its plain version and numpy's
+    ``summarize_build`` on every case and on three Q3-sized build sides
+    (a hard gate), its time beside its byte bound, and the crossover of
+    the service's card path against the host summary."""
+    import torch
+
+    from repro_torch.core.prune_join import summarize_build
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bloom_build import bloom_build, plan_builds
+    from repro_torch.serve.prune_service import PruningService
+
+    lim = SUMMARY_NDV_LIMIT
+    rng = np.random.default_rng(seed + 14)
+    cases = summary_cases(rng)
+    for s in range(3):
+        cases[f"q3_seed{s}"] = (q3_keys(np.random.default_rng(seed + s)
+                                        ).astype(np.float64), None)
+    sides = [k if m is None else k[~m] for k, m in cases.values()]
+    launches = bloom_build.launches
+    got = ops.summarize_build_batched_device(sides, lim, device=dev)
+    alone = [ops.summarize_build_batched_device([k], lim, device=dev)[0]
+             for k in sides]
+    sync(dev)
+    plain = ops.summarize_build_batched_device(sides, lim, device="cpu")
+    for name, (keys, mask), g, a, p in zip(cases, cases.values(), got, alone,
+                                           plain):
+        want = summarize_build(keys, mask, ndv_limit=lim)
+        for what, have in (("batched", g), ("alone", a), ("plain", p)):
+            bad = summary_problems(have, want)
+            if bad:
+                raise SystemExit(f"join summary {name}: the {what} "
+                                 f"summary differs from numpy's in {bad}")
+    n_launched = bloom_build.launches - launches
+    if n_launched != 1 + sum(1 for k in sides if k.size):
+        raise SystemExit(f"join summary: {n_launched} bloom_build launches")
+    log(f"[summary] {card}: bloom_build == plain version == numpy "
+        f"summarize_build on {len(cases)} cases, batched and alone, "
+        f"{n_launched} launches")
+
+    # the kernels alone at one Q3 (CUDA events, L2 flushed): the data
+    # needs the keys read once and the words written once
+    keys = cases["q3_seed0"][0].astype(np.int64)
+    plan = plan_builds([keys.size], lim, 16)
+    staged = torch.from_numpy(np.concatenate([plan.reshape(-1), keys])).to(
+        dev)
+    ms = cuda_ms(lambda: bloom_build(staged, plan, lim, 16), 20)
+    words = int(got[list(cases).index("q3_seed0")].bloom.words.nbytes)
+    bound_ms, bound_by = bound(keys.nbytes + words, 0)
+    plain_ms = host_ms(lambda: bloom_build(staged.cpu(), plan, lim, 16),
+                       torch.device("cpu"))
+    numpy_ms = statistics.median(
+        host_ms(lambda: summarize_build(keys, ndv_limit=lim),
+                torch.device("cpu")) for _ in range(5))
+    log(f"[summary] {card}: bloom_build at {keys.size:,} keys "
+        f"({keys.nbytes:,} bytes in, {words:,} bytes of words out): "
+        f"{ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), plain "
+        f"version {plain_ms:.1f} ms, numpy summarize_build {numpy_ms:.2f} "
+        f"ms")
+
+    # the crossover: the service's card path (staging, launch, two reads
+    # back, the BuildSummary) against numpy, one build side a call and a
+    # Q3 batch's 6 at 250,000 keys, float64 as a table holds them
+    svc = PruningService(device=dev, verdict_cache=False)
+    sweep = []
+    for n in SUMMARY_SIZES:
+        k = q3_keys(rng, n).astype(np.float64)
+        card_path = lambda k=k: svc.join_summary_batch([k], lim)
+        card_path()
+        card_ms = statistics.median(host_ms(card_path, dev)
+                                    for _ in range(15))
+        host_path = lambda k=k: summarize_build(k, ndv_limit=lim)
+        cpu_ms = statistics.median(host_ms(host_path, dev)
+                                   for _ in range(15))
+        sweep.append(dict(n=n, card_ms=card_ms, host_ms=cpu_ms))
+        log(f"[summary] {card}: {n:>7,} keys: card path {card_ms:.3f} ms, "
+            f"host summarize_build {cpu_ms:.3f} ms")
+    six = [q3_keys(rng).astype(np.float64) for _ in range(6)]
+    svc.join_summary_batch(six, lim)
+    batch_ms = statistics.median(
+        host_ms(lambda: svc.join_summary_batch(six, lim), dev)
+        for _ in range(9))
+    log(f"[summary] {card}: six Q3 build sides in one call: "
+        f"{batch_ms:.3f} ms ({batch_ms / 6:.3f} ms a Q3)")
+    if svc.counters.join_summary["host"]:
+        raise SystemExit(f"join summary: the ladder sent build sides to "
+                         f"the host: {svc.counters.join_summary}")
+    return dict(cases=len(cases), launches=n_launched, ms=ms,
+                bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+                numpy_ms=numpy_ms, sweep=sweep, six_q3_ms=batch_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -6626,6 +6799,9 @@ def main() -> int:
         f"and references: {time.perf_counter() - t_start:.1f} s")
 
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    js = phase_join_summary(args.seed, card, dev)
+    log(f"[summary] {card}: phase 14 took {time.perf_counter() - t0:.1f} s")
     ctx, mp = phase_main_path(args.seed, args.batches, card, dev,
                               traffic=traffic, refs=main_refs)
     del traffic, main_refs
@@ -6701,7 +6877,7 @@ def main() -> int:
                  build=built, kernel_vs_plain=kv, main_path=mp, per_query_path=pq,
                  ingest_tree=it, serving=sv, answers=an, lm_serving=lm,
                  moe_serving=mo, examples=ex, families=fm, training=tr,
-                 mesh=me, **kernels),
+                 mesh=me, join_summary=js, **kernels),
             indent=1))
     log(card)
     log(json.dumps(kernels))

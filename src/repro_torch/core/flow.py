@@ -164,6 +164,8 @@ class PruneState:
         default_factory=dict)
     filter_sets: Optional[Dict[str, ScanSet]] = None  # injected filter results
     build_keys: Optional[np.ndarray] = None           # join build-side keys
+    build_summary: Optional[BuildSummary] = None      # their summary, if
+                                                      # made on the card
     topk: Optional[TopKResult] = None
     topk_scan: Optional[str] = None
     rid: Optional[int] = None    # the query's id on its spans: the
@@ -280,10 +282,12 @@ class LimitTechnique(Technique):
 
 
 class JoinTechnique(Technique):
-    """Sec. 6 JOIN pruning.  The build side is summarized on the host
-    (runtime values); in device mode the probe-side matching runs on the
-    resident planes — the distinct-key overlap via ``join_overlap_batched``
-    over the join-key plane, the Bloom narrow-range enumeration via
+    """Sec. 6 JOIN pruning.  The build side is summarized from its runtime
+    values: on the card for a large integer build side under a CUDA
+    service (``PruningService.summary_on_card``), else on the host; in
+    device mode the probe-side matching runs on the resident planes — the
+    distinct-key overlap via ``join_overlap_batched`` over the join-key
+    plane, the Bloom narrow-range enumeration via
     ``bloom_probe_batched`` over the enumeration plane — one launch per
     (table, key column, summary kind) group in ``run_batch``.
     Non-castable distinct keys and non-integer Bloom key domains fall
@@ -299,15 +303,38 @@ class JoinTechnique(Technique):
         keys, knulls = bctx.col(q.join.build_key)
         return keys[bmask & ~knulls]
 
+    def _prepare(self, pipe, states, service=None) -> None:
+        """The stage's build part: each join's build keys (which also feed
+        the top-k technique's extra mask) and, for the build sides that
+        ``service`` summarises on the card, their summaries, made by one
+        ``join_summary_batch`` call inside one ``join.summary`` span."""
+        card = []
+        for st in states:
+            if st.query.join is None:
+                continue
+            with tracing.span("join.build", rid=st.rid):
+                st.build_keys = self._build_keys(st)
+            q = st.query
+            if pipe.enable_join and service is not None and \
+                    service.summary_on_card(st.build_keys,
+                                            q.scans[q.join.build].table.stats,
+                                            q.join.build_key):
+                card.append(st)
+        if card:
+            with tracing.span("join.summary",
+                              rids=tuple(st.rid for st in card)):
+                made = service.join_summary_batch(
+                    [st.build_keys for st in card], pipe.join_ndv_limit)
+            for st, summary in zip(card, made):
+                st.build_summary = summary
+
     def _summarize(self, pipe, state) -> Optional[BuildSummary]:
-        """Host part of the stage: build keys + summary (also feeds the
-        top-k technique's extra mask).  None when the stage is disabled."""
-        if state.query.join is None:
+        """One prepared state's build summary: the card's, else the
+        host's ``summarize_build``.  None when the stage is disabled."""
+        if state.query.join is None or not pipe.enable_join:
             return None
-        with tracing.span("join.build", rid=state.rid):
-            state.build_keys = self._build_keys(state)
-        if not pipe.enable_join:
-            return None
+        if state.build_summary is not None:
+            return state.build_summary
         with tracing.span("join.summary", rid=state.rid):
             return summarize_build(state.build_keys,
                                    ndv_limit=pipe.join_ndv_limit)
@@ -345,13 +372,18 @@ class JoinTechnique(Technique):
         )
 
     def run(self, pipe, state):
+        if state.query.join is None:
+            return
+        device = pipe.filter_mode == "device" and not pipe.adaptive
+        service = pipe.device_service() if device else None
+        self._prepare(pipe, [state], service)
         summary = self._summarize(pipe, state)
         if summary is None:
             return
         hit = None
-        if pipe.filter_mode == "device" and not pipe.adaptive:
+        if device:
             q = state.query
-            hit = pipe.device_service().join_hit(
+            hit = service.join_hit(
                 q.scans[q.join.probe].table, q.join.probe_key, summary,
                 part_ids=state.scan_sets[q.join.probe].part_ids)
         self._apply(pipe, state, summary, hit)
@@ -365,6 +397,7 @@ class JoinTechnique(Technique):
         groups: Dict[Tuple, Tuple] = {}
         bloom_groups: Dict[Tuple, Tuple] = {}
         host_jobs = []
+        self._prepare(pipe, states, service)
         for st in states:
             summary = self._summarize(pipe, st)
             if summary is None:

@@ -73,16 +73,30 @@ def _probe_coords(keys: np.ndarray, n_blocks: int):
     return block, words, bits
 
 
+def bloom_blocks(n_keys: int, bits_per_key: int = 16) -> int:
+    """The filter's block count for ``n_keys`` distinct keys: the least
+    power of two whose blocks hold ``bits_per_key`` bits a key."""
+    want_bits = max(n_keys, 1) * bits_per_key
+    n_blocks = 1
+    while n_blocks * BLOCK_WORDS * 32 < want_bits:
+        n_blocks *= 2
+    return n_blocks
+
+
 class BlockedBloom:
     """Register-blocked Bloom filter over int-domain keys."""
 
     def __init__(self, n_keys: int, bits_per_key: int = 16):
-        want_bits = max(n_keys, 1) * bits_per_key
-        n_blocks = 1
-        while n_blocks * BLOCK_WORDS * 32 < want_bits:
-            n_blocks *= 2
-        self.n_blocks = n_blocks
-        self.words = np.zeros(n_blocks * BLOCK_WORDS, dtype=np.uint32)
+        self.n_blocks = bloom_blocks(n_keys, bits_per_key)
+        self.words = np.zeros(self.n_blocks * BLOCK_WORDS, dtype=np.uint32)
+
+    @classmethod
+    def from_words(cls, words: np.ndarray) -> "BlockedBloom":
+        """A filter around words built elsewhere (the card's summary)."""
+        bloom = cls.__new__(cls)
+        bloom.words = np.asarray(words, dtype=np.uint32)
+        bloom.n_blocks = bloom.words.size // BLOCK_WORDS
+        return bloom
 
     @property
     def size_bytes(self) -> int:

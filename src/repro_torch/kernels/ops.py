@@ -29,6 +29,10 @@ and a *batch* of queries is packed into one launch per table group.
   * filter (``prune_ranges_batched_device``): ``[Q, Kb]`` constraint
     tables (Kb a power-of-two bucket, ``(-inf, +inf)`` no-op padding)
     against the ``[C, P]`` stat planes, ``minmax_prune_batched``;
+  * JOIN, the build sides' summaries (``summarize_build_batched_device``):
+    G build sides' keys in one buffer, deduped and Bloom-set on the card,
+    ``bloom_build`` (not a TPU kernel: the reference summarises on the
+    host);
   * JOIN, distinct summaries (``join_overlap_batched_device``): ``[Q, Db]``
     sorted key rows against the join-key plane, ``join_overlap_batched``;
   * JOIN, Bloom summaries (``bloom_probe_batched_device``): ``[Q, Bb*16]``
@@ -76,8 +80,10 @@ from ..core.device_stats import (TREE_MIN_GROUPS, DeviceStats,
                                  resolve_device, round_down_f32,
                                  round_up_f32, snap_bounds_integral, to_host)
 from ..core.metadata import PartitionStats
-from ..core.prune_join import BLOCK_WORDS
+from ..core.prune_join import (BLOCK_WORDS, BlockedBloom, BuildSummary,
+                               summarize_build)
 from . import build
+from .bloom_build import bloom_build, plan_builds
 from .bloom_probe import bloom_probe_batched
 from .build import KernelError, load_all
 from .flash_attention import flash_attention
@@ -88,8 +94,9 @@ from .ref import minmax_prune_gathered_ref, topk_boundary_prefix_ref
 from .topk_boundary import topk_boundary, topk_init_batched
 
 # the port's kernels (csrc/<name>.cu): the batched ones in the order of
-# the pipeline's stages, then the per-query ones, then the LM prefill's
-KERNELS = ("minmax_prune_batched", "join_overlap_batched",
+# the pipeline's stages (the JOIN's build summary before its probe), then
+# the per-query ones, then the LM prefill's
+KERNELS = ("minmax_prune_batched", "bloom_build", "join_overlap_batched",
            "bloom_probe_batched", "topk_init_batched",
            "minmax_prune", "join_overlap", "topk_boundary",
            "flash_attention")
@@ -757,6 +764,76 @@ def bloom_probe_batched_device(
                                            width_eff[ids],
                                            num_partitions=len(ids))[0]
     return _read_back(hit, "bloom_probe_batched")
+
+
+def summarize_build_batched_device(
+    keys_list: Sequence[np.ndarray],   # G build sides' non-null keys
+    ndv_limit: int = 4096,
+    bits_per_key: int = 16,
+    device=None,
+) -> List[BuildSummary]:
+    """``core.prune_join.summarize_build`` of each key array, field for
+    field, computed by ``bloom_build`` in one launch: one H2D of the plan
+    and every key as int64 (through pinned memory on the card), a read of
+    the [G, 8] header (the NDVs), and one read of what each summary needs:
+    its distinct keys (sorted here, in the keys' dtype) or its Bloom
+    words.  Keys are signed integers, or floats holding integers inside
+    int64's range (an integer column's encoded values: the caller checks,
+    ``PruningService.summary_on_card``).  An empty build side launches
+    nothing."""
+    dev = resolve_device(device)
+    keys_list = [np.asarray(k) for k in keys_list]
+    for k in keys_list:
+        if k.ndim != 1 or k.dtype.kind not in "if":
+            raise KernelError(f"build keys must be 1-D signed integers or "
+                              f"floats, got {k.dtype} of shape {k.shape}")
+    out: List[Optional[BuildSummary]] = [
+        None if k.size else summarize_build(k) for k in keys_list]
+    live = [i for i, k in enumerate(keys_list) if k.size]
+    if not live:
+        return out
+    with tracing.span("launch.bloom_build"):
+        plan = plan_builds([keys_list[i].size for i in live], ndv_limit,
+                           bits_per_key)
+        G = len(live)
+        host = torch.empty(G * plan.shape[1] + int(plan[:, 1].sum()),
+                           dtype=torch.int64,
+                           pin_memory=build.runs_kernel(dev))
+        buf = host.numpy()
+        buf[:plan.size] = plan.reshape(-1)
+        for g, i in enumerate(live):
+            k0 = plan.size + int(plan[g, 0])
+            buf[k0:k0 + keys_list[i].size] = keys_list[i]
+        header, distinct, words = bloom_build(
+            host.to(dev, non_blocking=True), plan, ndv_limit, bits_per_key)
+        head = _read_back(header, "bloom_build")
+        # what each summary needs, read back as one int64 array: its NDV
+        # keys, or its filter's words in pairs (16 words a block)
+        parts = []
+        for g in range(G):
+            ndv, w0 = int(head[g, 0]), int(plan[g, 4])
+            w1 = w0 + int(head[g, 3]) * BLOCK_WORDS
+            parts.append(distinct[g, :ndv] if ndv <= ndv_limit
+                         else words[w0:w1].view(torch.int64))
+        flat = _read_back(torch.cat(parts) if G > 1 else parts[0],
+                          "bloom_build")
+    at = 0
+    for g, i in enumerate(live):
+        ndv, lo, hi, n_blocks = (int(v) for v in head[g, :4])
+        keys = keys_list[i]
+        summary_of = (float(lo), float(hi), int(keys.size))
+        if ndv <= ndv_limit:
+            uniq = np.sort(flat[at:at + ndv]).astype(keys.dtype, copy=False)
+            out[i] = BuildSummary(*summary_of, uniq, None,
+                                  int(uniq.nbytes) + 16)
+            at += ndv
+        else:
+            n = n_blocks * BLOCK_WORDS // 2
+            bloom = BlockedBloom.from_words(flat[at:at + n].view(np.uint32))
+            out[i] = BuildSummary(*summary_of, None, bloom,
+                                  bloom.size_bytes + 16)
+            at += n
+    return out
 
 
 def pack_candidates(candidate_lists: Sequence[np.ndarray]

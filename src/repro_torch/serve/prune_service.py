@@ -96,7 +96,8 @@ from ..core.metadata import (FULL_MATCH, NO_MATCH, PARTIAL_MATCH, ScanSet,
                              live_full_scan, mask_dead_partitions)
 from ..core.predicate_cache import TableVersion
 from ..core.prune_filter import eval_tv, extract_ranges
-from ..core.prune_join import DEFAULT_ENUM_LIMIT, BuildSummary
+from ..core.prune_join import (DEFAULT_ENUM_LIMIT, BuildSummary,
+                               summarize_build)
 from ..kernels import ops as kops
 from ..kernels.build import KernelError
 # Boundary-init k cap: the kernel sorts the values above its threshold of
@@ -108,6 +109,15 @@ from .resilience import (DegradationLadder, new_latency_counters,
                          new_resilience_counters, resilience_delta,
                          resilience_snapshot)
 
+# Build sides of at least this many keys are summarised on the card by
+# ``join_summary_batch``; smaller ones keep the host's ``summarize_build``.
+# The crossover, measured on an H100 (PERF.md §6, the summary's sweep): the
+# card path costs 0.35-0.6 ms a call at any size up to 65,536 keys (the
+# launch and its two round trips), numpy under 0.1 ms up to the default
+# 4,096-key distinct limit (``np.unique`` alone) and 1.3 ms or more from
+# 6,144 keys, where its summaries turn to Bloom filters.
+CARD_SUMMARY_MIN_KEYS = 8192
+
 # Registered DegradationLadder launch sites: the only methods allowed to
 # call ``kops.*_batched_*`` entrypoints (the tree forms included).  Each
 # builds a rung list that is executed exclusively through
@@ -117,6 +127,7 @@ LADDER_LAUNCH_SITES = frozenset({
     "PruningService._verdict_group",
     "PruningService.join_hit_batch",
     "PruningService.bloom_hit_batch",
+    "PruningService.join_summary_batch",
     "PruningService.topk_init_batch",
     # the async front-end's dispatch (serve/frontend.py): every launch it
     # triggers goes through run_batch, whose stages execute only through
@@ -136,6 +147,11 @@ class ServiceCounters:
     # per-technique attribution: {'filter': {'launches': n, 'fallbacks': m}}
     technique: Dict[str, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
+    # build-side summaries routed to the card (``join_summary_batch``):
+    # made there ('device'), or sent to the host by the ladder ('host');
+    # summaries, not launches, so they stay out of ``launches``
+    join_summary: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict(device=0, host=0))
 
     def bump(self, tech: str, launches: int = 0, fallbacks: int = 0,
              sharded: int = 0, tree: int = 0) -> None:
@@ -153,7 +169,8 @@ class ServiceCounters:
                     host_fallbacks=self.host_fallbacks,
                     sharded_launches=self.sharded_launches,
                     tree_launches=self.tree_launches,
-                    technique={k: dict(v) for k, v in self.technique.items()})
+                    technique={k: dict(v) for k, v in self.technique.items()},
+                    join_summary=dict(self.join_summary))
 
     @staticmethod
     def delta(before: dict, after: dict) -> dict:
@@ -166,6 +183,8 @@ class ServiceCounters:
             t: {f: v - before["technique"].get(t, zero)[f]
                 for f, v in fields.items()}
             for t, fields in after["technique"].items()}
+        out["join_summary"] = {k: v - before["join_summary"][k]
+                               for k, v in after["join_summary"].items()}
         return out
 
 
@@ -705,6 +724,48 @@ class PruningService:
         if table.stats.column(key_col).kind == "float":
             return False
         return self.cache.enum_plane(table, key_col)[3]
+
+    def summary_on_card(self, keys: np.ndarray, stats,
+                        key_col: str) -> bool:
+        """Is this build side summarised on the card?  On a CUDA service,
+        for at least ``CARD_SUMMARY_MIN_KEYS`` keys of an integer or
+        dictionary column (``stats`` is the build table's metadata): the
+        card dedupes and hashes them as int64, as the host's Bloom fold
+        does, so encoded float keys also need the column's range inside
+        int64.  Any other build side keeps the host's
+        ``summarize_build``."""
+        if self.device.type != "cuda" or keys.size < CARD_SUMMARY_MIN_KEYS:
+            return False
+        if keys.dtype.kind == "i":
+            return True
+        if keys.dtype.kind != "f" or stats.column(key_col).kind == "float":
+            return False
+        lo, hi = stats.col_min(key_col), stats.col_max(key_col)
+        live = lo <= hi                    # all-null partitions: lo > hi
+        return bool(not live.any() or (lo[live].min() >= -2.0 ** 63
+                                       and hi[live].max() < 2.0 ** 63))
+
+    def join_summary_batch(self, keys_list: Sequence[np.ndarray],
+                           ndv_limit: int) -> List[BuildSummary]:
+        """``summarize_build`` of each build side's keys, field for field,
+        in one ``bloom_build`` launch (the plain version on a CPU service).
+        A faulted device rung sends the build sides to the host's
+        ``summarize_build``, the exact terminal rung."""
+        def device():
+            self._fire("launch.join_summary:device")
+            out = kops.summarize_build_batched_device(
+                keys_list, ndv_limit, device=self.device)
+            self.counters.join_summary["device"] += len(keys_list)
+            return out
+
+        def host_oracle():
+            self.counters.join_summary["host"] += len(keys_list)
+            return [summarize_build(k, ndv_limit=ndv_limit)
+                    for k in keys_list]
+
+        out, _rung = self.ladder.execute([("device", device),
+                                          ("host_oracle", host_oracle)])
+        return out
 
     def join_hit_batch(self, table, key_col: str,
                        summaries: Sequence[BuildSummary],

@@ -99,6 +99,8 @@ COUNTER_REGISTRY = frozenset({
     # the launches that ran the tree path (ServiceCounters.tree_launches)
     "filter", "join", "join_bloom", "topk", "launches", "fallbacks",
     "tree_launches", "sharded_launches",
+    # build-side summaries routed to the card (ServiceCounters.join_summary)
+    "join_summary", "device", "host",
     # staging work (DeviceStatsCache.staging_snapshot, counters["staging"])
     "staged_bytes", "delta_stages", "full_restages", "prefetch_stages",
     # report sections attached to each batch (PruningService.run_batch)

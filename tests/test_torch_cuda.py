@@ -614,6 +614,64 @@ def test_topk_init_equals_plain_version(cuda, Q, P, k):
     assert torch.equal(got, want)
 
 
+def _build_sides(case: str, rng) -> list:
+    """Build sides for ``bloom_build``: Q3-sized sparse keys, heavy
+    duplicates, NDV at and over the 4,096 limit, int64's ends and the key
+    -1 (the hash set's empty slot), and all of them in one batch."""
+    i64 = np.iinfo(np.int64)
+    sides = {
+        "q3": [rng.permutation(np.unique(rng.integers(1, 6_000_000_001,
+                                                      252_000)))[:250_000]],
+        "duplicates": [rng.integers(0, 3000, 100_000)],
+        "ndv_at_limit": [np.repeat(rng.choice(10 ** 12, 4096,
+                                              replace=False), 3)],
+        "ndv_over_limit": [np.repeat(rng.choice(10 ** 12, 4097,
+                                                replace=False), 3)],
+        "extreme": [np.concatenate([np.tile([i64.min, i64.max, -1, 0], 50),
+                                    -rng.integers(1, 2 ** 62, 9000)]),
+                    np.tile(np.array([i64.min, -1, i64.max]), 9)],
+    }
+    if case == "batch":
+        return [k for c in sides.values() for k in c]
+    return sides[case]
+
+
+@pytest.mark.parametrize("case", ["q3", "duplicates", "ndv_at_limit",
+                                  "ndv_over_limit", "extreme", "batch"])
+def test_bloom_build_equals_plain_version(cuda, case):
+    from repro_torch.core.prune_join import summarize_build
+    from repro_torch.kernels import bloom_build as bb
+
+    sides = [np.asarray(k, dtype=np.int64)
+             for k in _build_sides(case, np.random.default_rng(len(case)))]
+    plan = bb.plan_builds([k.size for k in sides], 4096, 16)
+    staged = torch.from_numpy(np.concatenate([plan.reshape(-1), *sides]))
+    before = bb.bloom_build.launches
+    head, dist, words = bb.bloom_build(staged.to(cuda), plan, 4096, 16)
+    torch.cuda.synchronize()
+    assert bb.bloom_build.launches == before + 1
+    want_head, want_dist, want_words = bb.bloom_build(staged, plan, 4096, 16)
+    head, dist, words = head.cpu(), dist.cpu(), words.cpu()
+    assert torch.equal(head[:, :5], want_head[:, :5])
+    assert torch.equal(words, want_words)
+    for g, ndv in enumerate(head[:, 0].tolist()):
+        if ndv <= 4096:
+            assert torch.equal(torch.sort(dist[g, :ndv]).values,
+                               want_dist[g, :ndv])
+    # and through the wrapper, field for field against numpy
+    for got, keys in zip(ops.summarize_build_batched_device(sides, 4096,
+                                                            device=cuda),
+                         sides):
+        want = summarize_build(keys, ndv_limit=4096)
+        assert (got.min, got.max, got.count, got.size_bytes) == \
+            (want.min, want.max, want.count, want.size_bytes)
+        if want.bloom is None:
+            assert np.array_equal(got.distinct, want.distinct)
+        else:
+            assert got.bloom.n_blocks == want.bloom.n_blocks
+            assert np.array_equal(got.bloom.words, want.bloom.words)
+
+
 @pytest.mark.parametrize("kernel", ["join_overlap_batched",
                                     "bloom_probe_batched",
                                     "topk_init_batched"])
