@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-from typing import Dict, List, Optional
+import importlib
+import re
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -224,11 +226,30 @@ def gen_tpch(tspec: dict, seed: int, salt: int) -> List[RawTable]:
 GENERATORS = {"columns": gen_columns, "users": gen_users, "tpch": gen_tpch}
 
 
+def generator(name: str) -> Callable[[dict, int, int], List[RawTable]]:
+    """A table spec's ``generator``: one of ``GENERATORS``, else the
+    ``generate(tspec, seed, salt)`` of ``generators/<name>.py``, so a new
+    schema comes as a file of its own."""
+    if name in GENERATORS:
+        return GENERATORS[name]
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        raise KeyError(f"generator {name!r} is not a module name")
+    try:
+        module = importlib.import_module(f"{__package__}.generators.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{__package__}.generators.{name}":
+            raise
+        raise KeyError(f"no generator {name!r}: neither in gen.GENERATORS "
+                       f"nor a module portbench/generators/{name}.py"
+                       ) from None
+    return module.generate
+
+
 def make_tables(config: dict, seed: int) -> Dict[str, RawTable]:
     """Every table of a configuration, from the seed alone."""
     out: Dict[str, RawTable] = {}
     for salt, tspec in enumerate(config["tables"]):
-        for t in GENERATORS[tspec["generator"]](tspec, seed, salt + 1):
+        for t in generator(tspec["generator"])(tspec, seed, salt + 1):
             out[t.name] = t
     return out
 

@@ -13,6 +13,7 @@ and all the time of whole batches.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import sys
@@ -300,9 +301,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
 
     # the clients' queries are planned before the window, so the window
     # times the service and not the benchmark's query building: as many as
-    # the mix's rate ceiling reaches in the window, and the clients
-    prepared = {i: to_port(stream.spec(i), tables)
-                for i in range(pool_size(mix, seconds))}
+    # the mix's rate ceiling reaches in the window, and the clients.  The
+    # pool only grows while it is made, so the collector, which would walk
+    # it again and again, waits until it is whole.
+    gc.disable()
+    try:
+        prepared = {i: to_port(stream.spec(i), tables)
+                    for i in range(pool_size(mix, seconds))}
+    finally:
+        gc.enable()
+    log(f"[portbench] planned {len(prepared)} queries "
+        f"{time.perf_counter() - t_start:.3f} s after start")
     tracer = None
     if traced:
         from .trace import Tracer
@@ -318,7 +327,19 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         tracer.start()
     setup_s = time.perf_counter() - t_start
     log(f"[portbench] set-up {setup_s:.3f} s; window of {seconds} s opens")
-    t0, t1 = clients.window(seconds, limit_s=seconds + 300.0)
+    try:
+        # a minute past the close for the batch in flight: a window that
+        # never closes has lost a thread of the service
+        t0, t1 = clients.window(seconds, limit_s=seconds + 60.0)
+    except BaseException:
+        if tracer is not None:
+            tracer.abort()
+            tracer.uninstall()
+        raise
+    if tracer is not None:
+        # the trace ends with the service idle: the worker has left its
+        # last batch, not only answered it
+        fe.drain()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if tracer is not None:

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -56,13 +56,22 @@ def table_stats(raw, rnd=identity) -> Stats:
 def interval(raw, col: str, op: str, v, rnd=identity
              ) -> Tuple[float, bool, float, bool]:
     """The constraint as (lo, lo_strict, hi, hi_strict) over the column's
-    encoded values (dictionary codes for strings); an empty interval has
-    lo = +inf."""
+    encoded values (dictionary codes for strings, whose ge / gt / le / lt
+    follow the dictionary's order); an empty interval has lo = +inf."""
     inf = np.inf
     c = raw.columns[col]
     if c.kind == "str":
         d = c.dictionary
-        if op == "eq":
+        if op in ("ge", "gt", "le", "lt"):
+            lo, hi = 0, len(d) - 1
+            if op in ("ge", "gt"):
+                lo = int(np.searchsorted(d, v, "left" if op == "ge"
+                                         else "right"))
+            else:
+                hi = int(np.searchsorted(d, v, "right" if op == "le"
+                                         else "left")) - 1
+            hit = np.arange(lo, hi + 1)
+        elif op == "eq":
             hit = np.flatnonzero(d == v)
         elif op in ("prefix", "like"):
             p = v[:-1] if op == "like" else v
@@ -88,6 +97,18 @@ def interval(raw, col: str, op: str, v, rnd=identity
     raise ValueError(f"unknown op {op!r}")
 
 
+def in_set(raw, col: str, values, rnd=identity) -> np.ndarray:
+    """An ``in`` list as the sorted distinct encoded values it admits
+    (strings absent from the dictionary admit nothing)."""
+    c = raw.columns[col]
+    if c.kind == "str":
+        d = c.dictionary
+        v = np.asarray(list(values), dtype=str)   # no truncation
+        codes = np.minimum(np.searchsorted(d, v), len(d) - 1)
+        return np.unique(codes[d[codes] == v]).astype(np.float64)
+    return np.unique(rnd(np.asarray(values, dtype=np.float64)))
+
+
 def _above(x, lo, strict):
     return x > lo if strict else x >= lo
 
@@ -100,10 +121,18 @@ def verdicts(raw, stats: Stats, cons, rnd=identity) -> np.ndarray:
     """int8 [P]: each partition's three-valued verdict, AND as the min."""
     v = np.full(stats.num_partitions, FULL, dtype=np.int8)
     for col, op, val in cons:
-        lo, los, hi, his = interval(raw, col, op, val, rnd)
         pmin, pmax = stats.mins[col], stats.maxs[col]
-        no = ~_above(pmax, lo, los) | ~_below(pmin, hi, his)
-        full = _above(pmin, lo, los) & _below(pmax, hi, his)
+        if op == "in":
+            # NO when no set value lies in [min, max]; FULL when min = max
+            # is in the set
+            s = in_set(raw, col, val, rnd)
+            no = (np.searchsorted(s, pmax, "right")
+                  == np.searchsorted(s, pmin, "left"))
+            full = (pmin == pmax) & ~no
+        else:
+            lo, los, hi, his = interval(raw, col, op, val, rnd)
+            no = ~_above(pmax, lo, los) | ~_below(pmin, hi, his)
+            full = _above(pmin, lo, los) & _below(pmax, hi, his)
         t = np.where(no, NO, np.where(full, FULL, PARTIAL)).astype(np.int8)
         np.minimum(v, t, out=v)
     return v
@@ -114,11 +143,29 @@ def row_mask(raw, cons, rnd=identity, idx=None) -> np.ndarray:
     constraints."""
     m = np.ones(raw.num_rows if idx is None else len(idx), dtype=bool)
     for col, op, val in cons:
-        lo, los, hi, his = interval(raw, col, op, val, rnd)
         x = raw.columns[col].values
         x = rnd(x if idx is None else x[idx])
+        if op == "in":
+            m &= np.isin(x, in_set(raw, col, val, rnd))
+            continue
+        lo, los, hi, his = interval(raw, col, op, val, rnd)
         m &= _above(x, lo, los) & _below(x, hi, his)
     return m
+
+
+def probe_joins(q) -> Dict[str, List[tuple]]:
+    """The query's joins by probe scan.  A star join only: a scan that is
+    a build side may not be a probe."""
+    joins = q.all_joins
+    builds = {j[0] for j in joins}
+    out: Dict[str, List[tuple]] = {}
+    for j in joins:
+        if j[1] in builds:
+            raise ValueError(f"query {q.index} ({q.kind}): scan {j[1]!r} is "
+                             f"both a build side and a probe; only star "
+                             f"joins are judged")
+        out.setdefault(j[1], []).append(j)
+    return out
 
 
 def rows_of(bounds: np.ndarray, parts: np.ndarray) -> np.ndarray:
@@ -157,35 +204,53 @@ class Reference:
     def rows(self, table: str, cons) -> np.ndarray:
         return row_mask(self.tables[table], cons, self.rnd)
 
-    def _build_key(self, q) -> Tuple:
-        table, cons = q.scans[q.join[0]]
-        return (table, tuple(cons), q.join[2])
+    def _build_key(self, q, j) -> Tuple:
+        table, cons = q.scans[j[0]]
+        return (table, tuple(cons), j[2])
 
-    def build_keys(self, q) -> np.ndarray:
-        """Sorted distinct join keys of the build side's matching rows."""
-        table, cons = q.scans[q.join[0]]
-        key = self._build_key(q)
+    def build_keys(self, q, j=None) -> np.ndarray:
+        """Sorted distinct join keys of the build side's matching rows (of
+        join ``j``, by default the query's one join)."""
+        j = j or q.join
+        table, cons = q.scans[j[0]]
+        key = self._build_key(q, j)
         if key not in self._keys:
-            vals = self.rnd(self.tables[table].columns[q.join[2]].values)
+            vals = self.rnd(self.tables[table].columns[j[2]].values)
             self._keys[key] = np.unique(vals[self.rows(table, cons)])
         return self._keys[key]
 
-    def key_ranges(self, q) -> Tuple[np.ndarray, np.ndarray]:
-        st = self.stats(q.scans[q.join[1]][0])
-        return st.mins[q.join[3]], st.maxs[q.join[3]]
+    def key_ranges(self, q, j=None) -> Tuple[np.ndarray, np.ndarray]:
+        j = j or q.join
+        st = self.stats(q.scans[j[1]][0])
+        return st.mins[j[3]], st.maxs[j[3]]
 
-    def join_sets(self, q) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Over the probe's partitions: in the build keys' range, holding a
-        build key, and kept by the build side's summary (the distinct keys
-        up to ``join_exact_ndv`` of them, else the Bloom summary)."""
-        ck = (self._build_key(q), q.scans[q.join[1]][0], q.join[3])
+    def join_sets(self, q, j=None
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Over the probe's partitions, for join ``j`` (by default the
+        query's one join): in the build keys' range, holding a build key,
+        and kept by the build side's summary (the distinct keys up to
+        ``join_exact_ndv`` of them, else the Bloom summary).  Cached by
+        join, so a build predicate that repeats is summarised once."""
+        j = j or q.join
+        ck = (self._build_key(q, j), q.scans[j[1]][0], j[3])
         if ck not in self._join:
-            self._join[ck] = self._join_sets(q)
+            self._join[ck] = self._join_sets(q, j)
         return self._join[ck]
 
-    def _join_sets(self, q) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        keys = self.build_keys(q)
-        pmin, pmax = self.key_ranges(q)
+    def probe_sets(self, q, probe: str
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``join_sets`` for the scan ``probe`` over all its joins, each
+        set the AND of the joins' sets: a partition is kept only where
+        every join's summary keeps it."""
+        sets = [self.join_sets(q, j) for j in probe_joins(q)[probe]]
+        if len(sets) == 1:
+            return sets[0]
+        return tuple(np.logical_and.reduce([s[i] for s in sets])
+                     for i in range(3))
+
+    def _join_sets(self, q, j) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        keys = self.build_keys(q, j)
+        pmin, pmax = self.key_ranges(q, j)
         if keys.size == 0:
             none = np.zeros(len(pmin), dtype=bool)
             return none, none, none
@@ -194,7 +259,7 @@ class Reference:
                  > np.searchsorted(keys, pmin, side="left"))
         if keys.size <= self.exact_ndv:
             return in_range, holds, holds
-        probe, col = q.scans[q.join[1]][0], q.join[3]
+        probe, col = q.scans[j[1]][0], j[3]
         integer = self.tables[probe].columns[col].kind != "float"
         kept = bloom_keep(keys, pmin, pmax, in_range, integer,
                           int(self.bloom["bits_per_key"]),
@@ -242,15 +307,14 @@ class Reference:
     def _signed(self, q, raw, col: str, sign: float,
                 parts: np.ndarray) -> np.ndarray:
         """Signed order values of the matching rows of ``parts`` (through
-        the join's build keys when the ordered scan is its probe)."""
+        each join's build keys where the ordered scan is its probe)."""
         alias = q.order_by[0]
         table, cons = q.scans[alias]
         idx = rows_of(raw.bounds, np.sort(parts))
         mask = row_mask(raw, cons, self.rnd, idx)
-        if q.join is not None and alias == q.join[1]:
-            kv = self.rnd(raw.columns[q.join[3]].values[idx])
-            keys = self.build_keys(q)
-            mask &= np.isin(kv, keys)
+        for j in probe_joins(q).get(alias, ()):
+            kv = self.rnd(raw.columns[j[3]].values[idx])
+            mask &= np.isin(kv, self.build_keys(q, j))
         return sign * self.rnd(raw.columns[col].values[idx][mask])
 
     # -- the reference's own answers (the control runs these in bfloat16) --
@@ -264,21 +328,23 @@ class Reference:
             ids = np.flatnonzero(v > NO)
             scans[alias] = (ids, v[ids])
             tech[alias] = {"filter": (len(v), len(ids), {})}
-        if q.limit is not None and q.order_by is None and q.join is None:
+        joins = probe_joins(q)
+        if q.limit is not None and q.order_by is None and not joins:
             for alias, (table, _cons) in q.scans.items():
                 ids, match = scans[alias]
                 keep = self._limit_keep(table, ids, match,
                                         q.limit + q.offset)
                 scans[alias] = (ids[keep], match[keep])
                 tech[alias]["limit"] = (len(ids), int(keep.sum()), {})
-        if q.join is not None:
-            probe = q.join[1]
+        for probe, js in joins.items():
             ids, match = scans[probe]
-            in_range, _holds, kept = self.join_sets(q)
+            in_range, _holds, kept = self.probe_sets(q, probe)
             keep = kept[ids]
             scans[probe] = (ids[keep], match[keep])
-            tech[probe]["join"] = (len(ids), int(keep.sum()),
-                                   {"by_range": int((~in_range[ids]).sum())})
+            tech[probe]["join"] = (
+                len(ids), int(keep.sum()),
+                {"by_range": int((~in_range[ids]).sum())} if len(js) == 1
+                else {})
         topk = None
         if q.order_by is not None and q.limit is not None:
             alias = q.order_by[0]

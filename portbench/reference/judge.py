@@ -14,7 +14,7 @@ from typing import List
 
 import numpy as np
 
-from .engine import FULL, NO, min_limit_partitions
+from .engine import FULL, NO, min_limit_partitions, probe_joins
 
 CHECKS = ("unanswered", "filter", "limit", "join", "topk")
 
@@ -38,9 +38,9 @@ def judge(ref, q, served) -> List[str]:
     scans, tech = served["scans"], served["tech"]
     if set(scans) != set(q.scans):
         return ["filter"]
+    joins = probe_joins(q)
     plain_limit = (q.limit is not None and q.order_by is None
-                   and q.join is None)
-    probe = q.join[1] if q.join is not None else None
+                   and not joins)
     for alias, (table, cons) in q.scans.items():
         v = ref.verdicts(table, cons)
         f_ids = np.flatnonzero(v > NO)
@@ -57,8 +57,8 @@ def judge(ref, q, served) -> List[str]:
         if plain_limit:
             if not _limit_ok(ref, q, table, v, f_ids, ids, t):
                 bad.add("limit")
-        elif alias == probe:
-            if not _join_ok(ref, q, f_ids, ids, t):
+        elif alias in joins:
+            if not _join_ok(ref, q, alias, len(joins[alias]), f_ids, ids, t):
                 bad.add("join")
         elif not _same(ids, f_ids, len(v)):
             bad.add("filter")
@@ -84,13 +84,16 @@ def _limit_ok(ref, q, table, v, f_ids, ids, t) -> bool:
             and int(rows[ids].sum()) >= k)
 
 
-def _join_ok(ref, q, f_ids, ids, t) -> bool:
-    in_range, holds, kept = ref.join_sets(q)
+def _join_ok(ref, q, probe, n_joins, f_ids, ids, t) -> bool:
+    """The probe's kept set is the filter's less what its joins prune:
+    every join's summary keeps each partition left (``probe_sets``); the
+    report says (filter-kept, kept), and with one join its ``by_range``."""
+    in_range, holds, kept = ref.probe_sets(q, probe)
     rep = t.get("join")
     if rep is None or tuple(rep[:2]) != (len(f_ids), len(ids)):
         return False
     detail = rep[2] if len(rep) > 2 else {}
-    if ("by_range" in detail
+    if (n_joins == 1 and "by_range" in detail
             and detail["by_range"] != int((~in_range[f_ids]).sum())):
         return False
     must = f_ids[holds[f_ids]]

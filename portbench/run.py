@@ -19,6 +19,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import faulthandler  # noqa: E402
 import importlib  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
@@ -96,6 +97,9 @@ def card_line() -> str:
 
 
 def main(argv=None) -> int:
+    # a fault in native code (the profiler, a kernel's wrapper) prints every
+    # thread's Python stack on standard error before the process dies
+    faulthandler.enable(all_threads=True)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)

@@ -52,6 +52,29 @@ def test_last_line_keys_traced_run():
                                        for m in cell.bench["end_to_end"]}
 
 
+def test_a_window_that_fails_stops_the_profiler(monkeypatch):
+    """A traced run whose window fails (a service thread lost) raises its
+    own error with the profiler stopped and the program's methods
+    unwrapped, so the process ends with that error."""
+    import pytest
+    from torch.autograd import profiler as autograd_profiler
+
+    from portbench import harness
+    from repro_torch.serve.prune_service import PruningService
+
+    run_batch = PruningService.__dict__["run_batch"]
+
+    def lost(self, seconds, limit_s):
+        assert autograd_profiler._is_profiler_enabled
+        raise RuntimeError("the window did not close")
+
+    monkeypatch.setattr(harness.Clients, "window", lost)
+    with pytest.raises(RuntimeError, match="did not close"):
+        run_tiny(tiny_cell("tpch-sf1000.mixed"), traced=True)
+    assert not autograd_profiler._is_profiler_enabled
+    assert PruningService.__dict__["run_batch"] is run_batch
+
+
 def _python(code: str, env_extra=None) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=f"{REPO}:{REPO / 'src'}",
                CUDA_VISIBLE_DEVICES="", **(env_extra or {}))

@@ -128,7 +128,12 @@ class Tracer:
 
     def __init__(self):
         self.spans = Spans()
-        self.index_of: Dict[int, Tuple[int, object]] = {}
+        # id of a query -> its stream index.  The query itself is not held:
+        # the window's queries are freed once answered, as in an untraced
+        # run, so the traced window's heap and its collections do not
+        # grow with every query served.  A later query that reuses a freed
+        # query's id overwrites its entry before it can be looked up.
+        self.index_of: Dict[int, int] = {}
         self.summary_of: Dict[int, int] = {}
         self._undo: List[Tuple[object, str, object]] = []
         self._prof = None
@@ -136,10 +141,10 @@ class Tracer:
         self.trace: Optional[Trace] = None
 
     def on_query(self, i: int, q) -> None:
-        self.index_of[id(q)] = (i, q)
+        self.index_of[id(q)] = i
 
     def _idx(self, q) -> int:
-        return self.index_of.get(id(q), (-1, None))[0]
+        return self.index_of.get(id(q), -1)
 
     def _wrap(self, owner, attr: str, label: str, payload=None) -> None:
         orig = getattr(owner, attr)
@@ -227,6 +232,14 @@ class Tracer:
             pass
         b = time.perf_counter()
         self._marks[name] = (a + b) / 2.0
+
+    def abort(self) -> None:
+        """Stop the profiler of a run that failed in its window, reading
+        nothing: the process then ends with its error, not with a
+        profiler still running while the interpreter tears down."""
+        if self._prof is not None:
+            prof, self._prof = self._prof, None
+            prof.stop()
 
     def stop(self) -> None:
         self._mark("portbench.close")

@@ -3,13 +3,16 @@
 A mix (``mixes/<name>.json``) is data alone:
 
   ``kinds``   query templates: scans (alias -> table and predicate), an
-              optional join ``[build, probe, build_key, probe_key]``,
-              ``limit`` / ``offset`` and ``order_by [alias, column, desc]``;
-              ``vars`` are drawn first and shared by the query's
-              constraints;
+              optional ``join [build, probe, build_key, probe_key]`` or
+              ``joins`` (a list of them: a star join, several build sides
+              on one probe scan; not both), ``limit`` / ``offset`` and
+              ``order_by [alias, column, desc]``; ``vars`` are drawn first
+              and shared by the query's constraints;
   ``preds``   named predicates: conjunctions of ``{"col", "op", "value"}``
               with ``op`` one of ge, gt, le, lt, eq, prefix, like
-              (a trailing ``%`` only);
+              (a trailing ``%`` only), in (``value`` a list of values or
+              draws); ge, gt, le and lt compare strings by dictionary
+              order;
   ``cycle``   ``[kind, count]`` pairs: the stream repeats one cycle whose
               counts are the mix's shares, each kind spread evenly over it.
 
@@ -35,6 +38,8 @@ import numpy as np
 from .gen import rng_for, sample_limit_k
 
 Constraint = Tuple[str, str, object]          # (column, op, value)
+Join = Tuple[str, str, str, str]              # build, probe, build_key,
+                                              # probe_key
 
 
 @dataclasses.dataclass
@@ -45,17 +50,22 @@ class QuerySpec:
     index: int
     kind: str
     scans: Dict[str, Tuple[str, List[Constraint]]]   # alias -> (table, pred)
-    join: Optional[Tuple[str, str, str, str]] = None  # build, probe, keys
+    join: Optional[Join] = None                       # the one join
     limit: Optional[int] = None
     offset: int = 0
     order_by: Optional[Tuple[str, str, bool]] = None
+    joins: Tuple[Join, ...] = ()                      # two or more
+
+    @property
+    def all_joins(self) -> Tuple[Join, ...]:
+        return (self.join,) if self.join is not None else self.joins
 
     @property
     def cls(self) -> str:
         """filter | limit | join | topk: the stage that carries it."""
-        if self.order_by is not None and self.join is None:
+        if self.order_by is not None and not self.all_joins:
             return "topk"
-        if self.join is not None:
+        if self.all_joins:
             return "join"
         if self.limit is not None:
             return "limit"
@@ -66,13 +76,37 @@ class QuerySpec:
         """The techniques that act on this query."""
         out = ["filter"]
         if self.limit is not None and self.order_by is None \
-                and self.join is None:
+                and not self.all_joins:
             out.append("limit")
-        if self.join is not None:
+        if self.all_joins:
             out.append("join")
         if self.order_by is not None and self.limit is not None:
             out.append("topk")
         return tuple(out)
+
+
+def kind_joins(kind: dict) -> Tuple[Optional[Join], Tuple[Join, ...]]:
+    """A kind's ``(join, joins)`` as ``QuerySpec`` holds them: a ``joins``
+    list of one is the one ``join``."""
+    if "join" in kind and "joins" in kind:
+        raise ValueError("a kind carries 'join' or 'joins', not both")
+    if "join" in kind:
+        return tuple(kind["join"]), ()
+    joins = tuple(tuple(j) for j in kind.get("joins", ()))
+    return (joins[0], ()) if len(joins) == 1 else (None, joins)
+
+
+def draws_anything(kind: dict, preds: dict) -> bool:
+    """Does a query of this kind draw from its generator?  A kind of
+    literals alone needs none made (which is most of a set-up's planning
+    time for such a kind)."""
+    values = list(kind.get("vars", {}).values())
+    values += [kind.get("limit"), kind.get("offset")]
+    for s in kind["scans"].values():
+        pred = s.get("pred", [])
+        for c in preds[pred] if isinstance(pred, str) else pred:
+            values += c["value"] if c["op"] == "in" else [c["value"]]
+    return any(isinstance(v, dict) for v in values)
 
 
 def make_cycle(mix: dict) -> List[str]:
@@ -134,21 +168,27 @@ class Stream:
         self.seed = seed
         self.salt = salt
         self.cycle = make_cycle(mix)
+        self.joins = {name: kind_joins(k) for name, k in mix["kinds"].items()}
+        self.draws = {name: draws_anything(k, mix.get("preds", {}))
+                      for name, k in mix["kinds"].items()}
 
     def kind(self, i: int) -> str:
         return self.cycle[i % len(self.cycle)]
 
     def spec_cls(self, i: int) -> str:
         """``QuerySpec.cls`` of query i, from its kind alone."""
-        k = self.mix["kinds"][self.kind(i)]
-        return QuerySpec(i, "", {}, tuple(k["join"]) if "join" in k else None,
-                         0 if "limit" in k else None, 0,
-                         tuple(k["order_by"]) if "order_by" in k else None).cls
+        kind = self.kind(i)
+        k = self.mix["kinds"][kind]
+        join, joins = self.joins[kind]
+        return QuerySpec(i, "", {}, join, 0 if "limit" in k else None, 0,
+                         tuple(k["order_by"]) if "order_by" in k else None,
+                         joins).cls
 
     def spec(self, i: int) -> QuerySpec:
         kind = self.kind(i)
         k = self.mix["kinds"][kind]
-        rng = rng_for(self.seed, 0x7AFF1C, self.salt, i)
+        rng = (rng_for(self.seed, 0x7AFF1C, self.salt, i)
+               if self.draws[kind] else None)
         env: Dict[str, float] = {}
         for name in sorted(k.get("vars", {})):
             env[name] = draw(k["vars"][name], rng, env)
@@ -157,18 +197,21 @@ class Stream:
             pred = s.get("pred", [])
             if isinstance(pred, str):
                 pred = self.mix["preds"][pred]
-            scans[alias] = (s["table"], [(c["col"], c["op"],
-                                          draw(c["value"], rng, env))
-                                         for c in pred])
+            scans[alias] = (s["table"], [
+                (c["col"], c["op"],
+                 tuple(draw(v, rng, env) for v in c["value"])
+                 if c["op"] == "in" else draw(c["value"], rng, env))
+                for c in pred])
         limit = draw(k["limit"], rng, env) if "limit" in k else None
         if limit is not None and "cap" in k:
             limit = min(limit, k["cap"])
         offset = int(draw(k.get("offset", 0), rng, env))
+        join, joins = self.joins[kind]
         return QuerySpec(
-            index=i, kind=kind, scans=scans,
-            join=tuple(k["join"]) if "join" in k else None,
+            index=i, kind=kind, scans=scans, join=join,
             limit=None if limit is None else int(limit), offset=offset,
-            order_by=tuple(k["order_by"]) if "order_by" in k else None)
+            order_by=tuple(k["order_by"]) if "order_by" in k else None,
+            joins=joins)
 
 
 def port_pred(cons: List[Constraint]):
@@ -192,18 +235,29 @@ def port_pred(cons: List[Constraint]):
             parts.append(E.startswith(c, v))
         elif op == "like":
             parts.append(E.like(c, v))
+        elif op == "in":
+            parts.append(E.in_(c, v))
         else:
             raise ValueError(f"unknown op {op!r}")
     return E.and_(*parts) if parts else E.true()
 
 
 def to_port(q: QuerySpec, tables: dict):
-    """The program's ``Query`` for a spec, over its ``Table`` objects."""
+    """The program's ``Query`` for a spec, over its ``Table`` objects: one
+    join as ``Query.join``, several as ``Query.joins``, which a program
+    without that field cannot take."""
     from repro_torch.core.flow import JoinSpec, Query, TableScanSpec
 
     scans = {alias: TableScanSpec(tables[t], port_pred(cons))
              for alias, (t, cons) in q.scans.items()}
+    joins = {}
+    if q.joins:
+        if "joins" not in {f.name for f in dataclasses.fields(Query)}:
+            raise TypeError(
+                f"query {q.index} ({q.kind}) has {len(q.joins)} joins, and "
+                f"the program's Query has no field 'joins' (Query.joins)")
+        joins["joins"] = [JoinSpec(*j) for j in q.joins]
     return Query(scans=scans,
                  join=None if q.join is None else JoinSpec(*q.join),
                  limit=q.limit, offset=q.offset,
-                 order_by=q.order_by)
+                 order_by=q.order_by, **joins)
